@@ -1,0 +1,382 @@
+"""The batched GJKR ceremony on limb tensors: deal, batch verify, blame,
+aggregate, master key.
+
+Counterpart of ``dkg_tpu/dkg/ceremony.py``, held to it limb for limb:
+the same coefficients from the same ``rng``, the same complete formulas
+in the same order, the same transcript digest and Fiat-Shamir
+randomizers.  State is struct-of-arrays over all parties at once:
+
+* ``deal`` — commitments A = g·a and E = A + h·b for every dealer's t+1
+  coefficients (``fixed_base_mul`` over the g/h window tables, one
+  ``pt_madd`` launch per window), and the n×n share/hiding matrices by
+  Horner (``eval_many``, one ``mod_madd`` launch per coefficient);
+* ``derive_rho`` — per-dealer BLAKE2s Merkle digests of the canonical
+  transcript, folded with BLAKE2b, then n BLAKE2b randomizers;
+* ``verify_batch`` — with randomizers rho_j each recipient i checks
+  g·(Σ_j rho_j s_ji) + h·(Σ_j rho_j s'_ji) == Σ_l i^l · (Σ_j rho_j E_jl):
+  scalar RLCs folded through ``mod_madd``, the point RLC by Straus
+  (``pt_add`` table builds and tree sums, one ``pt_window_step`` per
+  4-bit window), the right side by point Horner (``pt_ladder_mul_add``);
+* ``verify_pairwise`` — the direct per-(dealer, recipient) check, run
+  only when a batch check fails, to assign blame.
+
+Every function takes tensors on one device.  On the card the point and
+field work goes through the CUDA kernels of ``dkg_tpu_torch/csrc``; on
+the CPU through their plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+
+import numpy as np
+import torch
+
+from ..crypto.blake2s import row_digests_np
+from ..crypto.commitment import CommitmentKey
+from ..fields import device as fd
+from ..fields import host as fh
+from ..groups import device as gd
+from ..groups import host as gh
+from ..groups import precompute as gp
+from ..ops import field_kernels as fk
+from ..poly import device as pdev
+from .errors import DkgError, DkgErrorKind
+
+
+@dataclasses.dataclass(frozen=True)
+class CeremonyConfig:
+    """Static ceremony shape."""
+
+    curve: str  # name in gd.ALL_CURVES
+    n: int  # committee size
+    t: int  # threshold (polynomial degree)
+
+    @property
+    def cs(self) -> gd.CurveSpec:
+        return gd.ALL_CURVES[self.curve]
+
+    @property
+    def index_bits(self) -> int:
+        """Bit width of party indices 1..n."""
+        return max(int(self.n).bit_length(), 1)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises if it is CUDA and there is none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run the plain versions")
+    return device
+
+
+# ---------------------------------------------------------------------------
+# round 1: dealing
+# ---------------------------------------------------------------------------
+
+
+def deal(cfg: CeremonyConfig, coeffs_a, coeffs_b, g_table, h_table):
+    """All dealers' round-1 outputs: coefficients (n, t+1, L) ->
+    A (n, t+1, C, L), E (n, t+1, C, L), s (n, n, L) with s[j, i] = f_j(i+1),
+    r (n, n, L) the hiding shares."""
+    a_pub, e_comm = deal_commitments(cfg, coeffs_a, coeffs_b, g_table, h_table)
+    shares, hidings = deal_shares(cfg, coeffs_a, coeffs_b)
+    return a_pub, e_comm, shares, hidings
+
+
+def deal_commitments(cfg: CeremonyConfig, coeffs_a, coeffs_b, g_table, h_table):
+    cs = cfg.cs
+    a_pub = gd.fixed_base_mul(cs, g_table, coeffs_a)
+    b_hid = gd.fixed_base_mul(cs, h_table, coeffs_b)
+    return a_pub, gd.add(cs, a_pub, b_hid)
+
+
+def _index_limbs(fs, n: int, device) -> torch.Tensor:
+    """Party indices 1..n as (n, L) limbs."""
+    xs = fd.zeros(fs, (n,), device=device)
+    xs[:, 0] = torch.arange(1, n + 1, dtype=torch.int32, device=device)
+    return xs
+
+
+def deal_shares(cfg: CeremonyConfig, coeffs_a, coeffs_b):
+    fs = cfg.cs.scalar
+    xs = _index_limbs(fs, cfg.n, coeffs_a.device)
+    return pdev.eval_many(fs, coeffs_a, xs), pdev.eval_many(fs, coeffs_b, xs)
+
+
+# ---------------------------------------------------------------------------
+# verification
+# ---------------------------------------------------------------------------
+
+
+def _field_dot(fs, weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Σ_j weights[j]·values[j, ...] mod p: weights (m, L), values
+    (m, ..., L) -> (..., L), folded acc <- w_j·v_j + acc through mod_madd."""
+    acc = fd.zeros(fs, values.shape[1:-1], device=values.device)
+    for j in range(values.shape[0]):
+        acc = fk.mod_madd(fs, weights[j], values[j], acc)
+    return acc
+
+
+def _point_rlc(cs: gd.CurveSpec, weights: torch.Tensor, points: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Σ_j weights[j]·P[j, ...] for nbits-wide public weights, by windowed
+    Straus (w = 4): per-point 16-entry tables, then per window from the
+    top, gather each point's entry, tree-sum over j, and one window step.
+
+    weights (m, L), points (m, ..., C, L) -> (..., C, L)."""
+    m = points.shape[0]
+    nd = -(-nbits // gd.WINDOW)  # windows that can be non-zero
+    table = gd._build_table(cs, points)  # (m, ..., 16, C, L)
+    digits = gd.scalar_windows(weights, gd.WINDOW)[:, :nd]  # (m, nd)
+    shape = (m,) + (1,) * (points.dim() - 3)
+    acc = gd.identity(cs, points.shape[1:-2], device=points.device)
+    for d in reversed(range(nd)):
+        dig = digits[:, d].reshape(shape).expand(points.shape[:-2])
+        contribs = gd._gather_table(table, dig)  # (m, ..., C, L)
+        total = gd._tree_reduce(cs, contribs.movedim(0, -3), m)
+        acc = gd.window_step(cs, acc, total, gd.WINDOW)
+    return acc
+
+
+def verify_batch(cfg: CeremonyConfig, e_comm, shares, hidings, rho, rho_bits: int, g_table, h_table):
+    """RLC batch share verification -> (n,) bool per recipient.
+
+    e_comm (n, t+1, C, L), shares/hidings (n, n, L) with [j, i] as
+    recipient i received it from dealer j, rho (n, L) with only the low
+    rho_bits bits set.  Sound up to 2^-rho_bits per cheating dealer."""
+    cs = cfg.cs
+    fs = cs.scalar
+    s_rlc = _field_dot(fs, rho, shares)  # (n, L): Σ_j rho_j s_ji
+    r_rlc = _field_dot(fs, rho, hidings)
+    d_comm = _point_rlc(cs, rho, e_comm, rho_bits)  # (t+1, C, L): Σ_j rho_j E_jl
+    xs = torch.arange(1, cfg.n + 1, dtype=torch.int32, device=e_comm.device)
+    rhs = gd.eval_point_poly(cs, d_comm, xs, cfg.index_bits)  # (n, C, L)
+    lhs = gd.add(cs, gd.fixed_base_mul(cs, g_table, s_rlc), gd.fixed_base_mul(cs, h_table, r_rlc))
+    return gd.eq(cs, lhs, rhs)
+
+
+def verify_pairwise(cfg: CeremonyConfig, e_comm, shares, hidings, g_table, h_table):
+    """Direct per-(dealer, recipient) checks g·s + h·s' == Σ_l x^l E_l ->
+    (n_dealers, n_recipients) bool."""
+    cs = cfg.cs
+    lhs = gd.add(cs, gd.fixed_base_mul(cs, g_table, shares), gd.fixed_base_mul(cs, h_table, hidings))
+    xs = torch.arange(1, shares.shape[1] + 1, dtype=torch.int32, device=shares.device)
+    rhs = gd.eval_point_poly(cs, e_comm[:, None], xs.expand(shares.shape[:2]), cfg.index_bits)
+    return gd.eq(cs, lhs, rhs)
+
+
+def aggregate_shares(cfg: CeremonyConfig, shares, qualified):
+    """Final share per recipient: Σ over qualified dealers of their shares.
+    shares (n_dealers, n_recip, L), qualified (n_dealers,) bool ->
+    (n_recip, L), summed by a pairwise tree of field adds."""
+    fs = cfg.cs.scalar
+    acc = torch.where(qualified[:, None, None], shares, torch.zeros_like(shares))
+    while acc.shape[0] > 1:
+        if acc.shape[0] % 2:
+            acc = torch.cat([acc, torch.zeros_like(acc[:1])])
+        acc = fd.add(fs, acc[0::2], acc[1::2])
+    return acc[0]
+
+
+def master_key_from_bare(cfg: CeremonyConfig, a_comm, qualified):
+    """Master public key: Σ over qualified dealers of A_{j,0} -> (C, L)."""
+    cs = cfg.cs
+    a0 = a_comm[:, 0]
+    masked = gd.select(qualified, a0, gd.identity(cs, a0.shape[:-2], device=a0.device))
+    return gd._tree_reduce(cs, masked, masked.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# transcript digest and Fiat-Shamir randomizers (host)
+# ---------------------------------------------------------------------------
+
+
+def _dealer_rows(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings):
+    """Per-dealer BLAKE2s Merkle digests of the four round-1 tensors,
+    commitments in canonical affine form (rho must not depend on which
+    addition schedule produced the projective coordinates): three (k, 8)
+    uint32 arrays."""
+    k = shares.shape[0]
+    a_canon = gd.affine_canon_host(cfg.cs, fh.from_tensor(a_comm))
+    e_canon = gd.affine_canon_host(cfg.cs, fh.from_tensor(e_comm))
+    sr = np.concatenate(
+        [fh.from_tensor(shares).reshape(k, -1), fh.from_tensor(hidings).reshape(k, -1)], axis=-1
+    )
+    return (
+        row_digests_np(a_canon.reshape(k, -1), domain=1),
+        row_digests_np(e_canon.reshape(k, -1), domain=2),
+        row_digests_np(sr, domain=3),
+    )
+
+
+def _fold_digest_device(cfg: CeremonyConfig, rows_a, rows_e, rows_sr) -> bytes:
+    """Fold the three per-dealer row digest arrays, in dealer order, into
+    one BLAKE2b."""
+    h = hashlib.blake2b(digest_size=32, person=b"dkgtpu-trd")
+    h.update(f"{cfg.curve}|{cfg.n}|{cfg.t}|".encode())
+    for rows in (rows_a, rows_e, rows_sr):
+        h.update(np.ascontiguousarray(rows, np.uint32))
+    return h.digest()
+
+
+def transcript_digest_device(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings) -> bytes:
+    """The canonical engine transcript digest (the JAX package's device
+    family, computed here by its host leg)."""
+    return _fold_digest_device(cfg, *_dealer_rows(cfg, a_comm, e_comm, shares, hidings))
+
+
+def rho_digests(transcript: bytes, n: int, nbytes: int) -> np.ndarray:
+    """Row j is BLAKE2b(transcript || j as 4 LE bytes), nbytes long,
+    personalised "dkgtpu-rlc": (n, nbytes) uint8."""
+    rows = [
+        hashlib.blake2b(transcript + j.to_bytes(4, "little"), digest_size=nbytes,
+                        person=b"dkgtpu-rlc").digest()
+        for j in range(n)
+    ]
+    return np.frombuffer(b"".join(rows), np.uint8).reshape(n, nbytes)
+
+
+def fiat_shamir_rho(cfg: CeremonyConfig, transcript: bytes, rho_bits: int) -> np.ndarray:
+    """Public batch randomizers from the transcript digest: lane j is
+    BLAKE2b(transcript || j as 4 LE bytes), masked to exactly rho_bits.
+    Returns (n, L) uint32 limbs."""
+    fs = cfg.cs.scalar
+    nbytes = (rho_bits + 7) // 8
+    # mask to EXACTLY rho_bits: the point RLC reads only the low rho_bits,
+    # the field RLC every set bit; both must see the same weights
+    mask = (1 << rho_bits) - 1
+    dig = rho_digests(transcript, cfg.n, nbytes)
+    out = np.zeros((cfg.n, fs.limbs), np.uint32)
+    if (1 << rho_bits) > fs.modulus:
+        # the masked value may exceed the scalar modulus: reduce per lane
+        for j in range(cfg.n):
+            out[j] = fh.encode(fs, int.from_bytes(dig[j].tobytes(), "little") & mask)
+        return out
+    # little-endian bytes -> 16-bit limbs, masked to exactly rho_bits
+    nlimb = min((nbytes + 1) // 2, fs.limbs)
+    buf = np.zeros((cfg.n, nlimb * 2), np.uint8)
+    buf[:, :nbytes] = dig
+    limbs16 = np.ascontiguousarray(buf).view("<u2").astype(np.uint32)
+    full, rem = divmod(rho_bits, 16)
+    if rem and full < nlimb:
+        limbs16[:, full] &= (1 << rem) - 1
+    if full + (1 if rem else 0) < nlimb:
+        limbs16[:, full + (1 if rem else 0) :] = 0
+    out[:, :nlimb] = limbs16
+    return out
+
+
+def derive_rho(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings, rho_bits: int) -> np.ndarray:
+    """rho from the real round-1 transcript: binds all four tensors (A as
+    well, since it feeds the master key)."""
+    return fiat_shamir_rho(cfg, transcript_digest_device(cfg, a_comm, e_comm, shares, hidings), rho_bits)
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+
+class BatchedCeremony:
+    """Single-host ceremony over device tensors: deal, batch verify,
+    blame, aggregate, master key.
+
+    ``rng`` draws the coefficients as the JAX package's engine does (a, then
+    b, dealer by dealer), so ``random.Random(seed)`` gives both packages the
+    same ceremony.  :meth:`from_arrays` takes the coefficients instead."""
+
+    def __init__(self, curve: str, n: int, t: int, shared_string: bytes, rng, *, device="cuda"):
+        self._setup(curve, n, t, shared_string, device)
+        fs = self.cfg.cs.scalar
+        for name in ("coeffs_a", "coeffs_b"):
+            ints = [[fs.rand_int(rng) for _ in range(t + 1)] for _ in range(n)]
+            setattr(self, name, fh.to_tensor(fh.encode(fs, ints), self.device))
+
+    @classmethod
+    def from_arrays(cls, curve: str, n: int, t: int, shared_string: bytes, coeffs_a, coeffs_b,
+                    *, g_table=None, h_table=None, device="cuda") -> "BatchedCeremony":
+        """A ceremony over given coefficients: the JAX package's uint32
+        (n, t+1, L) arrays, and its (NW, 256, C, L) g/h tables if given."""
+        self = cls.__new__(cls)
+        self._setup(curve, n, t, shared_string, device, g_table, h_table)
+        shape = (n, t + 1, self.cfg.cs.scalar.limbs)
+        for name, arr in (("coeffs_a", coeffs_a), ("coeffs_b", coeffs_b)):
+            if tuple(np.shape(arr)) != shape:
+                raise ValueError(f"{name} has shape {np.shape(arr)}, expected {shape}")
+            setattr(self, name, fh.to_tensor(arr, self.device))
+        return self
+
+    def _setup(self, curve, n, t, shared_string, device, g_table=None, h_table=None):
+        self.device = resolve_device(device)
+        self.cfg = CeremonyConfig(curve, n, t)
+        cs = self.cfg.cs
+        self.group = gh.ALL_GROUPS[curve]
+        self.ck = CommitmentKey.generate(self.group, shared_string)
+        t0 = time.perf_counter()
+        self.g_table = (gp.generator_table(cs, device=self.device) if g_table is None
+                        else fh.to_tensor(g_table, self.device))
+        self.h_table = (gp.base_table(cs, self.ck.h, device=self.device) if h_table is None
+                        else fh.to_tensor(h_table, self.device))
+        self._sync()
+        self.table_seconds = time.perf_counter() - t0
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, rho_bits: int = 128, tamper=None) -> dict:
+        """The whole ceremony, blame path included.
+
+        One RLC batch verification covers all n·(n-1) share relations.  If
+        any recipient's check fails, ``verify_pairwise`` finds the failing
+        (recipient, dealer) pairs, their dealers are disqualified, and the
+        ceremony completes over the qualified set; with more than t
+        disqualified it aborts with ``DkgError(MISBEHAVIOUR_HIGHER_THRESHOLD)``
+        under ``"error"``.
+
+        ``tamper(a, e, s, r) -> (a, e, s, r)`` runs after dealing, to
+        inject faults.  Returns tensors (``bare``, ``randomized``,
+        ``shares``, ``hidings``, ``ok``, ``qualified``, ``final_shares``,
+        ``master``), ``complaints`` as 1-based (recipient, dealer) pairs,
+        and ``phase_seconds`` (host clock, each phase ended by a device
+        synchronise)."""
+        cfg = self.cfg
+        seconds = {"tables": self.table_seconds}
+        clock = time.perf_counter()
+
+        def phase(name):
+            nonlocal clock
+            self._sync()
+            now = time.perf_counter()
+            seconds[name] = now - clock
+            clock = now
+
+        a, e, s, r = deal(cfg, self.coeffs_a, self.coeffs_b, self.g_table, self.h_table)
+        phase("deal")
+        if tamper is not None:
+            a, e, s, r = tamper(a, e, s, r)
+            clock = time.perf_counter()
+        rho = fh.to_tensor(derive_rho(cfg, a, e, s, r, rho_bits), self.device)
+        phase("fiat_shamir")
+        ok = verify_batch(cfg, e, s, r, rho, rho_bits, self.g_table, self.h_table)
+        phase("verify")
+        out = {"bare": a, "randomized": e, "shares": s, "hidings": r, "ok": ok,
+               "complaints": [], "phase_seconds": seconds}
+        qualified = torch.ones(cfg.n, dtype=torch.bool, device=self.device)
+        if not bool(ok.all()):
+            pw = verify_pairwise(cfg, e, s, r, self.g_table, self.h_table).cpu().numpy()
+            guilty = ~pw.all(axis=1)
+            out["complaints"] = [(int(i) + 1, int(j) + 1) for j, i in zip(*np.nonzero(~pw))]
+            qualified = torch.as_tensor(~guilty, device=self.device)
+            phase("blame")
+            if int(guilty.sum()) > cfg.t:
+                out["qualified"] = qualified
+                out["error"] = DkgError(DkgErrorKind.MISBEHAVIOUR_HIGHER_THRESHOLD)
+                return out
+        out["qualified"] = qualified
+        out["final_shares"] = aggregate_shares(cfg, s, qualified)
+        out["master"] = master_key_from_bare(cfg, a, qualified)
+        phase("finalise")
+        return out

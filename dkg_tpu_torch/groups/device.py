@@ -1,0 +1,277 @@
+"""Batched elliptic-curve arithmetic on int32 limb tensors.
+
+Counterpart of ``dkg_tpu/groups/device.py``.  Points are tensors of
+shape ``(..., C, L)``: C projective coordinates of L 16-bit limbs,
+batched over the leading axes.  Every formula is complete, so adding the
+identity, adding a point to itself and doubling all take the same
+branchless path.  Point adds go through the kernels of
+``ops/point_kernels.py`` (CUDA tensors) or their plain versions (CPU
+tensors); the schedules around them (window tables, gathers, tree
+reductions, Horner) are plain PyTorch, in the JAX package's order, so
+the projective coordinates equal the JAX package's limb for limb.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..fields import device as fd
+from ..fields import host as fh
+from ..fields.spec import L25519, P25519, FieldSpec
+from ..ops import point_kernels as pk
+from . import host as gh
+
+WINDOW = 4  # variable-base window bits (16-entry per-lane tables)
+FIXED_WINDOW = 8  # fixed-base tables: 256-entry windows
+
+
+@dataclasses.dataclass(frozen=True)
+class CurveSpec:
+    """Device-side curve description (ints and strings only)."""
+
+    name: str
+    kind: str  # "edwards" | "weierstrass_a0"
+    field: FieldSpec
+    scalar: FieldSpec
+    const: int  # 2d (edwards) or 3b (weierstrass_a0)
+    gen_affine: tuple  # (x, y) ints
+
+    @property
+    def ncoords(self) -> int:
+        return 4 if self.kind == "edwards" else 3
+
+
+SECP256K1 = CurveSpec(
+    "secp256k1",
+    "weierstrass_a0",
+    gh.SECP256K1.base_field,
+    gh.SECP256K1.scalar_field,
+    21,
+    (gh.SECP256K1.gen_x, gh.SECP256K1.gen_y),
+)
+
+# Edwards (ristretto255) runs through the plain formulas only: its point
+# kernels are not ported yet, so its CUDA tensors raise.
+RISTRETTO255 = CurveSpec(
+    "ristretto255",
+    "edwards",
+    P25519,
+    L25519,
+    2 * gh.D % gh.P,
+    (gh.BASE_X, gh.BASE_Y),
+)
+
+ALL_CURVES = {c.name: c for c in (SECP256K1, RISTRETTO255)}
+
+
+# ---------------------------------------------------------------------------
+# host <-> device
+# ---------------------------------------------------------------------------
+
+
+def identity(cs: CurveSpec, batch: tuple = (), *, device) -> torch.Tensor:
+    """The identity broadcast to ``batch`` (a read-only expanded view)."""
+    return pk.identity_plain(cs, tuple(batch), device)
+
+
+def from_host(cs: CurveSpec, points, *, device) -> torch.Tensor:
+    """Host point tuples -> (n, C, L) int32 limbs."""
+    arr = np.asarray([[int(c) for c in p] for p in points], dtype=object)
+    return fh.to_tensor(fh.encode(cs.field, arr), device)
+
+
+def to_host(cs: CurveSpec, pts: torch.Tensor) -> list:
+    """(n, C, L) limbs -> host point tuples."""
+    dec = fh.decode(cs.field, fh.from_tensor(pts))
+    return [tuple(int(c) for c in row) for row in dec]
+
+
+# ---------------------------------------------------------------------------
+# point ops
+# ---------------------------------------------------------------------------
+
+
+def add(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return pk.pt_add(cs, p, q)
+
+
+def madd(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p + q with q affine (Z = 1).  Weierstrass callers must not pass
+    q = identity."""
+    return pk.pt_madd(cs, p, q)
+
+
+def eq(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Projective equality -> bool over the batch shape: cross-multiplied
+    for Weierstrass (identity-correct), torsion-safe ristretto equality
+    for Edwards."""
+    f = cs.field
+    if cs.kind == "edwards":
+        x1, y1 = p[..., 0, :], p[..., 1, :]
+        x2, y2 = q[..., 0, :], q[..., 1, :]
+        lhs = fd.eq(fd.mul(f, x1, y2), fd.mul(f, y1, x2))
+        rhs = fd.eq(fd.mul(f, y1, y2), fd.mul(f, x1, x2))
+        return lhs | rhs
+    x1, y1, z1 = p[..., 0, :], p[..., 1, :], p[..., 2, :]
+    x2, y2, z2 = q[..., 0, :], q[..., 1, :], q[..., 2, :]
+    ex = fd.eq(fd.mul(f, x1, z2), fd.mul(f, x2, z1))
+    ey = fd.eq(fd.mul(f, y1, z2), fd.mul(f, y2, z1))
+    return ex & ey
+
+
+def select(pred: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Branchless point select; ``pred`` has the batch shape."""
+    return torch.where(pred[..., None, None], p, q)
+
+
+# ---------------------------------------------------------------------------
+# scalar windows, tables, reductions
+# ---------------------------------------------------------------------------
+
+
+def scalar_windows(k: torch.Tensor, window: int = WINDOW) -> torch.Tensor:
+    """(..., L) scalar limbs -> (..., L * 16/window) little-endian digits;
+    ``window`` divides the 16-bit limb."""
+    shifts = torch.arange(0, 16, window, dtype=torch.int32, device=k.device)
+    digits = (k[..., :, None] >> shifts) & ((1 << window) - 1)
+    return digits.reshape(k.shape[:-1] + (k.shape[-1] * (16 // window),))
+
+
+def n_windows(cs: CurveSpec, window: int = WINDOW) -> int:
+    return cs.scalar.limbs * (16 // window)
+
+
+def _build_table(cs: CurveSpec, p: torch.Tensor) -> torch.Tensor:
+    """Per-lane window table [0P, 1P, ..., 15P]: (..., 16, C, L), each
+    entry the previous one plus P (14 batched adds)."""
+    entries = [identity(cs, p.shape[:-2], device=p.device), p]
+    prev = p
+    for _ in range(14):
+        prev = add(cs, prev, p)
+        entries.append(prev)
+    return torch.stack(entries, dim=-3)
+
+
+def _gather_table(table: torch.Tensor, digit: torch.Tensor) -> torch.Tensor:
+    """Window entries: table (..., 16, C, L) batch-matched to ``digit``
+    (...,), or one shared (16, C, L) table -> (..., C, L)."""
+    if table.dim() == 3:
+        return table[digit.long()]
+    idx = digit.long()[..., None, None, None].expand(digit.shape + (1,) + table.shape[-2:])
+    return torch.gather(table, -3, idx)[..., 0, :, :]
+
+
+def _tree_reduce(cs: CurveSpec, pts: torch.Tensor, axis_len: int) -> torch.Tensor:
+    """Pairwise point-add reduction over axis -3, padding odd levels with
+    the identity."""
+    m = axis_len
+    while m > 1:
+        if m % 2 == 1:
+            pad = identity(cs, pts.shape[:-3] + (1,), device=pts.device)
+            pts = torch.cat([pts, pad], dim=-3)
+            m += 1
+        pts = add(cs, pts[..., 0::2, :, :], pts[..., 1::2, :, :])
+        m //= 2
+    return pts[..., 0, :, :]
+
+
+def window_step(cs: CurveSpec, acc: torch.Tensor, entry: torch.Tensor, window: int) -> torch.Tensor:
+    """One Straus window: ``window`` doublings of acc, then + entry."""
+    return pk.pt_window_step(cs, acc, entry, window)
+
+
+# ---------------------------------------------------------------------------
+# fixed-base and small-scalar multiplication
+# ---------------------------------------------------------------------------
+
+
+def fixed_base_mul(cs: CurveSpec, table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Batched k·B for a fixed B: table (NW, 2**w, C, L) of affine entries
+    T[w][d] = d·(2**w)^w·B, k (..., L) -> (..., C, L).
+
+    One gathered mixed add per window, no doublings.  A Weierstrass
+    identity entry is stored (0, 1, 0), which the mixed add cannot take,
+    so lanes whose gathered entry has Z = 0 keep their accumulator."""
+    window = int(table.shape[1]).bit_length() - 1
+    digits = scalar_windows(k, window)  # (..., NW)
+    acc = identity(cs, k.shape[:-1], device=k.device)
+    for w in range(table.shape[0]):
+        entry = _gather_table(table[w], digits[..., w])
+        nxt = madd(cs, acc, entry)
+        if cs.kind != "edwards":
+            nxt = select(~fd.is_zero(entry[..., 2, :]), nxt, acc)
+        acc = nxt
+    return acc
+
+
+def eval_point_poly(cs: CurveSpec, coeffs: torch.Tensor, x: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Horner evaluation of a point-coefficient polynomial at small public
+    x: coeffs (..., T, C, L) low-order first, x (...,) int32 -> (..., C, L).
+
+    acc <- x·acc + C_l per step, each step one ``pt_ladder_mul_add``."""
+    batch = torch.broadcast_shapes(coeffs.shape[:-3], x.shape)
+    acc = identity(cs, batch, device=coeffs.device)
+    for l in reversed(range(coeffs.shape[-3])):
+        acc = pk.pt_ladder_mul_add(cs, acc, coeffs[..., l, :, :], x, nbits)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# canonical affine form (host)
+# ---------------------------------------------------------------------------
+
+
+def _batch_zinv_host(zs: list[int], p: int) -> list[int]:
+    """Montgomery-trick inversion of host ints; zero lanes -> 0."""
+    prefix = [1] * len(zs)
+    acc = 1
+    for i, z in enumerate(zs):
+        prefix[i] = acc
+        if z:
+            acc = acc * z % p
+    inv_acc = pow(acc, p - 2, p)
+    out = [0] * len(zs)
+    for i in range(len(zs) - 1, -1, -1):
+        z = zs[i]
+        if z:
+            out[i] = inv_acc * prefix[i] % p
+            inv_acc = inv_acc * z % p
+    return out
+
+
+def affine_canon_host(cs: CurveSpec, pts) -> np.ndarray:
+    """(..., C, L) limbs -> (..., C, L) uint32 canonical affine limbs:
+    X/Z, Y/Z, Z = 1 (Edwards T = XY), zero-Z lanes the canonical
+    identity.  The same digits as the JAX package's ``affine_canon_host``
+    for the same points."""
+    f = cs.field
+    arr = np.asarray(pts)
+    shape = arr.shape
+    nb = 2 * f.limbs
+    flat = np.ascontiguousarray(arr.reshape((-1,) + shape[-2:]), dtype="<u2")
+    raw = flat.tobytes()
+    n_pts, step = flat.shape[0], cs.ncoords * nb
+    p = f.modulus
+
+    def coord(c):
+        return [
+            int.from_bytes(raw[i * step + c * nb : i * step + (c + 1) * nb], "little")
+            for i in range(n_pts)
+        ]
+
+    xs, ys, zs = coord(0), coord(1), coord(2)
+    zinv = _batch_zinv_host(zs, p)
+    ident = [int(v) for v in pk.identity_plain(cs, (), "cpu")[:, 0]]
+    rows = []
+    for x, y, zi in zip(xs, ys, zinv):
+        if not zi:
+            row = ident
+        else:
+            xa, ya = x * zi % p, y * zi % p
+            row = [xa, ya, 1] + ([xa * ya % p] if cs.kind == "edwards" else [])
+        rows.append(b"".join(v.to_bytes(nb, "little") for v in row))
+    out = np.frombuffer(b"".join(rows), dtype="<u2").astype(np.uint32)
+    return out.reshape(shape)

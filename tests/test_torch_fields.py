@@ -1,0 +1,125 @@
+"""dkg_tpu_torch.fields and the mod_madd plain version against dkg_tpu.fields.
+
+Same limbs in, same canonical limbs out: the field ops are exact, so
+the tolerance is zero, on the secp256k1 base and scalar fields (and the
+Edwards fields the plain point formulas use)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_util import field_ints, field_limbs, to_np, to_torch
+
+from dkg_tpu.fields import device as jfd
+from dkg_tpu.fields import host as jfh
+from dkg_tpu.fields import spec as jspec
+from dkg_tpu_torch.fields import device as tfd
+from dkg_tpu_torch.fields import host as tfh
+from dkg_tpu_torch.fields import spec as tspec
+from dkg_tpu_torch.ops import field_kernels as fk
+
+FIELDS = ["secp256k1_base", "secp256k1_scalar", "ed25519_base", "ed25519_scalar"]
+N = 24
+
+
+def _specs(name):
+    return tspec.ALL_FIELDS[name], jspec.ALL_FIELDS[name]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_spec_constants_match(name):
+    t, j = _specs(name)
+    assert (t.modulus, t.limbs, t.bits, t.nbytes) == (j.modulus, j.limbs, j.bits, j.nbytes)
+    for attr in ("p_limbs", "p_limbs_ext", "barrett_mu"):
+        assert np.array_equal(getattr(t, attr), getattr(j, attr)), attr
+    assert tspec.limbs_to_int(tspec.int_to_limbs(j.modulus - 1, j.limbs)) == j.modulus - 1
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_host_encode_decode_match(name):
+    t, j = _specs(name)
+    ints = field_ints(j, 1, N) + [j.modulus, j.modulus + 5]  # reduced on encode
+    enc = tfh.encode(t, ints)
+    assert enc.dtype == np.uint32 and np.array_equal(enc, jfh.encode(j, ints))
+    assert np.array_equal(tfh.encode(t, 7), jfh.encode(j, 7))
+    nested = [ints[:4], ints[4:8]]
+    assert np.array_equal(tfh.encode(t, nested), jfh.encode(j, nested))
+    assert list(tfh.decode(t, enc)) == list(jfh.decode(j, enc))
+    back = tfh.from_tensor(tfh.to_tensor(enc, "cpu"))
+    assert back.dtype == np.uint32 and np.array_equal(back, enc)
+
+
+def _binary_cases():
+    return [("add", tfd.add, jfd.add), ("sub", tfd.sub, jfd.sub), ("mul", tfd.mul, jfd.mul)]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_binary_ops_match(name, op):
+    t, j = _specs(name)
+    tf, jf = {k: (a, b) for k, a, b in _binary_cases()}[op]
+    a, b = field_limbs(j, 2, N), field_limbs(j, 3, N)
+    b[1] = a[1]  # x op x
+    got = tf(t, to_torch(a), to_torch(b))
+    assert got.dtype == torch.int32
+    assert np.array_equal(to_np(got), np.asarray(jf(j, jnp.asarray(a), jnp.asarray(b))))
+    # broadcast of one operand over the batch
+    got = tf(t, to_torch(a), to_torch(b[5]))
+    assert np.array_equal(to_np(got), np.asarray(jf(j, jnp.asarray(a), jnp.asarray(b[5]))))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_unary_and_predicates_match(name):
+    t, j = _specs(name)
+    a = field_limbs(j, 4, N)
+    ta, ja = to_torch(a), jnp.asarray(a)
+    assert np.array_equal(to_np(tfd.neg(t, ta)), np.asarray(jfd.neg(j, ja)))
+    assert np.array_equal(to_np(tfd.square(t, ta)), np.asarray(jfd.square(j, ja)))
+    assert tfd.is_zero(ta).tolist() == np.asarray(jfd.is_zero(ja)).tolist()
+    assert tfd.eq(ta, ta.roll(1, 0)).tolist() == np.asarray(jfd.eq(ja, jnp.roll(ja, 1, 0))).tolist()
+    pred = np.arange(N) % 3 == 0
+    got = tfd.select(torch.from_numpy(pred), ta, ta.flip(0))
+    assert np.array_equal(to_np(got), np.asarray(jfd.select(jnp.asarray(pred), ja, ja[::-1])))
+    assert np.array_equal(to_np(tfd.zeros(t, (2,), device="cpu")), np.asarray(jfd.zeros(j, (2,))))
+    assert np.array_equal(to_np(tfd.ones(t, (2,), device="cpu")), np.asarray(jfd.ones(j, (2,))))
+    assert np.array_equal(to_np(tfd.constant(t, 21, device="cpu")), np.asarray(jfd.constant(j, 21)))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_normalize_and_cond_sub_match(name):
+    t, j = _specs(name)
+    rng = np.random.default_rng(5)
+    # unnormalised uint32 columns (the JAX package's column type), one lane
+    # with a carry that ripples through a run of 0xFFFF limbs
+    cols = rng.integers(0, 1 << 32, size=(N, t.limbs), dtype=np.int64)
+    cols[0] = 0xFFFF
+    cols[0, 0] = 0x10000
+    got = tfd.normalize(torch.from_numpy(cols), t.limbs + 1)
+    want = jfd.normalize(jnp.asarray(cols.astype(np.uint32)), t.limbs + 1)
+    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
+    assert got[0, t.limbs].item() == 1 and not got[0, : t.limbs].any()
+    x = np.concatenate([field_limbs(j, 6, N), np.zeros((N, 1), np.uint32)], axis=1)
+    x[:, 0] += 3  # some lanes >= p
+    x = np.asarray(jfd.normalize(jnp.asarray(x), t.limbs + 1))
+    pe = t.p_limbs_ext.astype(np.int64)
+    got = tfd.cond_sub(torch.from_numpy(x.astype(np.int64)), torch.from_numpy(pe))
+    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(jfd.cond_sub(jnp.asarray(x), t.p_limbs_ext)))
+
+
+@pytest.mark.parametrize("name", ["secp256k1_base", "secp256k1_scalar"])
+def test_mod_madd_plain_matches_jax(name):
+    """mod_madd's plain version is what the CUDA kernel is held against on
+    the card; here it is held against the JAX package's a·b + c."""
+    t, j = _specs(name)
+    a, b, c = (field_limbs(j, s, N) for s in (7, 8, 9))
+    want = jfd.add(j, jfd.mul(j, jnp.asarray(a), jnp.asarray(b)), jnp.asarray(c))
+    got = fk.mod_madd(t, to_torch(a), to_torch(b), to_torch(c))  # CPU tensors: the plain version
+    assert np.array_equal(to_np(got), np.asarray(want))
+    ints = [(x * y + z) % j.modulus for x, y, z in zip(*(field_ints(j, s, N) for s in (7, 8, 9)))]
+    assert list(tfh.decode(t, to_np(got))) == ints
+    # the Horner step's broadcast: acc (m, n, L), x (n, L), c (m, 1, L)
+    acc = to_torch(a[:12]).reshape(3, 4, -1)
+    got = fk.mod_madd(t, acc, to_torch(b[:4]), to_torch(c[:3]).reshape(3, 1, -1))
+    want = jfd.add(j, jfd.mul(j, jnp.asarray(a[:12]).reshape(3, 4, -1), jnp.asarray(b[:4])),
+                   jnp.asarray(c[:3]).reshape(3, 1, -1))
+    assert np.array_equal(to_np(got), np.asarray(want))

@@ -1,0 +1,118 @@
+"""The port stands alone: importing dkg_tpu_torch (every module) and
+chip_smoke.py pulls in neither jax nor dkg_tpu, and on anything but a CPU
+tensor a kernel wrapper launches its kernel or raises, never falling back
+to its plain version."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from dkg_tpu_torch.dkg import ceremony as tce
+from dkg_tpu_torch.fields.spec import SECP256K1_N
+from dkg_tpu_torch.groups import device as tgd
+from dkg_tpu_torch.ops import build
+from dkg_tpu_torch.ops import field_kernels as fk
+from dkg_tpu_torch.ops import point_kernels as pk
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "dkg_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dkg_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|dkg_tpu)(\.|\s|$)")
+    files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.match(line)]
+    assert hits == []
+
+
+def _meta(shape):
+    return torch.zeros(shape, dtype=torch.int32, device="meta")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: fk.mod_madd(SECP256K1_N, _meta((4, 16)), _meta((4, 16)), _meta((4, 16))),
+    lambda: pk.pt_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16))),
+    lambda: pk.pt_madd(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16))),
+    lambda: pk.pt_window_step(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16)), 4),
+    lambda: pk.pt_ladder_mul_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16)), _meta((4,)), 3),
+], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add"])
+def test_wrappers_raise_instead_of_falling_back(call):
+    before = [k.launches for k in (fk.MOD_MADD, *pk.KERNELS)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        call()
+    assert [k.launches for k in (fk.MOD_MADD, *pk.KERNELS)] == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda: fk.mod_madd(SECP256K1_N, _meta((4, 16)), _meta((4, 1)), _meta((4, 16))),
+    lambda: pk.pt_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 1, 16))),
+    lambda: pk.pt_ladder_mul_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((16,)), _meta((4,)), 3),
+], ids=["limbs", "coords", "too_few_axes"])
+def test_wrappers_reject_operands_of_the_wrong_shape(call):
+    """A tail that would broadcast (a size-1 limb or coordinate axis)
+    is refused before any pointer reaches a kernel."""
+    with pytest.raises(ValueError, match="does not end in"):
+        call()
+
+
+def test_unported_variants_raise():
+    with pytest.raises(NotImplementedError):
+        pk.pt_add(tgd.RISTRETTO255, _meta((2, 4, 16)), _meta((2, 4, 16)))
+    with pytest.raises(NotImplementedError):
+        fk.mod_madd(tgd.RISTRETTO255.field, _meta((2, 16)), _meta((2, 16)), _meta((2, 16)))
+
+
+def test_cpu_tensors_run_the_plain_versions_uncounted():
+    p = tgd.identity(tgd.SECP256K1, (2,), device="cpu")
+    before = pk.PT_ADD.launches
+    assert torch.equal(pk.pt_add(tgd.SECP256K1, p, p), pk.pt_add_plain(tgd.SECP256K1, p, p))
+    assert pk.PT_ADD.launches == before
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tce.BatchedCeremony("secp256k1", 4, 1, b"x", None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tce.resolve_device("cuda")
+    assert tce.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_build_needs_nvcc(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.pathlib.Path, "exists", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+
+
+def test_library_path_tracks_sources():
+    path = build.library_path("point_kernels.cu")
+    assert path.parent == build.BUILD_DIR and path.name.startswith("point_kernels-")
+    assert path != build.library_path("field_kernels.cu")
+    assert str(build.BUILD_DIR).startswith(str(REPO / "build"))
