@@ -8,19 +8,23 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 2. Builds the CUDA kernels of dkg_tpu_torch/csrc, one nvcc per source,
    all started together, and prints the build time and what ptxas says
    about registers and spills.
-3. Holds every kernel against its plain PyTorch version on the card, bit
-   for bit: at 2**16 random lanes, and at the shapes the ceremony gives
-   it, where both are also timed (CUDA events over repeated wrapper
-   calls, the operands' broadcast copies included).
-4. Runs the main path, BatchedCeremony("secp256k1", 1024, 341).run() on
-   the card, with every kernel's launch count set to 0 just before and
-   read just after; every count must be > 0.  Checks ok, the master key,
-   some commitments and shares against host big-int oracles.
-   Then splits the fiat_shamir phase, and runs the main path once more
-   under torch.profiler for device time by kernel and the busy share.
-5. Runs a tampered (n=16, t=5) ceremony: one corrupted share must fail
-   its recipient's batch check, blame its dealer, and leave the master
-   key of the qualified set.
+3. Holds every kernel and variant against its plain PyTorch version on
+   the card, bit for bit: at 2**16 random lanes (field edge values and
+   edge projective scalings in the first lanes, points on the curve), and
+   at the shapes its ceremony path gives it, where both are also timed
+   (CUDA events over repeated wrapper calls, the operands' broadcast
+   copies included).
+4. Runs each main path on the card, with every kernel's launch count set
+   to 0 just before and read just after; every kernel of the path must
+   be > 0:
+   - BatchedCeremony("secp256k1", 1024, 341) (BASELINE.md config 3);
+   - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2).
+   Checks ok, the master key, some commitments and shares against host
+   big-int oracles, splits the fiat_shamir phase, and runs the path once
+   more under torch.profiler for device time by kernel and the busy share.
+5. Runs a tampered (n=16, t=5) ceremony on each curve: one corrupted
+   share must fail its recipient's batch check, blame its dealer, and
+   leave the master key of the qualified set.
 6. Prints one JSON line of per-kernel numbers, the card line again, and
    last {"ok": true, "device": {...}}.
 
@@ -31,6 +35,7 @@ so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import random
 import subprocess
@@ -46,12 +51,39 @@ from dkg_tpu_torch.fields import device as fd
 from dkg_tpu_torch.fields import host as fh
 from dkg_tpu_torch.groups import device as gd
 from dkg_tpu_torch.groups import host as gh
+from dkg_tpu_torch.groups import precompute as gp
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import point_kernels as pk
 
-N, T = 1024, 341  # the main path: BASELINE.md config 3, secp256k1 n=1024 t=341
-INDEX_BITS = N.bit_length()
+DEV = "cuda"  # every tensor of the script lives here
+
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    """One main path: a ceremony the port runs end to end on the card."""
+
+    curve: str
+    n: int
+    t: int
+    shared: bytes
+    kernels: tuple  # the build.Kernel objects the path must launch
+
+    @property
+    def cs(self) -> gd.CurveSpec:
+        return gd.ALL_CURVES[self.curve]
+
+    @property
+    def index_bits(self) -> int:
+        return self.n.bit_length()
+
+
+SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
+            (fk.MOD_MADD, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP, pk.PT_LADDER_MUL_ADD))
+R255 = Path("ristretto255", 256, 85, b"chip-smoke-r255",  # BASELINE.md config 2
+            (fk.MOD_MADD_ED, pk.ED_PT_ADD, pk.ED_PT_MADD, pk.PT_DOUBLE, pk.ED_PT_LADDER_MUL_ADD))
+PATHS = (SECP, R255)
+TAMPER_N, TAMPER_T = 16, 5
 RANDOM_LANES = 1 << 16
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA data sheet and
@@ -60,42 +92,30 @@ RANDOM_LANES = 1 << 16
 BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 
-# 32x32->64-bit multiply-adds per lane of the kernels in csrc/: a base
-# field multiply is 86 (64 schoolbook + 22 fold), a multiply by 3b = 21 is
-# 12, a scalar-field multiply-add 134 (64 + 70).  Each counts as two 32-bit
-# multiplies (the low and the high half of the product).
-_FMUL, _FSMALL = 86, 12
-_ADD = 12 * _FMUL + 2 * _FSMALL
-_MADD = 11 * _FMUL + 2 * _FSMALL
-_DOUBLE = 8 * _FMUL + _FSMALL
-MULADDS = {
-    "mod_madd": 134,
-    "pt_add": _ADD,
-    "pt_madd": _MADD,
-    "pt_window_step": 4 * _DOUBLE + _ADD,
+# 32x32->64-bit multiply-adds per lane of the kernels in csrc/ (field.cuh,
+# point.cuh, edwards.cuh), each counted as two 32-bit multiplies (the low
+# and the high half of the product).  Field multiplies: secp256k1 p 86
+# (64 schoolbook + 22 fold), a multiply by 3b = 21 12, secp256k1 n 134,
+# ed25519 p 73 (64 + 9 fold), ristretto255 l 189 (64 + 125 Barrett).
+_FMUL, _FSMALL, _ED_FMUL = 86, 12, 73
+WS_ADD, WS_MADD, WS_DOUBLE = 12 * _FMUL + 2 * _FSMALL, 11 * _FMUL + 2 * _FSMALL, 8 * _FMUL + _FSMALL
+ED_ADD, ED_MADD, ED_DOUBLE = 9 * _ED_FMUL, 8 * _ED_FMUL, 8 * _ED_FMUL
+MADD_FIELD = {"secp256k1_scalar": 134, "secp256k1_base": 86, "ed25519_scalar": 189, "ed25519_base": 73}
+
+PDIR = "dkg_tpu/ops/pallas_point.py"
+SOURCES = {
+    "mod_madd": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    "mod_madd[ed25519]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    "pt_add": ("point_kernels.cu", PDIR + ":258"),
+    "pt_madd": ("point_kernels.cu", PDIR + ":281"),
+    "pt_window_step": ("point_kernels.cu", PDIR + ":328"),
+    "pt_ladder_mul_add": ("point_kernels.cu", PDIR + ":356"),
+    "pt_add[edwards]": ("edwards_kernels.cu", PDIR + ":258"),
+    "pt_madd[edwards]": ("edwards_kernels.cu", PDIR + ":281"),
+    "pt_ladder_mul_add[edwards]": ("edwards_kernels.cu", PDIR + ":356"),
+    "pt_double": ("double_kernels.cu", PDIR + ":304"),
 }
-
-
-def muladds(name: str, main_args: list, lanes: int) -> int:
-    """Multiply-adds the function needs on these inputs.  x of the ladder
-    is public, so x·P + A needs only bit_length(x) - 1 doublings and
-    popcount(x) adds (popcount(x) - 1 inside x·P, one for A); the kernel
-    itself runs a fixed INDEX_BITS double-and-adds a lane."""
-    if name != "pt_ladder_mul_add":
-        return MULADDS[name] * lanes
-    xs = main_args[2].cpu().tolist()
-    return sum(max(x.bit_length() - 1, 0) * _DOUBLE + bin(x).count("1") * _ADD for x in xs)
-KERNELS = (fk.MOD_MADD, *pk.KERNELS)
-REPLACES = {
-    "mod_madd": ("dkg_tpu_torch/csrc/field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
-    "pt_add": ("dkg_tpu_torch/csrc/point_kernels.cu", "dkg_tpu/ops/pallas_point.py:258"),
-    "pt_madd": ("dkg_tpu_torch/csrc/point_kernels.cu", "dkg_tpu/ops/pallas_point.py:281"),
-    "pt_window_step": ("dkg_tpu_torch/csrc/point_kernels.cu", "dkg_tpu/ops/pallas_point.py:328"),
-    "pt_ladder_mul_add": ("dkg_tpu_torch/csrc/point_kernels.cu", "dkg_tpu/ops/pallas_point.py:356"),
-}
-
-CS = gd.SECP256K1
-G = gh.SECP256K1
+KERNELS = (*fk.KERNELS, *pk.KERNELS)
 
 
 def check(cond, what: str) -> None:
@@ -134,45 +154,165 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def rand_field(rng, fs, batch: tuple, edges: bool = True) -> torch.Tensor:
-    """Canonical random elements (..., L); with ``edges`` the first lanes
-    are 0, 1 and p-1."""
+def edge_ints(fs) -> list:
+    """0, 1, m - 1, and values within 2**32 of 2**255 and of 2**256 - 1,
+    reduced mod m."""
+    m = fs.modulus
+    near = [(1 << 255) + d for d in (-(1 << 32), -1, 0, 1, 1 << 32)]
+    near += [(1 << 256) - 1 - d for d in (0, 1, 1 << 32)]
+    return [0, 1, m - 1] + [v % m for v in near]
+
+
+def rand_field(rng, fs, batch: tuple, operand: int | None = 0) -> torch.Tensor:
+    """Canonical random elements (..., L).  With ``operand`` set, the first
+    lanes hold edge values: operands 0 and 1 run through every pair of
+    edges, later operands cycle through them."""
     limbs = rng.integers(0, 1 << 16, size=batch + (fs.limbs,), dtype=np.int64)
-    limbs[..., -1] = np.minimum(limbs[..., -1], 0xFFFE)  # < 2**256 - 2**240 < p, n
-    if edges:
+    limbs[..., -1] %= fs.modulus >> (16 * (fs.limbs - 1))  # top limb below m's: value < m
+    if operand is not None:
+        edges = fh.encode(fs, edge_ints(fs))
+        e = len(edges)
         flat = limbs.reshape(-1, fs.limbs)
-        for i, v in enumerate((0, 1, fs.modulus - 1)[: len(flat)]):
-            flat[i] = fh.encode(fs, v)
-    return torch.from_numpy(limbs.astype(np.int32)).cuda()
+        for i in range(min(e * e, len(flat))):
+            j = (i // e, i % e)[operand] if operand < 2 else (i * (operand + 2)) % e
+            flat[i] = edges[j]
+    return torch.from_numpy(limbs.astype(np.int32)).to(DEV)
 
 
-def point_pool(rng, k: int = 64) -> torch.Tensor:
-    """k affine multiples of G (Z = 1), from host big-int scalar mults."""
-    pts = []
-    for _ in range(k):
-        x, y = G.to_affine(G.scalar_mul(int(rng.integers(1, 1 << 62)), G.generator()))
-        pts.append((x, y, 1))
-    return gd.from_host(CS, pts, device="cuda")
+def point_pool(rng, cs, k: int = 64) -> torch.Tensor:
+    """k affine multiples of the generator (Z = 1), from host big-int
+    scalar mults."""
+    group = gh.ALL_GROUPS[cs.name]
+    g = gp.base_key_to_point(cs, cs.gen_affine)
+    pts = [gp.base_key_to_point(cs, gp.base_key(cs, group.scalar_mul(int(rng.integers(1, 1 << 62)), g)))
+           for _ in range(k)]
+    return gd.from_host(cs, pts, device=DEV)
 
 
-def rand_points(rng, pool, batch: tuple, affine: bool = False) -> torch.Tensor:
-    """On-curve points drawn from ``pool``; projective ones rescaled by a
-    random non-zero lambda, every 7th lane the identity (0, lambda, 0)."""
-    pts = pool[torch.from_numpy(rng.integers(0, len(pool), size=batch)).cuda()]
+def rand_points(rng, cs, pool, batch: tuple, affine: bool = False) -> torch.Tensor:
+    """On-curve points drawn from ``pool``, every 7th lane the identity.
+    Projective ones are rescaled by a random non-zero lambda, the first
+    lanes by the base field's non-zero edge values; affine ones stay
+    affine (Weierstrass: no identity lanes, the mixed add does not take
+    them; Edwards: the identity (0, 1, 1, 0))."""
+    pts = pool[torch.from_numpy(rng.integers(0, len(pool), size=batch)).to(DEV)]
+    flat = pts.view(-1, cs.ncoords, cs.field.limbs)
+    ident = gd.identity(cs, device=DEV)
     if affine:
+        if cs.kind == "edwards":
+            flat[3::7] = ident
         return pts
-    lam = rand_field(rng, CS.field, batch, edges=False)
-    lam[..., 0] |= 1  # non-zero, and still < p (the top limb is < 0xFFFF)
-    pts = torch.stack([fd.mul(CS.field, pts[..., c, :], lam) for c in range(3)], dim=-2)
-    flat = pts.view(-1, 3, CS.field.limbs)
-    flat[3::7, 0] = 0
-    flat[3::7, 2] = 0
-    return pts
+    lam = rand_field(rng, cs.field, batch, operand=None)
+    lam[..., 0] |= 1  # non-zero, and still < p (the top limb is below p's)
+    lam_flat = lam.view(-1, cs.field.limbs)
+    edges = fh.to_tensor(fh.encode(cs.field, [v for v in edge_ints(cs.field) if v]), DEV)
+    k = min(len(edges), len(lam_flat))
+    lam_flat[:k] = edges[:k]
+    flat[3::7] = ident
+    return torch.stack([fd.mul(cs.field, pts[..., c, :], lam) for c in range(cs.ncoords)], dim=-2)
 
 
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel or variant: its wrapper and plain version, argument lists
+    at random lanes, the arguments at its path's shapes, and the
+    multiply-adds those need."""
+
+    path: Path
+    wrapper: object
+    plain: object
+    rand_args: list  # of (label, wrapper, plain, args)
+    main_args: list
+    muladds: int
+
+
+def ladder_muladds(xs, double: int, add: int) -> int:
+    """x of the ladder is public, so x·P + A needs only bit_length(x) - 1
+    doublings and popcount(x) adds (popcount(x) - 1 inside x·P, one for
+    A); the kernel itself runs a fixed index_bits double-and-adds a lane."""
+    return sum(max(x.bit_length() - 1, 0) * double + bin(x).count("1") * add for x in xs)
+
+
+def field_fns(fs):
+    """(wrapper, plain) of mod_madd over ``fs``."""
+    return (lambda a, b, c: fk.mod_madd(fs, a, b, c), lambda a, b, c: fk.mod_madd_plain(fs, a, b, c))
+
+
+def point_fns(cs, op: str, *extra):
+    """(wrapper, plain) of the point kernel ``op`` on ``cs``, with its
+    trailing int arguments."""
+    return (lambda *a: getattr(pk, op)(cs, *a, *extra),
+            lambda *a: getattr(pk, op + "_plain")(cs, *a, *extra))
+
+
+def kernel_cases(rng) -> dict:
+    cases = {}
+    R = (RANDOM_LANES,)
+    for path in PATHS:
+        cs, n, t = path.cs, path.n, path.t
+        ed = cs.kind == "edwards"
+        sfx = "[edwards]" if ed else ""
+        pool = point_pool(rng, cs)
+        S = cs.scalar
+        add_c, madd_c, dbl_c = (ED_ADD, ED_MADD, ED_DOUBLE) if ed else (WS_ADD, WS_MADD, WS_DOUBLE)
+
+        def points(batch, affine=False):
+            return rand_points(rng, cs, pool, batch, affine)
+
+        # eval_many's Horner step: acc (n, n, L), x (n, L), coefficient (n, 1, L)
+        cases[fk.MOD_MADD_ED.name if ed else fk.MOD_MADD.name] = Case(
+            path, *field_fns(S),
+            [(fs.name, *field_fns(fs), [rand_field(rng, fs, R, o) for o in range(3)]) for fs in (S, cs.field)],
+            [rand_field(rng, S, (n, n)), rand_field(rng, S, (n,)), rand_field(rng, S, (n, 1))],
+            MADD_FIELD[S.name] * n * n)
+        # E = A + h·b over every dealer's t+1 coefficients
+        cases["pt_add" + sfx] = Case(
+            path, *point_fns(cs, "pt_add"),
+            [("", *point_fns(cs, "pt_add"), [points(R), points(R)])],
+            [points((n, t + 1)), points((n, t + 1))],
+            add_c * n * (t + 1))
+        # one fixed_base_mul window over every dealer's t+1 coefficients
+        cases["pt_madd" + sfx] = Case(
+            path, *point_fns(cs, "pt_madd"),
+            [("", *point_fns(cs, "pt_madd"), [points(R), points(R, True)])],
+            [points((n, t + 1)), points((n, t + 1), True)],
+            madd_c * n * (t + 1))
+        # one Horner step of eval_point_poly: acc (n,), D_l one point, x = 1..n
+        x_rand = torch.from_numpy(rng.integers(0, 1 << path.index_bits, size=R).astype(np.int32)).to(DEV)
+        x_main = torch.arange(1, n + 1, dtype=torch.int32, device=DEV)
+        ladder = point_fns(cs, "pt_ladder_mul_add", path.index_bits)
+        cases["pt_ladder_mul_add" + sfx] = Case(
+            path, *ladder,
+            [("", *ladder, [points(R), points(R), x_rand])],
+            [points((n,)), points(()), x_main],
+            ladder_muladds(range(1, n + 1), dbl_c, add_c))
+        if not ed:
+            # one Straus window of the point RLC over the t+1 columns
+            step = point_fns(cs, "pt_window_step", gd.WINDOW)
+            cases["pt_window_step"] = Case(
+                path, *step,
+                [("", *step, [points(R), points(R)])],
+                [points((t + 1,)), points((t + 1,))],
+                (gd.WINDOW * dbl_c + add_c) * (t + 1))
+    # pt_double, both kinds at k = 1 and 4; at the ristretto255 path's
+    # shape, the Edwards Straus window step's 4 doublings over t+1 columns
+    dbl_rand = []
+    for path in PATHS:
+        pool = point_pool(rng, path.cs)
+        for k in (1, 4):
+            dbl_rand.append((f"{path.cs.kind} k={k}", *point_fns(path.cs, "pt_double", k),
+                             [rand_points(rng, path.cs, pool, R)]))
+    cs = R255.cs
+    cases["pt_double"] = Case(
+        R255, *point_fns(cs, "pt_double", gd.WINDOW), dbl_rand,
+        [rand_points(rng, cs, point_pool(rng, cs, 8), (R255.t + 1,))],
+        gd.WINDOW * ED_DOUBLE * (R255.t + 1))
+    return cases
 
 
 def held(name: str, wrapper, plain, args) -> int:
@@ -184,74 +324,27 @@ def held(name: str, wrapper, plain, args) -> int:
     return err
 
 
-def kernel_cases(rng, pool):
-    """Per kernel: (wrapper, plain, args at 2**16 random lanes, args at the main path's shapes)."""
-    S = CS.scalar
-    R = (RANDOM_LANES,)
-    x_rand = torch.from_numpy(rng.integers(0, 1 << INDEX_BITS, size=R).astype(np.int32)).cuda()
-    x_main = torch.arange(1, N + 1, dtype=torch.int32, device="cuda")
-    return {
-        "mod_madd": (
-            lambda a, b, c: fk.mod_madd(S, a, b, c),
-            lambda a, b, c: fk.mod_madd_plain(S, a, b, c),
-            [rand_field(rng, S, R) for _ in range(3)],
-            # eval_many's Horner step: acc (n, n, L), x (n, L), coefficient (n, 1, L)
-            [rand_field(rng, S, (N, N)), rand_field(rng, S, (N,)), rand_field(rng, S, (N, 1))],
-        ),
-        "pt_add": (
-            lambda p, q: pk.pt_add(CS, p, q),
-            lambda p, q: pk.pt_add_plain(CS, p, q),
-            [rand_points(rng, pool, R), rand_points(rng, pool, R)],
-            # E = A + h·b over every dealer's t+1 coefficients
-            [rand_points(rng, pool, (N, T + 1)), rand_points(rng, pool, (N, T + 1))],
-        ),
-        "pt_madd": (
-            lambda p, q: pk.pt_madd(CS, p, q),
-            lambda p, q: pk.pt_madd_plain(CS, p, q),
-            [rand_points(rng, pool, R), rand_points(rng, pool, R, affine=True)],
-            # one fixed_base_mul window over every dealer's t+1 coefficients
-            [rand_points(rng, pool, (N, T + 1)), rand_points(rng, pool, (N, T + 1), affine=True)],
-        ),
-        "pt_window_step": (
-            lambda a, e: pk.pt_window_step(CS, a, e, gd.WINDOW),
-            lambda a, e: pk.pt_window_step_plain(CS, a, e, gd.WINDOW),
-            [rand_points(rng, pool, R), rand_points(rng, pool, R)],
-            # one Straus window of the point RLC over the t+1 columns
-            [rand_points(rng, pool, (T + 1,)), rand_points(rng, pool, (T + 1,))],
-        ),
-        "pt_ladder_mul_add": (
-            lambda p, a, x: pk.pt_ladder_mul_add(CS, p, a, x, INDEX_BITS),
-            lambda p, a, x: pk.pt_ladder_mul_add_plain(CS, p, a, x, INDEX_BITS),
-            [rand_points(rng, pool, R), rand_points(rng, pool, R), x_rand],
-            # one Horner step of eval_point_poly: acc (n,), D_l one point, x = 1..n
-            [rand_points(rng, pool, (N,)), rand_points(rng, pool, ()), x_main],
-        ),
-    }
-
-
 def check_kernels(rng) -> dict:
-    pool = point_pool(rng)
     out = {}
-    for name, (wrapper, plain, rand_args, main_args) in kernel_cases(rng, pool).items():
-        if name == "mod_madd":  # the base field's template too, at random lanes
-            args = [rand_field(rng, CS.field, (RANDOM_LANES,)) for _ in range(3)]
-            held(name + "[base]", lambda a, b, c: fk.mod_madd(CS.field, a, b, c),
-                 lambda a, b, c: fk.mod_madd_plain(CS.field, a, b, c), args)
-        err = max(held(name, wrapper, plain, rand_args), held(name, wrapper, plain, main_args))
-        ms = cuda_ms(lambda: wrapper(*main_args), reps=10)
-        plain_ms = cuda_ms(lambda: plain(*main_args), reps=2)
-        res = wrapper(*main_args)
-        lanes = res.numel() // (CS.scalar.limbs if name == "mod_madd" else 3 * CS.field.limbs)
-        nbytes = sum(a.numel() * a.element_size() for a in main_args) + res.numel() * 4
-        ops = 2 * muladds(name, main_args, lanes)
-        bytes_ms, ops_ms = 1e3 * nbytes / BYTES_PER_S, 1e3 * ops / INT32_MUL_PER_S
+    for name, case in kernel_cases(rng).items():
+        err = 0
+        for label, wrapper, plain, args in case.rand_args:
+            err = max(err, held(f"{name} {label}".strip(), wrapper, plain, args))
+        err = max(err, held(name, case.wrapper, case.plain, case.main_args))
+        ms = cuda_ms(lambda: case.wrapper(*case.main_args), reps=10)
+        plain_ms = cuda_ms(lambda: case.plain(*case.main_args), reps=2)
+        res = case.wrapper(*case.main_args)
+        nbytes = sum(a.numel() * a.element_size() for a in case.main_args) + res.numel() * 4
+        bytes_ms, ops_ms = 1e3 * nbytes / BYTES_PER_S, 1e3 * 2 * case.muladds / INT32_MUL_PER_S
         out[name] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "lanes": lanes,
+            "library_ms": None,
         }
-        print(f"kernel {name}: exact at {RANDOM_LANES} random lanes and {lanes} main-path lanes; "
-              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.4f} ms "
+        print(f"kernel {name}: exact at {RANDOM_LANES} random lanes "
+              f"({', '.join(lbl for lbl, *_ in case.rand_args if lbl) or 'one case'}) and at "
+              f"{case.path.curve} n={case.path.n} shape {tuple(res.shape)}; {ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.6f} ms "
               f"({out[name]['bound_by']})", flush=True)
     return out
 
@@ -261,52 +354,55 @@ def check_kernels(rng) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def host_point(pt: torch.Tensor) -> tuple:
-    return gd.to_host(CS, pt.reshape(1, 3, -1))[0]
+def host_point(cs, pt: torch.Tensor) -> tuple:
+    return gd.to_host(cs, pt.reshape(1, cs.ncoords, -1))[0]
 
 
-def eval_host(coeffs_row, x: int) -> int:
-    q = CS.scalar.modulus
+def eval_host(q: int, coeffs_row, x: int) -> int:
     acc = 0
     for c in reversed(coeffs_row):
         acc = (acc * x + int(c)) % q
     return acc
 
 
-def main_path(seed: int) -> tuple[dict, dict]:
+def main_path(path: Path, seed: int) -> tuple[dict, dict]:
+    cs, n, t = path.cs, path.n, path.t
+    group = gh.ALL_GROUPS[path.curve]
     for k in KERNELS:
         k.launches = 0
-    c = cer.BatchedCeremony("secp256k1", N, T, b"chip-smoke", random.Random(seed), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    c = cer.BatchedCeremony(path.curve, n, t, path.shared, random.Random(seed), device=DEV)
     out = c.run()
     sync()
     launches = {k.name: k.launches for k in KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print("main path: phases " + json.dumps({k: round(v, 6) for k, v in out["phase_seconds"].items()})
+    tag = f"{path.curve} n={n} t={t}"
+    print(f"main path {tag}: phases " + json.dumps({k: round(v, 6) for k, v in out["phase_seconds"].items()})
           + f", peak device memory {peak_gib:.2f} GiB", flush=True)
-    print("main path: launches " + json.dumps(launches), flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    print(f"main path {tag}: launches " + json.dumps(launches), flush=True)
+    for k in path.kernels:
+        check(launches[k.name] > 0, f"kernel {k.name} was not launched on the {tag} path")
 
-    q = CS.scalar.modulus
+    q = cs.scalar.modulus
+    gen = gp.base_key_to_point(cs, cs.gen_affine)
     check("error" not in out and out["complaints"] == [], "the honest ceremony blamed a dealer")
-    check(out["ok"].shape == (N,) and bool(out["ok"].all()), "a batch check failed")
-    check(tuple(out["bare"].shape) == (N, T + 1, 3, 16) and tuple(out["shares"].shape) == (N, N, 16),
+    check(out["ok"].shape == (n,) and bool(out["ok"].all()), "a batch check failed")
+    check(tuple(out["bare"].shape) == (n, t + 1, cs.ncoords, 16) and tuple(out["shares"].shape) == (n, n, 16),
           "round-1 tensors have the wrong shape")
-    a = fh.decode(CS.scalar, fh.from_tensor(c.coeffs_a))  # (n, t+1) ints
+    a = fh.decode(cs.scalar, fh.from_tensor(c.coeffs_a))  # (n, t+1) ints
     secret = sum(int(v) for v in a[:, 0]) % q
-    check(G.eq(host_point(out["master"]), G.scalar_mul(secret, G.generator())),
-          "master key != g·(Σ_j a_j0)")
-    for j, l in ((0, 0), (N - 1, T)):
-        check(G.eq(host_point(out["bare"][j, l]), G.scalar_mul(int(a[j, l]), G.generator())),
+    check(group.eq(host_point(cs, out["master"]), group.scalar_mul(secret, gen)), "master key != g·(Σ_j a_j0)")
+    for j, l in ((0, 0), (n - 1, t)):
+        check(group.eq(host_point(cs, out["bare"][j, l]), group.scalar_mul(int(a[j, l]), gen)),
               f"bare commitment A[{j}, {l}] != g·a")
-    col = [sum(int(v) for v in a[:, l]) % q for l in range(T + 1)]
-    finals = fh.decode(CS.scalar, fh.from_tensor(out["final_shares"]))
-    shares = fh.decode(CS.scalar, fh.from_tensor(out["shares"][:, [0, N // 2, N - 1]]))
-    for k, i in enumerate((1, N // 2 + 1, N)):
-        check(int(finals[i - 1]) == eval_host(col, i), f"final share of party {i} != Σ_j f_j({i})")
-        for j in (0, N - 1):
-            check(int(shares[j, k]) == eval_host(a[j], i), f"share s[{j}, {i - 1}] != f_{j}({i})")
-    print("main path: ok for all recipients; master key, commitments and shares match "
+    col = [sum(int(v) for v in a[:, l]) % q for l in range(t + 1)]
+    finals = fh.decode(cs.scalar, fh.from_tensor(out["final_shares"]))
+    shares = fh.decode(cs.scalar, fh.from_tensor(out["shares"][:, [0, n // 2, n - 1]]))
+    for k, i in enumerate((1, n // 2 + 1, n)):
+        check(int(finals[i - 1]) == eval_host(q, col, i), f"final share of party {i} != Σ_j f_j({i})")
+        for j in (0, n - 1):
+            check(int(shares[j, k]) == eval_host(q, a[j], i), f"share s[{j}, {i - 1}] != f_{j}({i})")
+    print(f"main path {tag}: ok for all recipients; master key, commitments and shares match "
           "the host oracles", flush=True)
     fiat_shamir_breakdown(c.cfg, out)
     return launches, out["phase_seconds"]
@@ -315,37 +411,43 @@ def main_path(seed: int) -> tuple[dict, dict]:
 def fiat_shamir_breakdown(cfg, out) -> None:
     """Host-clock split of the fiat_shamir phase, its steps redone on the
     main path's round-1 tensors."""
+    n = cfg.n
     t = [time.perf_counter()]
     a, e, s, r = (fh.from_tensor(out[k]) for k in ("bare", "randomized", "shares", "hidings"))
     t.append(time.perf_counter())
-    a, e = gd.affine_canon_host(CS, a), gd.affine_canon_host(CS, e)
+    a, e = gd.affine_canon_host(cfg.cs, a), gd.affine_canon_host(cfg.cs, e)
     t.append(time.perf_counter())
-    sr = np.concatenate([s.reshape(N, -1), r.reshape(N, -1)], axis=-1)
-    rows = [row_digests_np(x.reshape(N, -1), domain=d) for d, x in ((1, a), (2, e), (3, sr))]
+    sr = np.concatenate([s.reshape(n, -1), r.reshape(n, -1)], axis=-1)
+    rows = [row_digests_np(x.reshape(n, -1), domain=d) for d, x in ((1, a), (2, e), (3, sr))]
     t.append(time.perf_counter())
     cer.fiat_shamir_rho(cfg, cer._fold_digest_device(cfg, *rows), 128)
     t.append(time.perf_counter())
-    check(all(x.shape == (N, 8) for x in rows), "row digests have the wrong shape")
+    check(all(x.shape == (n, 8) for x in rows), "row digests have the wrong shape")
     steps = ("device to host", "canonical affine A, E", "BLAKE2s rows", "fold and rho")
-    print("fiat_shamir breakdown (host clock, s): " + json.dumps(
+    print(f"fiat_shamir breakdown {cfg.curve} (host clock, s): " + json.dumps(
         {k: round(t[i + 1] - t[i], 6) for i, k in enumerate(steps)}), flush=True)
 
 
+# profiler kernel names -> kernel names, first match wins ("pt_add_kernel"
+# is inside "ed_pt_add_kernel"); mod_madd_kernel is the path's mod_madd
 PROFILE_GROUPS = (
-    ("mod_madd_kernel", "mod_madd"), ("pt_add_kernel", "pt_add"), ("pt_madd_kernel", "pt_madd"),
+    ("ed_pt_add_kernel", "pt_add[edwards]"), ("ed_pt_madd_kernel", "pt_madd[edwards]"),
+    ("ed_pt_ladder_kernel", "pt_ladder_mul_add[edwards]"), ("pt_double_kernel", "pt_double"),
+    ("mod_madd_kernel", None), ("pt_add_kernel", "pt_add"), ("pt_madd_kernel", "pt_madd"),
     ("pt_window_step_kernel", "pt_window_step"), ("pt_ladder_kernel", "pt_ladder_mul_add"),
     ("Memcpy DtoH", "copy to host"),
 )
 
 
-def profile_main_path(seed: int) -> None:
+def profile_main_path(path: Path, seed: int) -> None:
     """The main path once more under torch.profiler: device time by kernel
     (everything not ours is PyTorch's own ops: the plain tensor code and
     the wrappers' broadcast copies) and the device's busy share of the
     wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    c = cer.BatchedCeremony("secp256k1", N, T, b"chip-smoke", random.Random(seed), device="cuda")
+    madd = next(k.name for k in path.kernels if k.name.startswith("mod_madd"))
+    c = cer.BatchedCeremony(path.curve, path.n, path.t, path.shared, random.Random(seed), device=DEV)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         c.run()
@@ -355,35 +457,38 @@ def profile_main_path(seed: int) -> None:
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        group = next((g for key, g in PROFILE_GROUPS if key in e.name), "torch ops")
+        group = next((g or madd for key, g in PROFILE_GROUPS if key in e.name), "torch ops")
         device_ms[group] = device_ms.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(device_ms.values())
-    check(all(device_ms.get(g, 0) > 0 for _, g in PROFILE_GROUPS[:5]), f"profile saw {device_ms}")
-    print(f"profile: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms ({100 * busy / wall_ms:.2f} %), "
-          "device ms " + json.dumps({k: round(v, 3) for k, v in sorted(device_ms.items())}), flush=True)
+    check(all(device_ms.get(k.name, 0) > 0 for k in path.kernels), f"profile saw {device_ms}")
+    print(f"profile {path.curve} n={path.n}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.2f} %), device ms "
+          + json.dumps({k: round(v, 3) for k, v in sorted(device_ms.items())}), flush=True)
 
 
-def tampered(seed: int) -> None:
-    n, t, dealer, recipient = 16, 5, 3, 7
-    fs = CS.scalar
+def tampered(curve: str, seed: int) -> None:
+    n, t, dealer, recipient = TAMPER_N, TAMPER_T, 3, 7
+    cs = gd.ALL_CURVES[curve]
+    fs, group = cs.scalar, gh.ALL_GROUPS[curve]
 
     def tamper(a, e, s, r):
         s = s.clone()
         s[dealer, recipient] = fd.add(fs, s[dealer, recipient], fd.ones(fs, device=s.device))
         return a, e, s, r
 
-    c = cer.BatchedCeremony("secp256k1", n, t, b"chip-smoke-tamper", random.Random(seed), device="cuda")
+    c = cer.BatchedCeremony(curve, n, t, b"chip-smoke-tamper", random.Random(seed), device=DEV)
     out = c.run(tamper=tamper)
     ok = out["ok"].cpu().tolist()
-    check(ok == [i != recipient for i in range(n)], f"tampered batch checks {ok}")
-    check(out["complaints"] == [(recipient + 1, dealer + 1)], f"complaints {out['complaints']}")
+    check(ok == [i != recipient for i in range(n)], f"{curve} tampered batch checks {ok}")
+    check(out["complaints"] == [(recipient + 1, dealer + 1)], f"{curve} complaints {out['complaints']}")
     qual = out["qualified"].cpu().tolist()
-    check(qual == [j != dealer for j in range(n)], f"qualified {qual}")
+    check(qual == [j != dealer for j in range(n)], f"{curve} qualified {qual}")
     a = fh.decode(fs, fh.from_tensor(c.coeffs_a))
     secret = sum(int(a[j, 0]) for j in range(n) if j != dealer) % fs.modulus
-    check(G.eq(host_point(out["master"]), G.scalar_mul(secret, G.generator())),
-          "tampered ceremony's master key != g·(Σ over the qualified set)")
-    print(f"tampered (n={n}, t={t}): recipient {recipient + 1} failed its batch check, dealer "
+    gen = gp.base_key_to_point(cs, cs.gen_affine)
+    check(group.eq(host_point(cs, out["master"]), group.scalar_mul(secret, gen)),
+          f"{curve} tampered ceremony's master key != g·(Σ over the qualified set)")
+    print(f"tampered {curve} (n={n}, t={t}): recipient {recipient + 1} failed its batch check, dealer "
           f"{dealer + 1} blamed, master key of the qualified set matches", flush=True)
 
 
@@ -408,15 +513,19 @@ def main() -> None:
 
     rng = np.random.default_rng(args.seed)
     numbers = check_kernels(rng)
-    launches, _ = main_path(args.seed)
-    profile_main_path(args.seed)
-    tampered(args.seed + 1)
+    launches = {}
+    for path in PATHS:
+        path_launches, _ = main_path(path, args.seed)
+        launches.update({k.name: path_launches[k.name] for k in path.kernels})
+        profile_main_path(path, args.seed)
+    for i, path in enumerate(PATHS):
+        tampered(path.curve, args.seed + 1 + i)
 
     rows = []
     for name, rec in numbers.items():
-        source, replaces = REPLACES[name]
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[name], **{k: v for k, v in rec.items() if k != "lanes"}})
+        source, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": "dkg_tpu_torch/csrc/" + source,
+                     "replaces": replaces, "launches": launches[name], **rec})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

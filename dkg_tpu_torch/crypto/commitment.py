@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..groups.host import WeierstrassGroup
+from ..groups.host import Ristretto255, WeierstrassGroup
 
 DOMAIN_COMMITMENT_KEY = b"dkgtpu-ck"
 
@@ -18,7 +18,8 @@ class CommitmentKey:
     h: tuple
 
     @classmethod
-    def generate(cls, group: WeierstrassGroup, shared_string: bytes) -> "CommitmentKey":
+    def generate(cls, group: WeierstrassGroup | Ristretto255, shared_string: bytes) -> "CommitmentKey":
         """Deterministic from the shared string: every party derives the
-        same ``h``."""
+        same ``h``, in the JAX package's projective coordinates (the
+        Edwards table for ``h`` is built from its affine x, y)."""
         return cls(group.hash_to_group(shared_string, DOMAIN_COMMITMENT_KEY))

@@ -1,0 +1,74 @@
+// pt_double: 2^n_doubles * P in one launch, one point per thread, on
+// secp256k1 (projective, RCB15 algorithm 9, point.cuh) or edwards25519
+// (extended, dbl-2008-hwcd, edwards.cuh).
+//
+// Replaces: dkg_tpu/ops/pallas_point.py _double_call (the Pallas kernel
+// behind pt_double) for both curve kinds at 16 limbs.  The ceremony
+// launches it on ristretto255 only: the Edwards Straus window step is
+// pt_double(acc, 4) then pt_add, the JAX package's split route
+// (groups/device.py window_step, DKG_TPU_ED_FUSED_DOUBLES).  On secp256k1
+// the window step is one pt_window_step launch, so the Weierstrass
+// variant serves groups/device.double, which nothing on the ceremony path
+// calls.
+//
+// What bounds it on the H100: a lane reads one point and writes one (384
+// bytes on secp256k1, 512 on edwards25519) and does n_doubles x 700 or
+// n_doubles x 584 32x32->64-bit multiply-adds.  At n_doubles = 4 that is
+// 335 or 280 ps of multiplies (two 32-bit multiplies each at 16.7 T/s) to
+// 115 or 153 ps of bytes a lane: bound by the multiplier.  The design
+// keeps the point in registers across all n_doubles doublings (as the
+// Pallas kernel keeps it in VMEM), one lane per thread, no shared memory.
+// The window step gives it t + 1 = 86 lanes at the ristretto255 n = 256
+// path's shape: one block of the card's 132 SMs, a latency figure.
+#include <cuda_runtime.h>
+
+#include "edwards.cuh"
+#include "lanes.cuh"
+#include "point.cuh"
+
+namespace {
+
+using namespace dkg;
+
+constexpr int kWsPointWords = kCoords * kLimbs;    // 48
+constexpr int kEdPointWords = kEdCoords * kLimbs;  // 64
+
+__global__ void __launch_bounds__(kThreads)
+    pt_double_kernel(const int32_t* __restrict__ p, int32_t* __restrict__ out, int64_t n,
+                     int n_doubles) {
+  DKG_LANES(lane, n) {
+    double_lane(p + lane * kWsPointWords, n_doubles, out + lane * kWsPointWords);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    ed_pt_double_kernel(const int32_t* __restrict__ p, int32_t* __restrict__ out, int64_t n,
+                        int n_doubles) {
+  DKG_LANES(lane, n) {
+    ed_double_lane(p + lane * kEdPointWords, n_doubles, out + lane * kEdPointWords);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// kind: 0 = secp256k1 (3 coordinates), 1 = edwards25519 (4 coordinates).
+int dkg_pt_double(const int32_t* p, int32_t* out, int64_t n, int n_doubles, int kind,
+                  void* stream) {
+  if (n <= 0) return 0;
+  if (n_doubles < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 0) {
+    pt_double_kernel<<<blocks_for(n), kThreads, 0, s>>>(p, out, n, n_doubles);
+  } else if (kind == 1) {
+    ed_pt_double_kernel<<<blocks_for(n), kThreads, 0, s>>>(p, out, n, n_doubles);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* dkg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

@@ -1,5 +1,6 @@
-// mod_madd: out = (a * b + c) mod m, one lane per thread, for the
-// secp256k1 base field p or group order n.
+// mod_madd: out = (a * b + c) mod m, one lane per thread, over the
+// secp256k1 base field p or group order n, the ed25519 base field
+// 2^255 - 19, or the ristretto255 scalar field l.
 //
 // Replaces: dkg_tpu/ops/pallas_field.py _mod_madd_tiles (the Pallas
 // kernel behind mod_madd), which the JAX package runs as the Horner step
@@ -7,18 +8,20 @@
 // verifier's scalar RLC (dkg/ceremony.py _field_dot) through it.
 //
 // What bounds it on the H100: a lane reads 3 x 64 bytes and writes 64,
-// and does 86 (p) or 134 (n) 32x32->64-bit multiply-adds: 64 for the
-// schoolbook product, the rest for the fold reduction in field.cuh.
-// Counted as two 32-bit multiplies each (low and high half) at the
-// card's 16.7 T/s (132 SMs x 64 INT32 lanes x 1.98 GHz), 134
-// multiply-adds take 16 ps a lane, while 256 bytes at 3.35 TB/s take
+// and does 86 (secp256k1 p), 134 (n), 73 (ed25519 p) or 189
+// (ristretto255 l) 32x32->64-bit multiply-adds: 64 for the schoolbook
+// product, the rest for the reduction in field.cuh (folds, or Barrett
+// for l).  Counted as two 32-bit multiplies each (low and high half) at
+// the card's 16.7 T/s (132 SMs x 64 INT32 lanes x 1.98 GHz), 189
+// multiply-adds take 23 ps a lane, while 256 bytes at 3.35 TB/s take
 // 76 ps: memory is the bound, as long as the carry chains (each
 // multiply-add also adds with carry) keep the integer work under it.  The design keeps the whole
 // element in registers (8 words), loads and stores 16 bytes at a time,
 // takes the reduction constants from __constant__ memory, and uses no
 // shared memory.  The Horner loop at n = 1024 gives it 1M lanes per
-// launch, which fills the card; the RLC fold gives it only n lanes per
-// launch (one dealer at a time), which does not.
+// launch, which fills the card (n = 256 on ristretto255: 64k lanes); the
+// RLC fold gives it only n lanes per launch (one dealer at a time), which
+// does not.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -46,15 +49,20 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// field: 0 = secp256k1 base field, 1 = secp256k1 group order.
+// field: the ids of field.cuh (0 = secp256k1 p, 1 = secp256k1 n,
+// 2 = ed25519 p, 3 = ristretto255 l).
 int dkg_mod_madd(const int32_t* a, const int32_t* b, const int32_t* c, int32_t* out, int64_t n,
                  int field, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (field == kBase) {
-    mod_madd_kernel<kBase><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, out, n);
-  } else if (field == kScalar) {
-    mod_madd_kernel<kScalar><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, out, n);
+  if (field == kSecpP) {
+    mod_madd_kernel<kSecpP><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, out, n);
+  } else if (field == kSecpN) {
+    mod_madd_kernel<kSecpN><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, out, n);
+  } else if (field == kEdP) {
+    mod_madd_kernel<kEdP><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, out, n);
+  } else if (field == kEdL) {
+    mod_madd_kernel<kEdL><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, out, n);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -10,7 +10,7 @@
 //
 // Cost in 32x32->64-bit multiply-adds (a full multiply is 86, a multiply
 // by b3 = 21 is 12): add 12*86 + 2*12 = 1056, madd 11*86 + 2*12 = 970,
-// double 8*86 + 12 = 700.
+// double 8*86 + 12 = 700.  The Edwards formulas are in edwards.cuh.
 #pragma once
 
 #include "field.cuh"
@@ -48,7 +48,7 @@ __device__ __forceinline__ void set_identity(Point& p) {
 
 // RCB15 algorithm 7: complete addition.  o may alias p or q.
 __device__ __forceinline__ void pt_add(Point& o, const Point& p, const Point& q) {
-  constexpr int F = kBase;
+  constexpr int F = kSecpP;
   uint32_t t0[kWords], t1[kWords], t2[kWords], t3[kWords], t4[kWords];
   uint32_t u[kWords], v[kWords], x3[kWords], y3[kWords], z3[kWords];
   fmul<F>(t0, p.x, q.x);
@@ -89,7 +89,7 @@ __device__ __forceinline__ void pt_add(Point& o, const Point& p, const Point& q)
 // RCB15 algorithm 8: mixed addition with q affine (Z = 1).  Complete for
 // every p, but NOT for q = identity: callers mask those lanes.
 __device__ __forceinline__ void pt_madd(Point& o, const Point& p, const Point& q) {
-  constexpr int F = kBase;
+  constexpr int F = kSecpP;
   uint32_t t0[kWords], t1[kWords], t2[kWords], t3[kWords], t4[kWords];
   uint32_t u[kWords], v[kWords], x3[kWords], y3[kWords], z3[kWords];
   fmul<F>(t0, p.x, q.x);
@@ -122,7 +122,7 @@ __device__ __forceinline__ void pt_madd(Point& o, const Point& p, const Point& q
 
 // RCB15 algorithm 9: complete doubling, in place.
 __device__ __forceinline__ void pt_double(Point& p) {
-  constexpr int F = kBase;
+  constexpr int F = kSecpP;
   uint32_t t0[kWords], t1[kWords], t2[kWords], x3[kWords], y3[kWords], z3[kWords];
   fmul<F>(t0, p.y, p.y);
   fadd<F>(z3, t0, t0);
@@ -176,6 +176,14 @@ __device__ __forceinline__ void madd_lane(const int32_t* p, const int32_t* q, in
   load_point(p, a);
   load_point(q, b);
   pt_madd(a, a, b);
+  store_point(out, a);
+}
+
+// out = 2^n_doubles * p
+__device__ __forceinline__ void double_lane(const int32_t* p, int n_doubles, int32_t* out) {
+  Point a;
+  load_point(p, a);
+  for (int i = 0; i < n_doubles; ++i) pt_double(a);
   store_point(out, a);
 }
 

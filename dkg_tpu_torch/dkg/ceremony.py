@@ -15,8 +15,9 @@ randomizers.  State is struct-of-arrays over all parties at once:
 * ``verify_batch`` — with randomizers rho_j each recipient i checks
   g·(Σ_j rho_j s_ji) + h·(Σ_j rho_j s'_ji) == Σ_l i^l · (Σ_j rho_j E_jl):
   scalar RLCs folded through ``mod_madd``, the point RLC by Straus
-  (``pt_add`` table builds and tree sums, one ``pt_window_step`` per
-  4-bit window), the right side by point Horner (``pt_ladder_mul_add``);
+  (``pt_add`` table builds and tree sums, one window step per 4-bit
+  window: ``pt_window_step``, or ``pt_double`` then ``pt_add`` on
+  Edwards), the right side by point Horner (``pt_ladder_mul_add``);
 * ``verify_pairwise`` — the direct per-(dealer, recipient) check, run
   only when a batch check fails, to assign blame.
 

@@ -53,8 +53,6 @@ SECP256K1 = CurveSpec(
     (gh.SECP256K1.gen_x, gh.SECP256K1.gen_y),
 )
 
-# Edwards (ristretto255) runs through the plain formulas only: its point
-# kernels are not ported yet, so its CUDA tensors raise.
 RISTRETTO255 = CurveSpec(
     "ristretto255",
     "edwards",
@@ -96,6 +94,10 @@ def to_host(cs: CurveSpec, pts: torch.Tensor) -> list:
 
 def add(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return pk.pt_add(cs, p, q)
+
+
+def double(cs: CurveSpec, p: torch.Tensor) -> torch.Tensor:
+    return pk.pt_double(cs, p)
 
 
 def madd(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -179,8 +181,17 @@ def _tree_reduce(cs: CurveSpec, pts: torch.Tensor, axis_len: int) -> torch.Tenso
 
 
 def window_step(cs: CurveSpec, acc: torch.Tensor, entry: torch.Tensor, window: int) -> torch.Tensor:
-    """One Straus window: ``window`` doublings of acc, then + entry."""
-    return pk.pt_window_step(cs, acc, entry, window)
+    """One Straus window: ``window`` doublings of acc, then + entry.
+
+    Weierstrass: one ``pt_window_step`` launch.  Edwards: the JAX
+    package's split route (its ``DKG_TPU_ED_FUSED_DOUBLES`` mode), one
+    ``pt_double`` launch of all ``window`` doublings, then one ``pt_add``;
+    the one-launch Edwards window step is not ported."""
+    if cs.kind != "edwards":
+        return pk.pt_window_step(cs, acc, entry, window)
+    if window:
+        acc = pk.pt_double(cs, acc, window)
+    return pk.pt_add(cs, acc, entry)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Host-side (Python-int) group arithmetic for the ceremony slice.
+"""Host-side (Python-int) group arithmetic for the ceremony slices.
 
 A JAX-free copy of what the port needs from ``dkg_tpu/groups/host.py``:
 the short Weierstrass a=0 group secp256k1 (complete RCB15 addition,
 scalar multiplication, SEC encoding, try-and-increment hash-to-curve
-for the Pedersen base ``h``) and the Edwards25519 constants behind the
-ristretto255 curve spec.  Scalar multiplication is the pure-Python
-fixed-length Montgomery ladder; only public data (table bases, test
-oracles) goes through it on this path.
+for the Pedersen base ``h``) and the ristretto255 group over
+edwards25519 (unified extended addition, the RFC 9496 encode, decode,
+equality and one-way map, hash-to-group for ``h``).  Scalar
+multiplication is the pure-Python fixed-length Montgomery ladder (the
+JAX package's ``_scalar_mul_ladder``; its native constant-time runtime
+is not ported); only public data (table bases, test oracles) goes
+through it on this path.
 """
 
 from __future__ import annotations
@@ -19,13 +22,17 @@ from ..fields import spec as fspec
 from ..fields.spec import FieldSpec
 
 # ---------------------------------------------------------------------------
-# Edwards25519 constants (the ristretto255 curve spec's base point and d)
+# Edwards25519 / ristretto255 constants
 # ---------------------------------------------------------------------------
 
 P = (1 << 255) - 19
 D = (-121665 * pow(121666, P - 2, P)) % P
-SQRT_M1 = pow(2, (P - 1) // 4, P)
+SQRT_M1 = pow(2, (P - 1) // 4, P)  # sqrt(-1), the even root
 BASE_Y = (4 * pow(5, P - 2, P)) % P
+
+# Ristretto helper constants (RFC 9496 §4.1)
+ONE_MINUS_D_SQ = (1 - D * D) % P
+D_MINUS_ONE_SQ = ((D - 1) * (D - 1)) % P
 
 
 def _recover_x(y: int, sign: int) -> Optional[int]:
@@ -42,6 +49,127 @@ def _recover_x(y: int, sign: int) -> Optional[int]:
 
 
 BASE_X = _recover_x(BASE_Y, 0)
+
+# Extended twisted Edwards coordinates (X, Y, Z, T), T = X*Y/Z, a = -1.
+EdPoint = tuple
+
+ED_IDENTITY: EdPoint = (0, 1, 1, 0)
+ED_GENERATOR: EdPoint = (BASE_X, BASE_Y, 1, BASE_X * BASE_Y % P)
+
+
+def ed_add(p: EdPoint, q: EdPoint) -> EdPoint:
+    """Unified extended addition (complete for a=-1, d non-square)."""
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    a = (y1 - x1) * (y2 - x2) % P
+    b = (y1 + x1) * (y2 + x2) % P
+    c = 2 * D * t1 % P * t2 % P
+    dd = 2 * z1 * z2 % P
+    e, f, g, h = (b - a) % P, (dd - c) % P, (dd + c) % P, (b + a) % P
+    return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+
+def ed_neg(p: EdPoint) -> EdPoint:
+    x, y, z, t = p
+    return ((P - x) % P, y, z, (P - t) % P)
+
+
+def _sqrt_ratio_m1(u: int, v: int) -> tuple[bool, int]:
+    """RFC 9496 §4.2 SQRT_RATIO_M1: non-negative sqrt of u/v (or i*u/v)."""
+    v3 = v * v % P * v % P
+    v7 = v3 * v3 % P * v % P
+    r = u * v3 % P * pow(u * v7 % P, (P - 5) // 8, P) % P
+    check = v * r % P * r % P
+    u_neg = (P - u) % P
+    correct_sign = check == u % P
+    flipped_sign = check == u_neg
+    flipped_sign_i = check == u_neg * SQRT_M1 % P
+    if flipped_sign or flipped_sign_i:
+        r = r * SQRT_M1 % P
+    if r & 1:
+        r = P - r
+    return (correct_sign or flipped_sign), r
+
+
+_, INVSQRT_A_MINUS_D = _sqrt_ratio_m1(1, (-1 - D) % P)
+_, SQRT_AD_MINUS_ONE = _sqrt_ratio_m1((-D - 1) % P, 1)
+
+
+def ristretto_encode(p: EdPoint) -> bytes:
+    """RFC 9496 §4.3.2 ENCODE."""
+    x0, y0, z0, t0 = p
+    u1 = (z0 + y0) * (z0 - y0) % P
+    u2 = x0 * y0 % P
+    _, invsqrt = _sqrt_ratio_m1(1, u1 * u2 % P * u2 % P)
+    den1 = invsqrt * u1 % P
+    den2 = invsqrt * u2 % P
+    z_inv = den1 * den2 % P * t0 % P
+    ix0 = x0 * SQRT_M1 % P
+    iy0 = y0 * SQRT_M1 % P
+    enchanted = den1 * INVSQRT_A_MINUS_D % P
+    if (t0 * z_inv % P) & 1:  # rotate
+        x, y, den_inv = iy0, ix0, enchanted
+    else:
+        x, y, den_inv = x0, y0, den2
+    if (x * z_inv % P) & 1:
+        y = (P - y) % P
+    s = den_inv * ((z0 - y) % P) % P
+    if s & 1:
+        s = P - s
+    return s.to_bytes(32, "little")
+
+
+def ristretto_decode(data: bytes) -> Optional[EdPoint]:
+    """RFC 9496 §4.3.1 DECODE; None for non-canonical encodings."""
+    if len(data) != 32:
+        return None
+    s = int.from_bytes(data, "little")
+    if s >= P or s & 1:
+        return None
+    ss = s * s % P
+    u1 = (1 - ss) % P
+    u2 = (1 + ss) % P
+    u2_sqr = u2 * u2 % P
+    v = ((P - D) * u1 % P * u1 + P - u2_sqr) % P
+    was_square, invsqrt = _sqrt_ratio_m1(1, v * u2_sqr % P)
+    den_x = invsqrt * u2 % P
+    den_y = invsqrt * den_x % P * v % P
+    x = 2 * s % P * den_x % P
+    if x & 1:
+        x = P - x
+    y = u1 * den_y % P
+    t = x * y % P
+    if (not was_square) or t & 1 or y == 0:
+        return None
+    return (x, y, 1, t)
+
+
+def ristretto_eq(p: EdPoint, q: EdPoint) -> bool:
+    """Torsion-safe equality (RFC 9496 §4.3.3): X1Y2==Y1X2 or Y1Y2==X1X2."""
+    x1, y1, _, _ = p
+    x2, y2, _, _ = q
+    return (x1 * y2 - y1 * x2) % P == 0 or (y1 * y2 - x1 * x2) % P == 0
+
+
+def ristretto_map(t: int) -> EdPoint:
+    """RFC 9496 §4.3.4 MAP: field element -> group element."""
+    r = SQRT_M1 * t % P * t % P
+    u = (r + 1) * ONE_MINUS_D_SQ % P
+    v = ((P - 1) + P - r * D % P) % P * ((r + D) % P) % P
+    was_square, s = _sqrt_ratio_m1(u, v)
+    s_prime = s * t % P
+    if not s_prime & 1:
+        s_prime = P - s_prime  # -ABS(s*t)
+    if not was_square:
+        s, c = s_prime, r
+    else:
+        c = P - 1
+    n = (c * ((r - 1) % P) % P * D_MINUS_ONE_SQ + P - v) % P
+    w0 = 2 * s * v % P
+    w1 = n * SQRT_AD_MINUS_ONE % P
+    w2 = (1 - s * s) % P
+    w3 = (1 + s * s) % P
+    return (w0 * w3 % P, w2 * w1 % P, w1 * w3 % P, w0 * w2 % P)
 
 # ---------------------------------------------------------------------------
 # Short Weierstrass (a = 0): projective (X, Y, Z), identity (0, 1, 0)
@@ -82,6 +210,23 @@ def ws_eq(p: WsPoint, q: WsPoint, prime: int) -> bool:
     if z1 % prime == 0 or z2 % prime == 0:
         return z1 % prime == z2 % prime
     return (x1 * z2 - x2 * z1) % prime == 0 and (y1 * z2 - y2 * z1) % prime == 0
+
+
+def _ladder(group, k: int, p):
+    """k·P by the fixed-length Montgomery ladder over the scalar field's
+    bit length (uniform add + double per bit; Python ints are not
+    constant-time, so public data only)."""
+    k %= group.scalar_field.modulus
+    r0, r1 = group.identity(), p
+    for i in reversed(range(group.scalar_field.modulus.bit_length())):
+        bit = (k >> i) & 1
+        if bit:
+            r0, r1 = r1, r0
+        r1 = group.add(r0, r1)
+        r0 = group.add(r0, r0)
+        if bit:
+            r0, r1 = r1, r0
+    return r0
 
 
 def _sqrt_mod(a: int, p: int) -> Optional[int]:
@@ -125,19 +270,7 @@ class WeierstrassGroup:
         return ws_eq(p, q, self.prime)
 
     def scalar_mul(self, k: int, p):
-        """k·P by the fixed-length Montgomery ladder (uniform add + double
-        per bit; Python ints are not constant-time, so public data only)."""
-        k %= self.scalar_field.modulus
-        r0, r1 = self.identity(), p
-        for i in reversed(range(self.scalar_field.modulus.bit_length())):
-            bit = (k >> i) & 1
-            if bit:
-                r0, r1 = r1, r0
-            r1 = self.add(r0, r1)
-            r0 = self.add(r0, r0)
-            if bit:
-                r0, r1 = r1, r0
-        return r0
+        return _ladder(self, k, p)
 
     def to_affine(self, p) -> Optional[tuple[int, int]]:
         x, y, z = p
@@ -181,6 +314,51 @@ class WeierstrassGroup:
             ctr += 1
 
 
+@dataclass(frozen=True)
+class Ristretto255:
+    """The ristretto255 prime-order group over edwards25519, extended
+    coordinates (X, Y, Z, T), identity (0, 1, 1, 0)."""
+
+    name: str
+    base_field: FieldSpec
+    scalar_field: FieldSpec
+
+    def identity(self) -> EdPoint:
+        return ED_IDENTITY
+
+    def generator(self) -> EdPoint:
+        return ED_GENERATOR
+
+    def add(self, p, q):
+        return ed_add(p, q)
+
+    def neg(self, p):
+        return ed_neg(p)
+
+    def eq(self, p, q) -> bool:
+        return ristretto_eq(p, q)
+
+    def scalar_mul(self, k: int, p):
+        return _ladder(self, k, p)
+
+    def encode(self, p) -> bytes:
+        return ristretto_encode(p)
+
+    def decode(self, data: bytes):
+        return ristretto_decode(data)
+
+    def hash_to_group(self, data: bytes, domain: bytes = b"") -> EdPoint:
+        """One-way map: BLAKE2b-512 -> two field elements -> MAP -> add
+        (RFC 9496 §4.3.4)."""
+        h = hashlib.blake2b(data, digest_size=64, person=domain[:16]).digest()
+        mask = (1 << 255) - 1
+        t0 = (int.from_bytes(h[:32], "little") & mask) % P
+        t1 = (int.from_bytes(h[32:], "little") & mask) % P
+        return ed_add(ristretto_map(t0), ristretto_map(t1))
+
+
+RISTRETTO255 = Ristretto255("ristretto255", fspec.P25519, fspec.L25519)
+
 SECP256K1 = WeierstrassGroup(
     "secp256k1",
     fspec.SECP256K1_P,
@@ -190,4 +368,4 @@ SECP256K1 = WeierstrassGroup(
     gen_y=0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8,
 )
 
-ALL_GROUPS = {g.name: g for g in (SECP256K1,)}
+ALL_GROUPS = {g.name: g for g in (RISTRETTO255, SECP256K1)}

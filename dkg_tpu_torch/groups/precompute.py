@@ -3,8 +3,9 @@
 Counterpart of ``dkg_tpu/groups/precompute.py`` (``host_table``,
 ``base_table``, ``generator_table``) and of the function they delegate to,
 ``dkg_tpu/groups/device.py`` ``_fixed_table_np``: the 8-bit comb
-``T[w][d] = d·(2**8)^w·B``, every entry affine (Z = 1) but the
-Weierstrass identity, which stays ``(0, 1, 0)``.  Built on the host and
+``T[w][d] = d·(2**8)^w·B``, every entry affine (Z = 1; Edwards entries
+(x, y, 1, x·y), the Edwards identity (0, 1, 1, 0)) but the Weierstrass
+identity, which stays ``(0, 1, 0)``.  Built on the host and
 copied to the device, so the limbs equal the JAX package's host table.
 
 Kept for the process (one build per base); the JAX package's
@@ -24,9 +25,25 @@ from . import host as gh
 
 
 def base_key(cs: gd.CurveSpec, point) -> tuple:
-    """Hashable key for a host point: its affine (x, y), or ("identity",)."""
+    """Hashable key for a host point: its affine (x, y), or ("identity",)
+    for the Weierstrass identity."""
+    if cs.kind == "edwards":
+        pm = cs.field.modulus
+        x, y, z, _ = point
+        zi = pow(z, pm - 2, pm)
+        return (x * zi % pm, y * zi % pm)
     aff = gh.ALL_GROUPS[cs.name].to_affine(point)
     return aff if aff is not None else ("identity",)
+
+
+def base_key_to_point(cs: gd.CurveSpec, key: tuple):
+    """The host point of a :func:`base_key`."""
+    if key == ("identity",):
+        return gh.ALL_GROUPS[cs.name].identity()
+    x, y = key
+    if cs.kind == "edwards":
+        return (x, y, 1, x * y % cs.field.modulus)
+    return (x, y, 1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -34,7 +51,7 @@ def host_table(cs: gd.CurveSpec, key: tuple, window: int = gd.FIXED_WINDOW) -> n
     """(NW, 2**window, C, L) uint32 table for the base ``key``
     (:func:`base_key`)."""
     group = gh.ALL_GROUPS[cs.name]
-    window_base = group.identity() if key == ("identity",) else (key[0], key[1], 1)
+    window_base = base_key_to_point(cs, key)
     nw, entries = gd.n_windows(cs, window), 1 << window
     pts = []
     for _ in range(nw):
@@ -55,5 +72,4 @@ def base_table(cs: gd.CurveSpec, base, *, device) -> torch.Tensor:
 
 def generator_table(cs: gd.CurveSpec, *, device) -> torch.Tensor:
     """:func:`base_table` for the curve generator g."""
-    x, y = cs.gen_affine
-    return base_table(cs, (x, y, 1), device=device)
+    return base_table(cs, base_key_to_point(cs, cs.gen_affine), device=device)

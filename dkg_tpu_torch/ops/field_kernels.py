@@ -1,10 +1,14 @@
 """The ``mod_madd`` kernel: ``(a * b + c) mod p`` in one launch.
 
 Counterpart of ``dkg_tpu/ops/pallas_field.py`` ``mod_madd``.  On a CUDA
-tensor :func:`mod_madd` launches ``csrc/field_kernels.cu`` (secp256k1's
-base and scalar fields); on a CPU tensor it runs :func:`mod_madd_plain`,
-the plain PyTorch version the kernel is held against.  Operands
-broadcast over their batch axes.
+tensor :func:`mod_madd` launches ``csrc/field_kernels.cu`` over the field
+of its operands (secp256k1's base and scalar fields, ed25519's base field
+and the ristretto255 scalar field; any other field raises); on a CPU
+tensor it runs :func:`mod_madd_plain`, the plain PyTorch version the
+kernel is held against.  Operands broadcast over their batch axes.
+
+The two field families count their launches apart: ``MOD_MADD`` for
+secp256k1's fields, ``MOD_MADD_ED`` for ed25519's.
 """
 
 from __future__ import annotations
@@ -12,19 +16,21 @@ from __future__ import annotations
 import torch
 
 from ..fields import device as fd
-from ..fields.spec import SECP256K1_N, SECP256K1_P, FieldSpec
+from ..fields.spec import L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
 from . import build
 
-# field ids of csrc/field.cuh
-_FIELD_IDS = {SECP256K1_P.name: 0, SECP256K1_N.name: 1}
+_ARGS = [build.PTR, build.PTR, build.PTR, build.PTR, build.I64, build.INT, build.PTR]
+MOD_MADD = build.Kernel("mod_madd", "field_kernels.cu", "dkg_mod_madd", _ARGS)
+MOD_MADD_ED = build.Kernel("mod_madd[ed25519]", "field_kernels.cu", "dkg_mod_madd", _ARGS)
+KERNELS = (MOD_MADD, MOD_MADD_ED)
 
-MOD_MADD = build.Kernel(
-    "mod_madd",
-    "field_kernels.cu",
-    "dkg_mod_madd",
-    [build.PTR, build.PTR, build.PTR, build.PTR, build.I64, build.INT, build.PTR],
-)
-KERNELS = (MOD_MADD,)
+# field -> (kernel, field id of csrc/field.cuh)
+_FIELDS = {
+    SECP256K1_P: (MOD_MADD, 0),
+    SECP256K1_N: (MOD_MADD, 1),
+    P25519: (MOD_MADD_ED, 2),
+    L25519: (MOD_MADD_ED, 3),
+}
 
 
 def mod_madd_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -35,12 +41,12 @@ def mod_madd(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -
     """(a * b + c) mod p on (..., L) int32 limbs, batch axes broadcast."""
     if a.device.type == "cpu":
         return mod_madd_plain(fs, a, b, c)
-    field = _FIELD_IDS.get(fs.name)
-    if field is None:
-        raise NotImplementedError(f"mod_madd has no CUDA kernel for {fs.name} yet")
+    if fs not in _FIELDS:
+        raise NotImplementedError(f"mod_madd has no CUDA kernel for {fs.name}")
+    kernel, field = _FIELDS[fs]
     tail = (fs.limbs,)
     (a, b, c), out, n = build.lanes([(a, tail), (b, tail), (c, tail)], tail)
     if n:
-        MOD_MADD(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), n, field,
-                 build.stream_ptr(out.device))
+        kernel(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), n, field,
+               build.stream_ptr(out.device))
     return out

@@ -1,17 +1,23 @@
-"""Point kernels: ``pt_add``, ``pt_madd``, ``pt_window_step`` and
-``pt_ladder_mul_add``, with their plain PyTorch versions.
+"""Point kernels: ``pt_add``, ``pt_madd``, ``pt_double``,
+``pt_window_step`` and ``pt_ladder_mul_add``, with their plain PyTorch
+versions.
 
 Counterpart of ``dkg_tpu/ops/pallas_point.py``.  Points are int32 limb
 tensors of shape ``(..., C, L)``: C projective coordinates (3 for short
 Weierstrass a = 0, 4 for extended Edwards) of L 16-bit limbs.  On a CUDA
-tensor each wrapper launches its kernel in ``csrc/point_kernels.cu``,
-which covers secp256k1; on a CPU tensor it runs the plain version below.
-The plain versions are the formulas of the JAX package's
-``groups/device.py`` (RCB15 algorithms 7, 8 and 9 for Weierstrass,
-HWCD add and doubling for Edwards) in the same order, so their
-projective coordinates equal the JAX package's limb for limb.
+tensor each wrapper launches the kernel of its curve: secp256k1's in
+``csrc/point_kernels.cu``, edwards25519's (ristretto255) in
+``csrc/edwards_kernels.cu``, ``pt_double`` for both in
+``csrc/double_kernels.cu``; a curve with no kernel raises.  On a CPU
+tensor it runs the plain version below.  The plain versions are the
+formulas of the JAX package's ``groups/device.py`` (RCB15 algorithms 7,
+8 and 9 for Weierstrass, HWCD add and doubling for Edwards) in the same
+order, so their projective coordinates equal the JAX package's limb for
+limb.
 
-``cs`` is a ``groups.device.CurveSpec``.
+Each variant is its own :class:`build.Kernel` with its own launch count,
+but ``pt_double``, one C entry for both kinds.  ``cs`` is a
+``groups.device.CurveSpec``.
 """
 
 from __future__ import annotations
@@ -19,20 +25,44 @@ from __future__ import annotations
 import torch
 
 from ..fields import device as fd
+from ..groups import host as gh
 from . import build
 
-_SRC = "point_kernels.cu"
+_WS, _ED, _DBL = "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu"
 _P, _I, _INT = build.PTR, build.I64, build.INT
+_BINARY = [_P, _P, _P, _I, _P]
+_LADDER = [_P, _P, _P, _P, _I, _INT, _P]
 
-PT_ADD = build.Kernel("pt_add", _SRC, "dkg_pt_add", [_P, _P, _P, _I, _P])
-PT_MADD = build.Kernel("pt_madd", _SRC, "dkg_pt_madd", [_P, _P, _P, _I, _P])
-PT_WINDOW_STEP = build.Kernel(
-    "pt_window_step", _SRC, "dkg_pt_window_step", [_P, _P, _P, _I, _INT, _P]
-)
-PT_LADDER_MUL_ADD = build.Kernel(
-    "pt_ladder_mul_add", _SRC, "dkg_pt_ladder_mul_add", [_P, _P, _P, _P, _I, _INT, _P]
-)
-KERNELS = (PT_ADD, PT_MADD, PT_WINDOW_STEP, PT_LADDER_MUL_ADD)
+PT_ADD = build.Kernel("pt_add", _WS, "dkg_pt_add", _BINARY)
+PT_MADD = build.Kernel("pt_madd", _WS, "dkg_pt_madd", _BINARY)
+PT_WINDOW_STEP = build.Kernel("pt_window_step", _WS, "dkg_pt_window_step", [_P, _P, _P, _I, _INT, _P])
+PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add", _WS, "dkg_pt_ladder_mul_add", _LADDER)
+ED_PT_ADD = build.Kernel("pt_add[edwards]", _ED, "dkg_ed_pt_add", _BINARY)
+ED_PT_MADD = build.Kernel("pt_madd[edwards]", _ED, "dkg_ed_pt_madd", _BINARY)
+ED_PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add[edwards]", _ED, "dkg_ed_pt_ladder_mul_add", _LADDER)
+PT_DOUBLE = build.Kernel("pt_double", _DBL, "dkg_pt_double", [_P, _P, _I, _INT, _INT, _P])
+KERNELS = (PT_ADD, PT_MADD, PT_WINDOW_STEP, PT_LADDER_MUL_ADD,
+           ED_PT_ADD, ED_PT_MADD, ED_PT_LADDER_MUL_ADD, PT_DOUBLE)
+
+# The curves the kernels cover, by (kind, base field, curve constant): the
+# constants (b3 = 21, 2d) are compiled into csrc/point.cuh and edwards.cuh.
+_WS_KEY = ("weierstrass_a0", "secp256k1_base", 21)
+_ED_KEY = ("edwards", "ed25519_base", 2 * gh.D % gh.P)
+_VARIANTS = {
+    "pt_add": {_WS_KEY: PT_ADD, _ED_KEY: ED_PT_ADD},
+    "pt_madd": {_WS_KEY: PT_MADD, _ED_KEY: ED_PT_MADD},
+    "pt_window_step": {_WS_KEY: PT_WINDOW_STEP},
+    "pt_ladder_mul_add": {_WS_KEY: PT_LADDER_MUL_ADD, _ED_KEY: ED_PT_LADDER_MUL_ADD},
+    "pt_double": {_WS_KEY: PT_DOUBLE, _ED_KEY: PT_DOUBLE},
+}
+
+
+def kernel_for(op: str, cs) -> build.Kernel:
+    """The kernel that runs ``op`` on curve ``cs``; raises if there is none."""
+    kernel = _VARIANTS[op].get((cs.kind, cs.field.name, cs.const))
+    if kernel is None:
+        raise NotImplementedError(f"{op} has no CUDA kernel for {cs.name}")
+    return kernel
 
 
 # ---------------------------------------------------------------------------
@@ -180,14 +210,16 @@ def pt_madd_plain(cs, p, q):
     return _ed_madd(cs, p, q) if cs.kind == "edwards" else _ws_madd(cs, p, q)
 
 
-def pt_double_plain(cs, p):
-    return _ed_double(cs, p) if cs.kind == "edwards" else _ws_double(cs, p)
+def pt_double_plain(cs, p, n_doubles: int = 1):
+    """2^n_doubles·P, one doubling at a time."""
+    double = _ed_double if cs.kind == "edwards" else _ws_double
+    for _ in range(n_doubles):
+        p = double(cs, p)
+    return p
 
 
 def pt_window_step_plain(cs, acc, entry, n_doubles: int):
-    for _ in range(n_doubles):
-        acc = pt_double_plain(cs, acc)
-    return pt_add_plain(cs, acc, entry)
+    return pt_add_plain(cs, pt_double_plain(cs, acc, n_doubles), entry)
 
 
 def pt_ladder_mul_add_plain(cs, p, addend, x, nbits: int):
@@ -206,11 +238,11 @@ def pt_ladder_mul_add_plain(cs, p, addend, x, nbits: int):
 # ---------------------------------------------------------------------------
 
 
-def _launch(kernel: build.Kernel, cs, operands, extra=()) -> torch.Tensor:
-    """Launch ``kernel`` over the broadcast batch of ``operands``, a list of
-    (tensor, tail) pairs: points with tail (C, L), per-lane ints with ()."""
-    if cs.name != "secp256k1":
-        raise NotImplementedError(f"the point kernels cover secp256k1 only, not {cs.name} yet")
+def _launch(op: str, cs, operands, extra=()) -> torch.Tensor:
+    """Launch ``op``'s kernel for ``cs`` over the broadcast batch of
+    ``operands``, a list of (tensor, tail) pairs: points with tail (C, L),
+    per-lane ints with ()."""
+    kernel = kernel_for(op, cs)
     flat, out, n = build.lanes(operands, (cs.ncoords, cs.field.limbs))
     if n:
         kernel(*(t.data_ptr() for t in flat), out.data_ptr(), n, *extra,
@@ -223,15 +255,25 @@ def pt_add(cs, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if p.device.type == "cpu":
         return pt_add_plain(cs, p, q)
     point = (cs.ncoords, cs.field.limbs)
-    return _launch(PT_ADD, cs, [(p, point), (q, point)])
+    return _launch("pt_add", cs, [(p, point), (q, point)])
 
 
 def pt_madd(cs, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """p + q with q affine (Z = 1); q must not be the identity."""
+    """p + q with q affine (Z = 1); a Weierstrass q must not be the identity."""
     if p.device.type == "cpu":
         return pt_madd_plain(cs, p, q)
     point = (cs.ncoords, cs.field.limbs)
-    return _launch(PT_MADD, cs, [(p, point), (q, point)])
+    return _launch("pt_madd", cs, [(p, point), (q, point)])
+
+
+def pt_double(cs, p: torch.Tensor, n_doubles: int = 1) -> torch.Tensor:
+    """2^n_doubles · P in one launch."""
+    if p.device.type == "cpu":
+        return pt_double_plain(cs, p, n_doubles)
+    if n_doubles < 0:
+        raise ValueError("n_doubles must be >= 0")
+    kind = int(cs.kind == "edwards")  # dkg_pt_double's kind: 0 secp256k1, 1 edwards25519
+    return _launch("pt_double", cs, [(p, (cs.ncoords, cs.field.limbs))], (n_doubles, kind))
 
 
 def pt_window_step(cs, acc: torch.Tensor, entry: torch.Tensor, n_doubles: int = 4) -> torch.Tensor:
@@ -241,7 +283,7 @@ def pt_window_step(cs, acc: torch.Tensor, entry: torch.Tensor, n_doubles: int = 
     if n_doubles < 0:
         raise ValueError("n_doubles must be >= 0")
     point = (cs.ncoords, cs.field.limbs)
-    return _launch(PT_WINDOW_STEP, cs, [(acc, point), (entry, point)], (n_doubles,))
+    return _launch("pt_window_step", cs, [(acc, point), (entry, point)], (n_doubles,))
 
 
 def pt_ladder_mul_add(cs, p: torch.Tensor, addend: torch.Tensor, x: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -251,4 +293,4 @@ def pt_ladder_mul_add(cs, p: torch.Tensor, addend: torch.Tensor, x: torch.Tensor
     if not 0 <= nbits <= 31:
         raise ValueError("nbits must be in [0, 31]")
     point = (cs.ncoords, cs.field.limbs)
-    return _launch(PT_LADDER_MUL_ADD, cs, [(p, point), (addend, point), (x, ())], (nbits,))
+    return _launch("pt_ladder_mul_add", cs, [(p, point), (addend, point), (x, ())], (nbits,))

@@ -106,7 +106,7 @@ def test_normalize_and_cond_sub_match(name):
     assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(jfd.cond_sub(jnp.asarray(x), t.p_limbs_ext)))
 
 
-@pytest.mark.parametrize("name", ["secp256k1_base", "secp256k1_scalar"])
+@pytest.mark.parametrize("name", FIELDS)
 def test_mod_madd_plain_matches_jax(name):
     """mod_madd's plain version is what the CUDA kernel is held against on
     the card; here it is held against the JAX package's a·b + c."""

@@ -154,3 +154,59 @@ def test_point_rlc_straus_matches(monkeypatch):
     got = tce._point_rlc(tcs, to_torch(w), to_torch(pts), 8)
     want = jce._point_rlc(jcs, jnp.asarray(w), jnp.asarray(pts), 8)
     assert _same(got, want)
+
+
+@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("n_doubles", [1, 4])
+def test_double_and_pt_double_match(curve, n_doubles):
+    """groups.device.double and the pt_double wrapper (2^k·P in one call)
+    against the JAX package's double, repeated."""
+    tcs, jcs = _cs(curve)
+    p = point_limbs(curve, 25, B, edge_lambdas=True)
+    want = jnp.asarray(p)
+    for _ in range(n_doubles):
+        want = jgd.double(jcs, want)
+    assert _same(pk.pt_double(tcs, to_torch(p), n_doubles), want)
+    assert _same(tgd.double(tcs, to_torch(p)), jgd.double(jcs, jnp.asarray(p)))
+
+
+def test_ristretto_host_group_matches():
+    t, j = tgh.RISTRETTO255, jgh.RISTRETTO255
+    assert (t.base_field.modulus, t.scalar_field.modulus) == (j.base_field.modulus, j.scalar_field.modulus)
+    assert t.identity() == j.identity() and t.generator() == j.generator()
+    rng = random.Random(73)
+    pts = point_tuples("ristretto255", 74, 6)
+    for a, b in zip(pts, pts[1:] + pts[:1]):
+        assert t.add(a, b) == j.add(a, b) and t.neg(a) == j.neg(a)
+        assert t.eq(a, b) == j.eq(a, b) and t.eq(a, a)
+        k = rng.randrange(j.scalar_field.modulus)
+        assert t.scalar_mul(k, a) == j._scalar_mul_ladder(k, a)
+        enc = t.encode(a)
+        assert enc == j.encode(a)
+        back = t.decode(enc)
+        assert back == j.decode(enc) and t.eq(back, a)
+    assert t.decode(b"\x01" + bytes(31)) is None and t.decode(bytes(31)) is None
+    for shared, domain in ((b"", b""), (b"ceremony", b"dkgtpu-ck"), (b"chip-smoke-r255", b"x" * 20)):
+        assert t.hash_to_group(shared, domain) == j.hash_to_group(shared, domain)
+    for shared in (b"", b"engine-test", b"chip-smoke-r255"):
+        h = TCommitmentKey.generate(t, shared).h
+        assert h == JCommitmentKey.generate(j, shared).h  # the same (X, Y, Z, T)
+        assert tgp.base_key(tgd.RISTRETTO255, h) == jgd.base_key(jgd.RISTRETTO255, h)
+
+
+def test_edwards_tables_and_fixed_base_mul_match():
+    tcs, jcs = _cs("ristretto255")
+    h = TCommitmentKey.generate(tgh.RISTRETTO255, b"tables").h
+    for base in (tgh.RISTRETTO255.generator(), h):
+        key = tgp.base_key(tcs, base)
+        assert key == jgd.base_key(jcs, base)
+        table = tgp.host_table(tcs, key)
+        assert table.dtype == np.uint32
+        assert np.array_equal(table, jgd._fixed_table_np.__wrapped__(jcs, key, jgd.FIXED_WINDOW))
+    g_t = tgp.generator_table(tcs, device="cpu")
+    assert np.array_equal(to_np(g_t[0, 0]), np.asarray(jgd.identity(jcs)))  # (0, 1, 1, 0)
+    assert np.array_equal(to_np(g_t[0, 1]), np.asarray(jgd.from_host(jcs, [tgh.RISTRETTO255.generator()]))[0])
+    k = field_limbs(jcs.scalar, 82, 6)  # 0, 1, 2, l-1, ...: the identity entry flows through
+    got = tgd.fixed_base_mul(tcs, g_t, to_torch(k))
+    want = jgd.fixed_base_mul(jcs, jnp.asarray(to_np(g_t)), jnp.asarray(k))
+    assert _same(got, want)

@@ -3,6 +3,7 @@ chip_smoke.py pulls in neither jax nor dkg_tpu, and on anything but a CPU
 tensor a kernel wrapper launches its kernel or raises, never falling back
 to its plain version."""
 
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from dkg_tpu_torch.dkg import ceremony as tce
-from dkg_tpu_torch.fields.spec import SECP256K1_N
+from dkg_tpu_torch.fields.spec import L25519, SECP256K1_N, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
@@ -54,18 +55,30 @@ def _meta(shape):
     return torch.zeros(shape, dtype=torch.int32, device="meta")
 
 
+ED = tgd.RISTRETTO255
+
+
 @pytest.mark.parametrize("call", [
     lambda: fk.mod_madd(SECP256K1_N, _meta((4, 16)), _meta((4, 16)), _meta((4, 16))),
     lambda: pk.pt_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16))),
     lambda: pk.pt_madd(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16))),
     lambda: pk.pt_window_step(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16)), 4),
     lambda: pk.pt_ladder_mul_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 3, 16)), _meta((4,)), 3),
-], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add"])
+    lambda: fk.mod_madd(L25519, _meta((4, 16)), _meta((4, 16)), _meta((4, 16))),
+    lambda: pk.pt_add(ED, _meta((4, 4, 16)), _meta((4, 4, 16))),
+    lambda: pk.pt_madd(ED, _meta((4, 4, 16)), _meta((4, 4, 16))),
+    lambda: pk.pt_double(ED, _meta((4, 4, 16)), 4),
+    lambda: pk.pt_double(tgd.SECP256K1, _meta((4, 3, 16)), 1),
+    lambda: pk.pt_ladder_mul_add(ED, _meta((4, 4, 16)), _meta((4, 4, 16)), _meta((4,)), 3),
+    lambda: tgd.window_step(ED, _meta((4, 4, 16)), _meta((4, 4, 16)), 4),
+], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
+        "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
+        "ed_window_step"])
 def test_wrappers_raise_instead_of_falling_back(call):
-    before = [k.launches for k in (fk.MOD_MADD, *pk.KERNELS)]
+    before = [k.launches for k in (*fk.KERNELS, *pk.KERNELS)]
     with pytest.raises(ValueError, match="CUDA device"):
         call()
-    assert [k.launches for k in (fk.MOD_MADD, *pk.KERNELS)] == before
+    assert [k.launches for k in (*fk.KERNELS, *pk.KERNELS)] == before
 
 
 @pytest.mark.parametrize("call", [
@@ -81,10 +94,20 @@ def test_wrappers_reject_operands_of_the_wrong_shape(call):
 
 
 def test_unported_variants_raise():
+    """A curve or field with no kernel raises before any launch: the
+    one-launch Edwards window step, an Edwards curve with another d, a
+    field other than the four of csrc/field.cuh."""
+    other = dataclasses.replace(ED, name="other", const=ED.const + 1)
+    with pytest.raises(NotImplementedError, match="pt_window_step"):
+        pk.pt_window_step(ED, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
+    for op in ("pt_add", "pt_madd", "pt_double", "pt_ladder_mul_add"):
+        with pytest.raises(NotImplementedError, match=op):
+            pk.kernel_for(op, other)
     with pytest.raises(NotImplementedError):
-        pk.pt_add(tgd.RISTRETTO255, _meta((2, 4, 16)), _meta((2, 4, 16)))
+        pk.pt_add(other, _meta((2, 4, 16)), _meta((2, 4, 16)))
     with pytest.raises(NotImplementedError):
-        fk.mod_madd(tgd.RISTRETTO255.field, _meta((2, 16)), _meta((2, 16)), _meta((2, 16)))
+        fk.mod_madd(FieldSpec("other", (1 << 255) - 31, 16), _meta((2, 16)), _meta((2, 16)), _meta((2, 16)))
+    assert pk.kernel_for("pt_add", ED) is pk.ED_PT_ADD and pk.kernel_for("pt_double", ED) is pk.PT_DOUBLE
 
 
 def test_cpu_tensors_run_the_plain_versions_uncounted():
@@ -115,4 +138,5 @@ def test_library_path_tracks_sources():
     path = build.library_path("point_kernels.cu")
     assert path.parent == build.BUILD_DIR and path.name.startswith("point_kernels-")
     assert path != build.library_path("field_kernels.cu")
+    assert {k.source for k in (*fk.KERNELS, *pk.KERNELS)} == set(build.SOURCES)
     assert str(build.BUILD_DIR).startswith(str(REPO / "build"))

@@ -1,8 +1,9 @@
 """The CUDA kernels' arithmetic against their plain PyTorch versions.
 
 On the CPU: csrc/host_check.cpp, the kernels' per-lane bodies (the same
-field.cuh and point.cuh code the .cu kernels run), built with the host
-compiler and called lane by lane.  On a CUDA machine (marker ``cuda``;
+field.cuh, point.cuh and edwards.cuh code the .cu kernels run), built
+with the host compiler and called lane by lane, at the field edge values
+(0, 1, m - 1, near 2**255 and 2**256 - 1) of all four fields.  On a CUDA machine (marker ``cuda``;
 skipped elsewhere): the kernels themselves, built with nvcc.  Both are
 held to the plain versions bit for bit."""
 
@@ -14,16 +15,17 @@ import subprocess
 import numpy as np
 import pytest
 import torch
-from torch_port_util import field_limbs, point_limbs
+from torch_port_util import edge_ints, edge_operands, point_limbs
 
+from dkg_tpu.fields import host as jfh
 from dkg_tpu.groups import host as jgh
-from dkg_tpu_torch.fields.spec import SECP256K1_N, SECP256K1_P
+from dkg_tpu_torch.fields.spec import L25519, P25519, SECP256K1_N, SECP256K1_P
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import point_kernels as pk
 
-CS = tgd.SECP256K1
+CS, ED = tgd.SECP256K1, tgd.RISTRETTO255
 LANES = 40
 PTR, I64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -43,54 +45,116 @@ def _t(arr):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(arr).astype(np.int32)))
 
 
+FIELD_CASES = {  # case -> (field, field id of csrc/field.cuh)
+    "mod_madd_base": (SECP256K1_P, 0),
+    "mod_madd_scalar": (SECP256K1_N, 1),
+    "mod_madd_ed_base": (P25519, 2),
+    "mod_madd_ed_scalar": (L25519, 3),
+}
+
+
+def _points(curve, seed, n=LANES, projective=True):
+    return _t(point_limbs(curve, seed, n, projective=projective, edge_lambdas=projective))
+
+
+def _affine_points(curve, seed):
+    """Affine points; Weierstrass ones without the identity (the mixed
+    add does not take it), the Edwards identity (0, 1, 1, 0) kept."""
+    qa = _points(curve, seed, LANES * 2, projective=False)
+    if curve == "secp256k1":
+        qa = qa[qa[:, 2, 0] == 1]
+    return qa[:LANES]
+
+
+def _ladder_x(nbits):
+    x = torch.tensor([random.Random(7).randrange(1 << nbits) for _ in range(LANES)], dtype=torch.int32)
+    x[:3] = torch.tensor([0, 1, (1 << nbits) - 1])
+    return x
+
+
+def _op(case):
+    """The wrapper of a point case: pt_double_1 and pt_double_4 are pt_double."""
+    return case.removesuffix("_1").removesuffix("_4")
+
+
 def _inputs(name):
-    """(plain function, operand tensors, extra int args) for one kernel."""
-    p, q = _t(point_limbs("secp256k1", 1, LANES)), _t(point_limbs("secp256k1", 2, LANES))
+    """(plain function, operand tensors, extra int args, host_check entry)
+    for one kernel case."""
+    if name in FIELD_CASES:
+        fs, fid = FIELD_CASES[name]
+        ops = [_t(jfh.encode(fs, col)) for col in edge_operands(fs, 3, 3)]
+        return (lambda a, b, c: fk.mod_madd_plain(fs, a, b, c)), ops, [fid], "host_mod_madd"
+    ed = name.startswith("ed_")
+    curve, cs = ("ristretto255", ED) if ed else ("secp256k1", CS)
+    op = name.removeprefix("ed_")
+    host = ("host_ed_" if ed else "host_") + _op(op)
+    p, q = _points(curve, 1), _points(curve, 2)
     q[4] = p[4]  # doubling through the complete add
-    if name.startswith("mod_madd"):
-        fs = SECP256K1_P if name.endswith("base") else SECP256K1_N
-        ops = [_t(field_limbs(fs, s, LANES)) for s in (3, 4, 5)]
-        return (lambda a, b, c: fk.mod_madd_plain(fs, a, b, c)), ops, [0 if fs is SECP256K1_P else 1]
-    if name == "pt_add":
-        return (lambda a, b: pk.pt_add_plain(CS, a, b)), [p, q], []
-    if name == "pt_madd":
-        qa = _t(point_limbs("secp256k1", 6, LANES * 2, projective=False))
-        qa = qa[qa[:, 2, 0] == 1][:LANES]  # affine, non-identity
-        return (lambda a, b: pk.pt_madd_plain(CS, a, b)), [p, qa], []
-    if name == "pt_window_step":
-        return (lambda a, b: pk.pt_window_step_plain(CS, a, b, 4)), [p, q], [4]
-    x = torch.tensor([random.Random(7).randrange(1 << 11) for _ in range(LANES)], dtype=torch.int32)
-    x[:3] = torch.tensor([0, 1, (1 << 11) - 1])
-    return (lambda a, b, c: pk.pt_ladder_mul_add_plain(CS, a, b, c, 11)), [p, q, x], [11]
+    if op == "pt_add":
+        return (lambda a, b: pk.pt_add_plain(cs, a, b)), [p, q], [], host
+    if op == "pt_madd":
+        return (lambda a, b: pk.pt_madd_plain(cs, a, b)), [p, _affine_points(curve, 6)], [], host
+    if op in ("pt_double_1", "pt_double_4"):
+        k = int(op[-1])
+        return (lambda a: pk.pt_double_plain(cs, a, k)), [p], [k], host
+    if op == "pt_window_step":
+        return (lambda a, b: pk.pt_window_step_plain(cs, a, b, 4)), [p, q], [4], host
+    nbits = 11
+    return (lambda a, b, c: pk.pt_ladder_mul_add_plain(cs, a, b, c, nbits)), [p, q, _ladder_x(nbits)], [nbits], host
 
 
-NAMES = ["mod_madd_base", "mod_madd_scalar", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add"]
+NAMES = [*FIELD_CASES, "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add",
+         "pt_double_1", "pt_double_4", "ed_pt_add", "ed_pt_madd", "ed_pt_double_1", "ed_pt_double_4",
+         "ed_pt_ladder_mul_add"]
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_host_compiled_lane_bodies_match_plain(host_lib, name):
-    plain, ops, extra = _inputs(name)
+    plain, ops, extra, host = _inputs(name)
     want = plain(*ops)
     out = torch.empty_like(want)
-    fn = getattr(host_lib, "host_" + name.removesuffix("_base").removesuffix("_scalar"))
+    fn = getattr(host_lib, host)
     fn.argtypes = [PTR] * (len(ops) + 1) + [I64] + [INT] * len(extra)
-    fn.restype = None
-    fn(*(o.data_ptr() for o in ops), out.data_ptr(), len(ops[0]), *extra)
+    fn.restype = INT if host == "host_mod_madd" else None
+    rc = fn(*(o.data_ptr() for o in ops), out.data_ptr(), len(ops[0]), *extra)
+    assert rc in (0, None)
     assert torch.equal(out, want)
+
+
+def test_edge_operands_cover_the_field_edges():
+    """The field cases see 0, 1, m - 1 and the values near 2**255 and
+    2**256 - 1 reduced, in every pair of the first two operands."""
+    for fs, _ in FIELD_CASES.values():
+        a, b, c = edge_operands(fs, 3, 3)
+        edges = edge_ints(fs)
+        assert {fs.modulus - 1, 0, 1, ((1 << 256) - 1) % fs.modulus} <= set(edges)
+        assert set(zip(a, b)) >= {(x, y) for x in edges for y in edges}
+        assert max(a + b + c) < fs.modulus
+
+
+def _host_ladder(host_lib, symbol, cs, p, a, x, nbits):
+    p, a = tgd.from_host(cs, [p], device="cpu"), tgd.from_host(cs, [a], device="cpu")
+    xs = torch.tensor([x], dtype=torch.int32)
+    out = torch.empty_like(p)
+    fn = getattr(host_lib, symbol)
+    fn.argtypes = [PTR] * 4 + [I64, INT]
+    fn(p.data_ptr(), a.data_ptr(), xs.data_ptr(), out.data_ptr(), 1, nbits)
+    return tgd.to_host(cs, out)[0]
 
 
 def test_host_compiled_ladder_reaches_the_host_oracle(host_lib):
     """x·P + A from the lane body equals the big-int group law."""
     g = jgh.SECP256K1
-    pts = [g.scalar_mul(k, g.generator()) for k in (3, 5)]
-    p, a = (_t(np.stack([np.asarray(tgd.from_host(CS, [pt], device="cpu")[0])])) for pt in pts)
-    x = torch.tensor([1000], dtype=torch.int32)
-    out = torch.empty_like(p)
-    fn = host_lib.host_pt_ladder_mul_add
-    fn.argtypes = [PTR] * 4 + [I64, INT]
-    fn(p.data_ptr(), a.data_ptr(), x.data_ptr(), out.data_ptr(), 1, 11)
-    got = tgd.to_host(CS, out)[0]
+    p, a = (g.scalar_mul(k, g.generator()) for k in (3, 5))
+    got = _host_ladder(host_lib, "host_pt_ladder_mul_add", CS, p, a, 1000, 11)
     assert g.eq(got, g.scalar_mul(1000 * 3 + 5, g.generator()))
+
+
+def test_host_compiled_edwards_ladder_reaches_the_host_oracle(host_lib):
+    g = jgh.RISTRETTO255
+    p, a = (g._scalar_mul_ladder(k, g.generator()) for k in (3, 5))
+    got = _host_ladder(host_lib, "host_ed_pt_ladder_mul_add", ED, p, a, 1000, 11)
+    assert g.eq(got, g._scalar_mul_ladder(1000 * 3 + 5, g.generator()))
 
 
 @pytest.fixture
@@ -103,18 +167,19 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", NAMES)
 def test_cuda_kernels_match_plain(cuda, name):
-    plain, ops, extra = _inputs(name)
+    plain, ops, extra, _ = _inputs(name)
     ops = [o.to(cuda) for o in ops]
-    if name.startswith("mod_madd"):
-        fs = SECP256K1_P if name.endswith("base") else SECP256K1_N
-        kernel, got = fk.MOD_MADD, None
+    if name in FIELD_CASES:
+        fs = FIELD_CASES[name][0]
+        kernel = fk.MOD_MADD_ED if fs in (P25519, L25519) else fk.MOD_MADD
         before = kernel.launches
         got = fk.mod_madd(fs, *ops)
     else:
-        kernel = {k.name: k for k in pk.KERNELS}[name]
+        cs = ED if name.startswith("ed_") else CS
+        op = _op(name.removeprefix("ed_"))
+        kernel = pk.kernel_for(op, cs)
         before = kernel.launches
-        wrapper = getattr(pk, name)
-        got = wrapper(CS, *ops, *extra) if extra else wrapper(CS, *ops)
+        got = getattr(pk, op)(cs, *ops, *extra)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert torch.equal(got.cpu(), plain(*(o.cpu() for o in ops)))

@@ -27,12 +27,44 @@ def field_limbs(fs, seed: int, n: int) -> np.ndarray:
     return jfh.encode(fs, field_ints(fs, seed, n))
 
 
-def point_tuples(curve: str, seed: int, n: int, projective: bool = True) -> list:
+def edge_ints(fs) -> list:
+    """The field's edge values: 0, 1, m - 1, and values within 2**32 of
+    2**255 and of 2**256 - 1, reduced mod m."""
+    m = fs.modulus
+    near = [(1 << 255) + d for d in (-(1 << 32), -1, 0, 1, 1 << 32)]
+    near += [(1 << 256) - 1 - d for d in (0, 1, 1 << 32)]
+    return [0, 1, m - 1] + [v % m for v in near]
+
+
+def edge_operands(fs, seed: int, k: int) -> list:
+    """k operand lists over every pair of edge values (the first two
+    operands run through all pairs, the others cycle through the edges),
+    then seeded random elements: the inputs of a k-ary field kernel."""
+    edges = edge_ints(fs)
+    e = len(edges)
+    rng = random.Random(seed)
+    extra = [rng.randrange(fs.modulus) for _ in range(k * 8)]
+    ops = []
+    for j in range(k):
+        if j == 0:
+            col = [edges[i // e] for i in range(e * e)]
+        elif j == 1:
+            col = [edges[i % e] for i in range(e * e)]
+        else:
+            col = [edges[(i * (j + 2)) % e] for i in range(e * e)]
+        ops.append(col + extra[j * 8 : (j + 1) * 8])
+    return ops
+
+
+def point_tuples(curve: str, seed: int, n: int, projective: bool = True, edge_lambdas: bool = False) -> list:
     """n host points of ``curve``: multiples of the generator, every 5th
-    the identity; projective ones rescaled by a random lambda."""
+    the identity; projective ones rescaled by a random lambda (with
+    ``edge_lambdas``, the first lanes by the base field's non-zero edge
+    values instead)."""
     g = jgh.ALL_GROUPS[curve]
     p = g.base_field.modulus
     rng = random.Random(seed)
+    lams = [v for v in edge_ints(g.base_field) if v] if edge_lambdas else []
     out = []
     for i in range(n):
         pt = g.identity() if i % 5 == 2 else g.scalar_mul(rng.randrange(1, 1 << 40), g.generator())
@@ -46,14 +78,17 @@ def point_tuples(curve: str, seed: int, n: int, projective: bool = True) -> list
             pt = (0, 1, 0) if aff is None else (aff[0], aff[1], 1)
         if projective:
             lam = rng.randrange(1, p)
+            if i < len(lams):
+                lam = lams[i]
             pt = tuple(c * lam % p for c in pt)
         out.append(pt)
     return out
 
 
-def point_limbs(curve: str, seed: int, n: int, projective: bool = True) -> np.ndarray:
+def point_limbs(curve: str, seed: int, n: int, projective: bool = True, edge_lambdas: bool = False) -> np.ndarray:
     fs = jgh.ALL_GROUPS[curve].base_field
-    return jfh.encode(fs, np.asarray(point_tuples(curve, seed, n, projective), dtype=object))
+    pts = point_tuples(curve, seed, n, projective, edge_lambdas)
+    return jfh.encode(fs, np.asarray(pts, dtype=object))
 
 
 def to_torch(arr) -> torch.Tensor:
