@@ -9,23 +9,34 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    all started together, and prints the build time and what ptxas says
    about registers and spills.
 3. Holds every kernel and variant against its plain PyTorch version on
-   the card, bit for bit: at 2**16 random lanes (field edge values and
-   edge projective scalings in the first lanes, points on the curve), and
-   at the shapes its ceremony path gives it, where both are also timed
-   (CUDA events over repeated wrapper calls, the operands' broadcast
-   copies included).
+   the card, bit for bit: at random inputs (2**16 lanes with field edge
+   values and edge projective scalings in the first lanes, points on the
+   curve; the bucket kernels at windows 4 and 8 over identity points,
+   digit-0 lanes, digits shared by the batch or one block per row, and a
+   point count past one digit tile), and at the shapes its ceremony path
+   gives it, where both are also timed (CUDA events over repeated wrapper
+   calls, the operands' broadcast copies included; the bucket kernels'
+   plain versions, m sequential steps, once).
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
    be > 0:
    - BatchedCeremony("secp256k1", 1024, 341) (BASELINE.md config 3);
-   - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2).
+   - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2);
+   each with the Straus point RLC (the default), then again with
+   run(rlc="pippenger"), whose scatter pass is bucket_accumulate.
    Checks ok, the master key, some commitments and shares against host
-   big-int oracles, splits the fiat_shamir phase, and runs the path once
+   big-int oracles, that the Pippenger run's outputs equal the Straus
+   run's, splits the fiat_shamir phase, and runs the Straus path once
    more under torch.profiler for device time by kernel and the busy share.
-5. Runs a tampered (n=16, t=5) ceremony on each curve: one corrupted
-   share must fail its recipient's batch check, blame its dealer, and
-   leave the master key of the qualified set.
-6. Prints one JSON line of per-kernel numbers, the card line again, and
+5. On each Straus path's tensors: the point RLC D of verify_batch under
+   the three schedules (straus, bits, pippenger), equal in canonical
+   affine form and timed; and the verify phase under Straus and under
+   Pippenger, profiled for device time by kernel and the busy share.
+6. Runs a tampered (n=16, t=5) ceremony on each curve under each of the
+   Straus and Pippenger schedules: one corrupted share must fail its
+   recipient's batch check, blame its dealer, and leave the master key of
+   the qualified set.
+7. Prints one JSON line of per-kernel numbers, the card line again, and
    last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero without the last line;
@@ -52,6 +63,7 @@ from dkg_tpu_torch.fields import host as fh
 from dkg_tpu_torch.groups import device as gd
 from dkg_tpu_torch.groups import host as gh
 from dkg_tpu_torch.groups import precompute as gp
+from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import point_kernels as pk
@@ -68,6 +80,7 @@ class Path:
     t: int
     shared: bytes
     kernels: tuple  # the build.Kernel objects the path must launch
+    rlc: str = "straus"  # the point RLC's schedule
 
     @property
     def cs(self) -> gd.CurveSpec:
@@ -77,6 +90,15 @@ class Path:
     def index_bits(self) -> int:
         return self.n.bit_length()
 
+    @property
+    def tag(self) -> str:
+        return f"{self.curve} n={self.n} t={self.t} rlc={self.rlc}"
+
+    def pippenger(self) -> Path:
+        """The same ceremony with the Pippenger point RLC, which adds the
+        curve's bucket kernel to the path."""
+        return dataclasses.replace(self, rlc="pippenger", kernels=self.kernels + (bk.kernel_for(self.cs),))
+
 
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
             (fk.MOD_MADD, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP, pk.PT_LADDER_MUL_ADD))
@@ -85,6 +107,7 @@ R255 = Path("ristretto255", 256, 85, b"chip-smoke-r255",  # BASELINE.md config 2
 PATHS = (SECP, R255)
 TAMPER_N, TAMPER_T = 16, 5
 RANDOM_LANES = 1 << 16
+RHO_BITS = 128  # BatchedCeremony.run's default
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA data sheet and
 # Hopper whitepaper): HBM3 bytes, and 32-bit integer multiplies (132 SMs
@@ -114,8 +137,10 @@ SOURCES = {
     "pt_madd[edwards]": ("edwards_kernels.cu", PDIR + ":281"),
     "pt_ladder_mul_add[edwards]": ("edwards_kernels.cu", PDIR + ":356"),
     "pt_double": ("double_kernels.cu", PDIR + ":304"),
+    "bucket_accumulate": ("bucket_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
+    "bucket_accumulate[edwards]": ("bucket_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
 }
-KERNELS = (*fk.KERNELS, *pk.KERNELS)
+KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS)
 
 
 def check(cond, what: str) -> None:
@@ -135,18 +160,20 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> tuple[float, object]:
     """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
-    fn()
-    sync()
+    after one warm-up call unless ``warm_up`` is false; and the last
+    call's result."""
+    if warm_up:
+        fn()
+        sync()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        res = fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, res
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +256,7 @@ class Case:
     rand_args: list  # of (label, wrapper, plain, args)
     main_args: list
     muladds: int
+    plain_reps: int = 2  # timed calls of the plain version at main_args (1: no warm-up either)
 
 
 def ladder_muladds(xs, double: int, add: int) -> int:
@@ -250,9 +278,34 @@ def point_fns(cs, op: str, *extra):
             lambda *a: getattr(pk, op + "_plain")(cs, *a, *extra))
 
 
+def bucket_fns(cs, window: int, nw: int):
+    """(wrapper, plain) of bucket_accumulate on ``cs`` at one window width."""
+    return (lambda p, d: bk.bucket_accumulate(cs, p, d, window, nw),
+            lambda p, d: bk.bucket_accumulate_plain(cs, p, d, 1 << window))
+
+
+# random scatter passes per curve kind: (window, digits shared by the
+# batch, batch rows, m, nw); m = 515 crosses the kernel's 512-point digit
+# tile at window 4, nw = 30 leaves the last 8-window block part empty
+BUCKET_RANDOM = {
+    "weierstrass_a0": ((4, True, 3, 515, 64), (8, False, 5, 37, 32)),
+    "edwards": ((4, False, 5, 37, 30), (8, True, 3, 37, 32)),
+}
+
+
+def rand_digits(rng, shape: tuple, window: int) -> torch.Tensor:
+    """Random window digits (..., m, nw), with digit-0 lanes: the first
+    point's in every window, the second's in every other window."""
+    d = rng.integers(0, 1 << window, size=shape).astype(np.int32)
+    d[..., 0, :] = 0
+    d[..., 1, ::2] = 0
+    return torch.from_numpy(d).to(DEV)
+
+
 def kernel_cases(rng) -> dict:
     cases = {}
     R = (RANDOM_LANES,)
+    lanes = f"{RANDOM_LANES} lanes"
     for path in PATHS:
         cs, n, t = path.cs, path.n, path.t
         ed = cs.kind == "edwards"
@@ -267,28 +320,46 @@ def kernel_cases(rng) -> dict:
         # eval_many's Horner step: acc (n, n, L), x (n, L), coefficient (n, 1, L)
         cases[fk.MOD_MADD_ED.name if ed else fk.MOD_MADD.name] = Case(
             path, *field_fns(S),
-            [(fs.name, *field_fns(fs), [rand_field(rng, fs, R, o) for o in range(3)]) for fs in (S, cs.field)],
+            [(f"{lanes} of {fs.name}", *field_fns(fs), [rand_field(rng, fs, R, o) for o in range(3)])
+             for fs in (S, cs.field)],
             [rand_field(rng, S, (n, n)), rand_field(rng, S, (n,)), rand_field(rng, S, (n, 1))],
             MADD_FIELD[S.name] * n * n)
         # E = A + h·b over every dealer's t+1 coefficients
         cases["pt_add" + sfx] = Case(
             path, *point_fns(cs, "pt_add"),
-            [("", *point_fns(cs, "pt_add"), [points(R), points(R)])],
+            [(lanes, *point_fns(cs, "pt_add"), [points(R), points(R)])],
             [points((n, t + 1)), points((n, t + 1))],
             add_c * n * (t + 1))
         # one fixed_base_mul window over every dealer's t+1 coefficients
         cases["pt_madd" + sfx] = Case(
             path, *point_fns(cs, "pt_madd"),
-            [("", *point_fns(cs, "pt_madd"), [points(R), points(R, True)])],
+            [(lanes, *point_fns(cs, "pt_madd"), [points(R), points(R, True)])],
             [points((n, t + 1)), points((n, t + 1), True)],
             madd_c * n * (t + 1))
+        # the Pippenger point RLC's scatter: the t+1 columns of n points
+        # under the digits of n shared RHO_BITS-wide weights, at the window
+        # msm_pippenger picks for m = n; every point is added into one
+        # bucket of each window
+        window = gd.pippenger_window(n, cs.name)
+        nw = min(gd.n_windows(cs, window), -(-RHO_BITS // window))
+        rho = rand_field(rng, S, (n,), operand=None)
+        rho[:, RHO_BITS // 16:] = 0
+        bucket_rand = []
+        for w, shared, rows, m, bnw in BUCKET_RANDOM[cs.kind]:
+            digits = rand_digits(rng, (m, bnw) if shared else (rows, m, bnw), w)
+            bucket_rand.append((f"window {w}, ({rows}, {m}) points, {'shared' if shared else 'per-row'} "
+                                f"({m}, {bnw}) digits", *bucket_fns(cs, w, bnw), [points((rows, m)), digits]))
+        cases[bk.kernel_for(cs).name] = Case(
+            path, *bucket_fns(cs, window, nw), bucket_rand,
+            [points((t + 1, n)), gd.scalar_windows(rho, window)[:, :nw].contiguous()],
+            add_c * (t + 1) * n * nw, plain_reps=1)
         # one Horner step of eval_point_poly: acc (n,), D_l one point, x = 1..n
         x_rand = torch.from_numpy(rng.integers(0, 1 << path.index_bits, size=R).astype(np.int32)).to(DEV)
         x_main = torch.arange(1, n + 1, dtype=torch.int32, device=DEV)
         ladder = point_fns(cs, "pt_ladder_mul_add", path.index_bits)
         cases["pt_ladder_mul_add" + sfx] = Case(
             path, *ladder,
-            [("", *ladder, [points(R), points(R), x_rand])],
+            [(lanes, *ladder, [points(R), points(R), x_rand])],
             [points((n,)), points(()), x_main],
             ladder_muladds(range(1, n + 1), dbl_c, add_c))
         if not ed:
@@ -296,7 +367,8 @@ def kernel_cases(rng) -> dict:
             step = point_fns(cs, "pt_window_step", gd.WINDOW)
             cases["pt_window_step"] = Case(
                 path, *step,
-                [("", *step, [points(R), points(R)])],
+                [(f"{lanes}, k=4", *step, [points(R), points(R)]),
+                 (f"{lanes}, k=8", *point_fns(cs, "pt_window_step", 8), [points(R), points(R)])],
                 [points((t + 1,)), points((t + 1,))],
                 (gd.WINDOW * dbl_c + add_c) * (t + 1))
     # pt_double, both kinds at k = 1 and 4; at the ristretto255 path's
@@ -305,7 +377,7 @@ def kernel_cases(rng) -> dict:
     for path in PATHS:
         pool = point_pool(rng, path.cs)
         for k in (1, 4):
-            dbl_rand.append((f"{path.cs.kind} k={k}", *point_fns(path.cs, "pt_double", k),
+            dbl_rand.append((f"{lanes} of {path.cs.kind} k={k}", *point_fns(path.cs, "pt_double", k),
                              [rand_points(rng, path.cs, pool, R)]))
     cs = R255.cs
     cases["pt_double"] = Case(
@@ -315,8 +387,7 @@ def kernel_cases(rng) -> dict:
     return cases
 
 
-def held(name: str, wrapper, plain, args) -> int:
-    got, want = wrapper(*args), plain(*args)
+def held(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
     sync()
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
@@ -329,11 +400,11 @@ def check_kernels(rng) -> dict:
     for name, case in kernel_cases(rng).items():
         err = 0
         for label, wrapper, plain, args in case.rand_args:
-            err = max(err, held(f"{name} {label}".strip(), wrapper, plain, args))
-        err = max(err, held(name, case.wrapper, case.plain, case.main_args))
-        ms = cuda_ms(lambda: case.wrapper(*case.main_args), reps=10)
-        plain_ms = cuda_ms(lambda: case.plain(*case.main_args), reps=2)
-        res = case.wrapper(*case.main_args)
+            err = max(err, held(f"{name} {label}", wrapper(*args), plain(*args)))
+        ms, res = cuda_ms(lambda: case.wrapper(*case.main_args), reps=10)
+        plain_ms, want = cuda_ms(lambda: case.plain(*case.main_args), reps=case.plain_reps,
+                                 warm_up=case.plain_reps > 1)
+        err = max(err, held(name, res, want))
         nbytes = sum(a.numel() * a.element_size() for a in case.main_args) + res.numel() * 4
         bytes_ms, ops_ms = 1e3 * nbytes / BYTES_PER_S, 1e3 * 2 * case.muladds / INT32_MUL_PER_S
         out[name] = {
@@ -341,8 +412,8 @@ def check_kernels(rng) -> dict:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         }
-        print(f"kernel {name}: exact at {RANDOM_LANES} random lanes "
-              f"({', '.join(lbl for lbl, *_ in case.rand_args if lbl) or 'one case'}) and at "
+        print(f"kernel {name}: exact at random inputs "
+              f"({'; '.join(lbl for lbl, *_ in case.rand_args)}) and at "
               f"{case.path.curve} n={case.path.n} shape {tuple(res.shape)}; {ms:.4f} ms, "
               f"plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.6f} ms "
               f"({out[name]['bound_by']})", flush=True)
@@ -365,18 +436,21 @@ def eval_host(q: int, coeffs_row, x: int) -> int:
     return acc
 
 
-def main_path(path: Path, seed: int) -> tuple[dict, dict]:
+def main_path(path: Path, seed: int) -> tuple[cer.BatchedCeremony, dict, dict]:
+    """Run the path's ceremony with every launch count set to 0 just
+    before and read just after, and hold its outputs to host oracles.
+    Returns the ceremony, its outputs and the launch counts."""
     cs, n, t = path.cs, path.n, path.t
     group = gh.ALL_GROUPS[path.curve]
     for k in KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     c = cer.BatchedCeremony(path.curve, n, t, path.shared, random.Random(seed), device=DEV)
-    out = c.run()
+    out = c.run(rlc=path.rlc)
     sync()
     launches = {k.name: k.launches for k in KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    tag = f"{path.curve} n={n} t={t}"
+    tag = path.tag
     print(f"main path {tag}: phases " + json.dumps({k: round(v, 6) for k, v in out["phase_seconds"].items()})
           + f", peak device memory {peak_gib:.2f} GiB", flush=True)
     print(f"main path {tag}: launches " + json.dumps(launches), flush=True)
@@ -404,8 +478,17 @@ def main_path(path: Path, seed: int) -> tuple[dict, dict]:
             check(int(shares[j, k]) == eval_host(q, a[j], i), f"share s[{j}, {i - 1}] != f_{j}({i})")
     print(f"main path {tag}: ok for all recipients; master key, commitments and shares match "
           "the host oracles", flush=True)
-    fiat_shamir_breakdown(c.cfg, out)
-    return launches, out["phase_seconds"]
+    return c, out, launches
+
+
+OUTPUTS = ("bare", "randomized", "shares", "hidings", "rho", "ok", "qualified", "final_shares", "master")
+
+
+def same_outputs(tag: str, got: dict, want: dict) -> None:
+    """Every output tensor of two runs of one ceremony is equal."""
+    for k in OUTPUTS:
+        check(torch.equal(got[k], want[k]), f"{tag}: output {k} differs from the Straus run's")
+    check(got["complaints"] == want["complaints"], f"{tag}: complaints differ from the Straus run's")
 
 
 def fiat_shamir_breakdown(cfg, out) -> None:
@@ -431,6 +514,7 @@ def fiat_shamir_breakdown(cfg, out) -> None:
 # profiler kernel names -> kernel names, first match wins ("pt_add_kernel"
 # is inside "ed_pt_add_kernel"); mod_madd_kernel is the path's mod_madd
 PROFILE_GROUPS = (
+    ("ws_bucket_kernel", "bucket_accumulate"), ("ed_bucket_kernel", "bucket_accumulate[edwards]"),
     ("ed_pt_add_kernel", "pt_add[edwards]"), ("ed_pt_madd_kernel", "pt_madd[edwards]"),
     ("ed_pt_ladder_kernel", "pt_ladder_mul_add[edwards]"), ("pt_double_kernel", "pt_double"),
     ("mod_madd_kernel", None), ("pt_add_kernel", "pt_add"), ("pt_madd_kernel", "pt_madd"),
@@ -439,18 +523,17 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_main_path(path: Path, seed: int) -> None:
-    """The main path once more under torch.profiler: device time by kernel
-    (everything not ours is PyTorch's own ops: the plain tensor code and
-    the wrappers' broadcast copies) and the device's busy share of the
-    wall time."""
+def profiled(path: Path, label: str, fn) -> None:
+    """``fn()`` under torch.profiler: device time by kernel (everything not
+    ours is PyTorch's own ops: the plain tensor code and the wrappers'
+    broadcast copies) and the device's busy share of the wall time.
+    Every kernel of the path must show device time."""
     from torch.profiler import ProfilerActivity, profile
 
     madd = next(k.name for k in path.kernels if k.name.startswith("mod_madd"))
-    c = cer.BatchedCeremony(path.curve, path.n, path.t, path.shared, random.Random(seed), device=DEV)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        c.run()
+        fn()
         sync()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     device_ms: dict[str, float] = {}
@@ -461,12 +544,42 @@ def profile_main_path(path: Path, seed: int) -> None:
         device_ms[group] = device_ms.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(device_ms.values())
     check(all(device_ms.get(k.name, 0) > 0 for k in path.kernels), f"profile saw {device_ms}")
-    print(f"profile {path.curve} n={path.n}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.2f} %), device ms "
           + json.dumps({k: round(v, 3) for k, v in sorted(device_ms.items())}), flush=True)
 
 
-def tampered(curve: str, seed: int) -> None:
+def profile_main_path(path: Path, seed: int) -> None:
+    """The main path once more under torch.profiler."""
+    c = cer.BatchedCeremony(path.curve, path.n, path.t, path.shared, random.Random(seed), device=DEV)
+    profiled(path, f"{path.curve} n={path.n} ceremony rlc={path.rlc}", lambda: c.run(rlc=path.rlc))
+
+
+def rlc_schedules(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
+    """verify_batch's point RLC D = Σ_j rho_j E_j on the path's tensors
+    under each schedule of _point_rlc, timed by CUDA events: equal in
+    canonical affine form.  Then the verify phase under Straus and under
+    Pippenger, each profiled."""
+    cs = path.cs
+    affine, ms = {}, {}
+    for mode in cer.RLC_MODES:
+        ms[mode], d = cuda_ms(lambda: cer._point_rlc(cs, out["rho"], out["randomized"], RHO_BITS, mode),
+                              reps=1, warm_up=False)
+        check(tuple(d.shape) == (path.t + 1, cs.ncoords, 16), f"D under {mode} has shape {tuple(d.shape)}")
+        affine[mode] = gd.affine_canon_host(cs, fh.from_tensor(d))
+    for mode in cer.RLC_MODES[1:]:
+        check(np.array_equal(affine[mode], affine["straus"]), f"{path.curve}: D under {mode} != D under straus")
+    print(f"point RLC {path.curve} n={path.n} t={path.t}: D equal in canonical affine form under "
+          f"{', '.join(cer.RLC_MODES)}; ms (CUDA events, one call) " + json.dumps(ms), flush=True)
+    for p in (path, path.pippenger()):
+        def verify(p=p):
+            ok = cer.verify_batch(c.cfg, out["randomized"], out["shares"], out["hidings"], out["rho"], RHO_BITS,
+                                  c.g_table, c.h_table, p.rlc)
+            check(bool(ok.all()), f"{p.tag}: a batch check failed")
+        profiled(p, f"{path.curve} n={path.n} verify phase rlc={p.rlc}", verify)
+
+
+def tampered(curve: str, seed: int, rlc: str) -> None:
     n, t, dealer, recipient = TAMPER_N, TAMPER_T, 3, 7
     cs = gd.ALL_CURVES[curve]
     fs, group = cs.scalar, gh.ALL_GROUPS[curve]
@@ -477,7 +590,7 @@ def tampered(curve: str, seed: int) -> None:
         return a, e, s, r
 
     c = cer.BatchedCeremony(curve, n, t, b"chip-smoke-tamper", random.Random(seed), device=DEV)
-    out = c.run(tamper=tamper)
+    out = c.run(tamper=tamper, rlc=rlc)
     ok = out["ok"].cpu().tolist()
     check(ok == [i != recipient for i in range(n)], f"{curve} tampered batch checks {ok}")
     check(out["complaints"] == [(recipient + 1, dealer + 1)], f"{curve} complaints {out['complaints']}")
@@ -488,7 +601,7 @@ def tampered(curve: str, seed: int) -> None:
     gen = gp.base_key_to_point(cs, cs.gen_affine)
     check(group.eq(host_point(cs, out["master"]), group.scalar_mul(secret, gen)),
           f"{curve} tampered ceremony's master key != g·(Σ over the qualified set)")
-    print(f"tampered {curve} (n={n}, t={t}): recipient {recipient + 1} failed its batch check, dealer "
+    print(f"tampered {curve} (n={n}, t={t}, rlc={rlc}): recipient {recipient + 1} failed its batch check, dealer "
           f"{dealer + 1} blamed, master key of the qualified set matches", flush=True)
 
 
@@ -515,11 +628,23 @@ def main() -> None:
     numbers = check_kernels(rng)
     launches = {}
     for path in PATHS:
-        path_launches, _ = main_path(path, args.seed)
+        c, out, path_launches = main_path(path, args.seed)
         launches.update({k.name: path_launches[k.name] for k in path.kernels})
+        fiat_shamir_breakdown(c.cfg, out)
         profile_main_path(path, args.seed)
+        pip = path.pippenger()
+        _, pip_out, pip_launches = main_path(pip, args.seed)
+        same_outputs(pip.tag, pip_out, out)
+        launches.update({k.name: pip_launches[k.name] for k in pip.kernels if k.name not in launches})
+        print(f"main path {pip.tag}: every output equals the Straus run's; verify phase (host clock, s) "
+              f"straus {out['phase_seconds']['verify']:.6f}, pippenger {pip_out['phase_seconds']['verify']:.6f}",
+              flush=True)
+        del pip_out
+        rlc_schedules(path, c, out)
+        del c, out
     for i, path in enumerate(PATHS):
-        tampered(path.curve, args.seed + 1 + i)
+        for rlc in ("straus", "pippenger"):
+            tampered(path.curve, args.seed + 1 + i, rlc)
 
     rows = []
     for name, rec in numbers.items():

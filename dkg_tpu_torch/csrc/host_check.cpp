@@ -1,12 +1,12 @@
 // The kernels' per-lane bodies compiled for the host, one loop over lanes
 // in place of the grid.  The CPU tests build this file with the host
 // compiler (g++ -O1 -shared -fPIC) and hold every entry against the plain
-// PyTorch version of its kernel: it runs the same field.cuh, point.cuh and
-// edwards.cuh code that field_kernels.cu, point_kernels.cu,
-// edwards_kernels.cu and double_kernels.cu run on the card, the three
-// reductions (fold at 2^256, fold at 2^255, Barrett) included.
-#include "edwards.cuh"
-#include "point.cuh"
+// PyTorch version of its kernel: it runs the same field.cuh, point.cuh,
+// edwards.cuh and bucket.cuh code that field_kernels.cu, point_kernels.cu,
+// edwards_kernels.cu, double_kernels.cu and bucket_kernels.cu run on the
+// card, the three reductions (fold at 2^256, fold at 2^255, Barrett)
+// included.
+#include "bucket.cuh"
 
 using namespace dkg;
 
@@ -25,6 +25,23 @@ void mod_madd_lanes(const int32_t* a, const int32_t* b, const int32_t* c, int32_
     fmadd<F>(r, x, y, z);
     store16(out + lane * kLimbs, r);
   }
+}
+
+// Every bucket (b, w, e) of bucket_kernels.cu, one after another: the
+// same bucket_fold over the whole digit column of window w.
+template <class K>
+void bucket_lanes(const int32_t* pts, const int32_t* digits, int32_t* out, int64_t batch,
+                  int64_t m, int nw, int window, int64_t dig_batch_stride) {
+  const int entries = 1 << window;
+  for (int64_t b = 0; b < batch; ++b)
+    for (int w = 0; w < nw; ++w)
+      for (int e = 0; e < entries; ++e) {
+        typename K::P acc;
+        K::identity(acc);
+        bucket_fold<K>(acc, pts + b * m * K::kPointWords, digits + b * dig_batch_stride + w, nw,
+                       m, e);
+        K::store(out + ((b * nw + w) * entries + e) * K::kPointWords, acc);
+      }
 }
 }  // namespace
 
@@ -91,6 +108,18 @@ void host_ed_pt_ladder_mul_add(const int32_t* p, const int32_t* addend, const in
   for (int64_t lane = 0; lane < n; ++lane)
     ed_ladder_lane(p + lane * kEdPointWords, addend + lane * kEdPointWords, (uint32_t)x[lane],
                    nbits, out + lane * kEdPointWords);
+}
+
+void host_bucket_accumulate(const int32_t* pts, const int32_t* digits, int32_t* out,
+                            int64_t batch, int64_t m, int nw, int window,
+                            int64_t dig_batch_stride) {
+  bucket_lanes<WsCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
+}
+
+void host_ed_bucket_accumulate(const int32_t* pts, const int32_t* digits, int32_t* out,
+                               int64_t batch, int64_t m, int nw, int window,
+                               int64_t dig_batch_stride) {
+  bucket_lanes<EdCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
 }
 
 }  // extern "C"

@@ -17,7 +17,9 @@ randomizers.  State is struct-of-arrays over all parties at once:
   scalar RLCs folded through ``mod_madd``, the point RLC by Straus
   (``pt_add`` table builds and tree sums, one window step per 4-bit
   window: ``pt_window_step``, or ``pt_double`` then ``pt_add`` on
-  Edwards), the right side by point Horner (``pt_ladder_mul_add``);
+  Edwards), by Pippenger (``bucket_accumulate``, then ``pt_add`` bucket
+  closes and window steps) or bit at a time, the right side by point
+  Horner (``pt_ladder_mul_add``);
 * ``verify_pairwise`` — the direct per-(dealer, recipient) check, run
   only when a batch check fails, to assign blame.
 
@@ -121,37 +123,69 @@ def _field_dot(fs, weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _point_rlc(cs: gd.CurveSpec, weights: torch.Tensor, points: torch.Tensor, nbits: int) -> torch.Tensor:
-    """Σ_j weights[j]·P[j, ...] for nbits-wide public weights, by windowed
-    Straus (w = 4): per-point 16-entry tables, then per window from the
-    top, gather each point's entry, tree-sum over j, and one window step.
+RLC_MODES = ("straus", "bits", "pippenger")
 
-    weights (m, L), points (m, ..., C, L) -> (..., C, L)."""
+
+def _point_rlc(cs: gd.CurveSpec, weights: torch.Tensor, points: torch.Tensor, nbits: int,
+               mode: str = "straus") -> torch.Tensor:
+    """Σ_j weights[j]·P[j, ...] for nbits-wide public weights.
+
+    weights (m, L) with only the low nbits set, points (m, ..., C, L) ->
+    (..., C, L).  Three schedules of the JAX package, one sum (equal in
+    canonical affine form):
+
+    * ``"straus"``: windowed Straus (w = 4), per-point 16-entry tables,
+      then per window from the top, gather each point's entry, tree-sum
+      over j, and one window step;
+    * ``"pippenger"``: :func:`groups.device.msm_pippenger` with the m axis
+      moved to -3 and the weights shared by every column: the points
+      scatter into buckets (``bucket_accumulate``), which are closed and
+      combined per window;
+    * ``"bits"``: bit at a time, per bit row from the top one doubling,
+      then a select of the points whose bit is set, a tree sum, one add.
+
+    The JAX package chunks the columns to bound its TPU memory; that
+    changes no limb and is not done here."""
+    if mode not in RLC_MODES:
+        raise ValueError(f"rlc must be one of {RLC_MODES}, got {mode!r}")
+    if mode == "pippenger":
+        return gd.msm_pippenger(cs, weights, points.movedim(0, -3), nbits=nbits)
     m = points.shape[0]
-    nd = -(-nbits // gd.WINDOW)  # windows that can be non-zero
-    table = gd._build_table(cs, points)  # (m, ..., 16, C, L)
-    digits = gd.scalar_windows(weights, gd.WINDOW)[:, :nd]  # (m, nd)
     shape = (m,) + (1,) * (points.dim() - 3)
     acc = gd.identity(cs, points.shape[1:-2], device=points.device)
-    for d in reversed(range(nd)):
-        dig = digits[:, d].reshape(shape).expand(points.shape[:-2])
-        contribs = gd._gather_table(table, dig)  # (m, ..., C, L)
-        total = gd._tree_reduce(cs, contribs.movedim(0, -3), m)
-        acc = gd.window_step(cs, acc, total, gd.WINDOW)
+    if mode == "straus":
+        nd = -(-nbits // gd.WINDOW)  # windows that can be non-zero
+        table = gd._build_table(cs, points)  # (m, ..., 16, C, L)
+        digits = gd.scalar_windows(weights, gd.WINDOW)[:, :nd]  # (m, nd)
+        for d in reversed(range(nd)):
+            dig = digits[:, d].reshape(shape).expand(points.shape[:-2])
+            contribs = gd._gather_table(table, dig)  # (m, ..., C, L)
+            total = gd._tree_reduce(cs, contribs.movedim(0, -3), m)
+            acc = gd.window_step(cs, acc, total, gd.WINDOW)
+        return acc
+    idx = torch.arange(nbits, device=weights.device)
+    bits = (weights[:, idx // 16] >> (idx % 16).to(torch.int32)) & 1  # (m, nbits)
+    ident = gd.identity(cs, points.shape[:-2], device=points.device)
+    for i in reversed(range(nbits)):
+        acc = gd.double(cs, acc)
+        sel = gd.select((bits[:, i] != 0).reshape(shape).expand(points.shape[:-2]), points, ident)
+        acc = gd.add(cs, acc, gd._tree_reduce(cs, sel.movedim(0, -3), m))
     return acc
 
 
-def verify_batch(cfg: CeremonyConfig, e_comm, shares, hidings, rho, rho_bits: int, g_table, h_table):
+def verify_batch(cfg: CeremonyConfig, e_comm, shares, hidings, rho, rho_bits: int, g_table, h_table,
+                 rlc: str = "straus"):
     """RLC batch share verification -> (n,) bool per recipient.
 
     e_comm (n, t+1, C, L), shares/hidings (n, n, L) with [j, i] as
     recipient i received it from dealer j, rho (n, L) with only the low
-    rho_bits bits set.  Sound up to 2^-rho_bits per cheating dealer."""
+    rho_bits bits set.  Sound up to 2^-rho_bits per cheating dealer.
+    ``rlc`` is the point RLC's schedule (:data:`RLC_MODES`)."""
     cs = cfg.cs
     fs = cs.scalar
     s_rlc = _field_dot(fs, rho, shares)  # (n, L): Σ_j rho_j s_ji
     r_rlc = _field_dot(fs, rho, hidings)
-    d_comm = _point_rlc(cs, rho, e_comm, rho_bits)  # (t+1, C, L): Σ_j rho_j E_jl
+    d_comm = _point_rlc(cs, rho, e_comm, rho_bits, rlc)  # (t+1, C, L): Σ_j rho_j E_jl
     xs = torch.arange(1, cfg.n + 1, dtype=torch.int32, device=e_comm.device)
     rhs = gd.eval_point_poly(cs, d_comm, xs, cfg.index_bits)  # (n, C, L)
     lhs = gd.add(cs, gd.fixed_base_mul(cs, g_table, s_rlc), gd.fixed_base_mul(cs, h_table, r_rlc))
@@ -327,7 +361,7 @@ class BatchedCeremony:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, rho_bits: int = 128, tamper=None) -> dict:
+    def run(self, rho_bits: int = 128, tamper=None, rlc: str = "straus") -> dict:
         """The whole ceremony, blame path included.
 
         One RLC batch verification covers all n·(n-1) share relations.  If
@@ -338,11 +372,15 @@ class BatchedCeremony:
         under ``"error"``.
 
         ``tamper(a, e, s, r) -> (a, e, s, r)`` runs after dealing, to
-        inject faults.  Returns tensors (``bare``, ``randomized``,
-        ``shares``, ``hidings``, ``ok``, ``qualified``, ``final_shares``,
-        ``master``), ``complaints`` as 1-based (recipient, dealer) pairs,
-        and ``phase_seconds`` (host clock, each phase ended by a device
-        synchronise)."""
+        inject faults.  ``rlc`` is the point RLC's schedule (``"straus"``,
+        ``"pippenger"`` or ``"bits"``); every output but the timings is the
+        same under each.  Returns tensors (``bare``, ``randomized``,
+        ``shares``, ``hidings``, ``rho``, ``ok``, ``qualified``,
+        ``final_shares``, ``master``), ``complaints`` as 1-based (recipient,
+        dealer) pairs, and ``phase_seconds`` (host clock, each phase ended
+        by a device synchronise)."""
+        if rlc not in RLC_MODES:
+            raise ValueError(f"rlc must be one of {RLC_MODES}, got {rlc!r}")
         cfg = self.cfg
         seconds = {"tables": self.table_seconds}
         clock = time.perf_counter()
@@ -361,9 +399,9 @@ class BatchedCeremony:
             clock = time.perf_counter()
         rho = fh.to_tensor(derive_rho(cfg, a, e, s, r, rho_bits), self.device)
         phase("fiat_shamir")
-        ok = verify_batch(cfg, e, s, r, rho, rho_bits, self.g_table, self.h_table)
+        ok = verify_batch(cfg, e, s, r, rho, rho_bits, self.g_table, self.h_table, rlc)
         phase("verify")
-        out = {"bare": a, "randomized": e, "shares": s, "hidings": r, "ok": ok,
+        out = {"bare": a, "randomized": e, "shares": s, "hidings": r, "rho": rho, "ok": ok,
                "complaints": [], "phase_seconds": seconds}
         qualified = torch.ones(cfg.n, dtype=torch.bool, device=self.device)
         if not bool(ok.all()):

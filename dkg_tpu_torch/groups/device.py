@@ -21,6 +21,7 @@ import torch
 from ..fields import device as fd
 from ..fields import host as fh
 from ..fields.spec import L25519, P25519, FieldSpec
+from ..ops import bucket_kernels as bk
 from ..ops import point_kernels as pk
 from . import host as gh
 
@@ -228,6 +229,101 @@ def eval_point_poly(cs: CurveSpec, coeffs: torch.Tensor, x: torch.Tensor, nbits:
     for l in reversed(range(coeffs.shape[-3])):
         acc = pk.pt_ladder_mul_add(cs, acc, coeffs[..., l, :, :], x, nbits)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# multi-scalar multiplication
+# ---------------------------------------------------------------------------
+
+
+def msm(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, mode: str | None = None) -> torch.Tensor:
+    """Batched MSM Σ_j k_j·P_j over axis -2 of scalars / -3 of points:
+    scalars (..., m, L), points (..., m, C, L) -> (..., C, L).
+
+    ``mode`` picks the schedule, ``"straus"`` (:func:`msm_straus`) or
+    ``"pippenger"`` (:func:`msm_pippenger`); the two agree in canonical
+    affine form.  Its default is the JAX package's on an accelerator:
+    Straus, but Pippenger on Edwards curves, whose one-launch window step
+    the JAX package does not run there."""
+    if mode is None:
+        mode = "pippenger" if cs.kind == "edwards" else "straus"
+    if mode == "pippenger":
+        return msm_pippenger(cs, scalars, points)
+    if mode == "straus":
+        return msm_straus(cs, scalars, points)
+    raise ValueError(f"msm mode must be 'straus' or 'pippenger', got {mode!r}")
+
+
+def msm_straus(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Straus shared-doubling MSM: per-point 16-entry tables, then per
+    4-bit window from the top, gather each point's entry, tree-sum the m
+    contributions, and one window step."""
+    m = points.shape[-3]
+    scalars = scalars.expand(points.shape[:-2] + scalars.shape[-1:])
+    tables = _build_table(cs, points)  # (..., m, 16, C, L)
+    digits = scalar_windows(scalars, WINDOW)  # (..., m, NW)
+    acc = identity(cs, points.shape[:-3], device=points.device)
+    for d in reversed(range(digits.shape[-1])):
+        total = _tree_reduce(cs, _gather_table(tables, digits[..., d]), m)
+        acc = window_step(cs, acc, total, WINDOW)
+    return acc
+
+
+# Measured c=4 -> c=8 crossover per curve in the JAX package (its CPU
+# probe); the 16-limb curves default to m = 448.  Which width the H100
+# wants is not measured yet.
+_PIPPENGER_CROSSOVER: dict[str, int] = {"bls12_381_g1": 512}
+
+
+def pippenger_window(m: int, curve: str | None = None) -> int:
+    """Bucket width (bits) from the MSM batch shape (and curve), the JAX
+    package's rule: the scatter pass costs m adds a window whatever c is,
+    closing the buckets about 2**(c+1), so c = 8 halves the windows once
+    m passes the crossover.  Widths divide the 16-bit limb."""
+    return 8 if m >= _PIPPENGER_CROSSOVER.get(curve, 448) else 4
+
+
+def msm_pippenger(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, nbits: int | None = None
+                  ) -> torch.Tensor:
+    """Bucket-method MSM: scalars (..., m, L), points (..., m, C, L) ->
+    (..., C, L).  ``nbits`` bounds the scalars' bit width (128-bit RLC
+    weights); windows above it are dropped.  Scalars broadcast to the
+    points' batch; an (m, L) block stays shared, so the kernel reads one
+    digit block for the whole batch."""
+    if nbits is None:
+        nbits = cs.scalar.limbs * 16
+    if scalars.dim() > 2:
+        scalars = scalars.expand(points.shape[:-2] + scalars.shape[-1:])
+    return _msm_pippenger_core(cs, scalars, points, nbits)
+
+
+def _msm_pippenger_core(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Three passes, batched over the leading axes and all windows at once:
+
+    1. scatter: ``bucket_accumulate`` (kernel or plain version) sums each
+       window's points into 2**c buckets, digit-0 points into bucket 0;
+    2. bucket close: a descending suffix sum over buckets 2**c - 1 .. 1,
+       ``run = run + B_b; tot = tot + run``, gives Σ_b b·B_b per window in
+       two adds a bucket;
+    3. window combine: MSB first, ``window_step`` (c doublings, one add)."""
+    m = points.shape[-3]
+    batch = points.shape[:-3]
+    window = pippenger_window(m, cs.name)
+    entries = 1 << window
+    nw = min(n_windows(cs, window), -(-nbits // window))
+    digits = scalar_windows(scalars, window)[..., :nw]  # (..., m, nw)
+    buckets = bk.bucket_accumulate(cs, points, digits, window, nw)  # (..., nw, entries, C, L)
+    run = tot = identity(cs, batch + (nw,), device=points.device)
+    for b in reversed(range(1, entries)):
+        run = add(cs, run, buckets[..., b, :, :])
+        tot = add(cs, tot, run)
+    acc = identity(cs, batch, device=points.device)
+    for w in reversed(range(nw)):
+        acc = window_step(cs, acc, tot[..., w, :, :], window)
+    return acc
+
+
+_bucket_scan = bk.bucket_accumulate_plain  # the JAX package's name for the scatter pass
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("field_kernels.cu", "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu")
+SOURCES = ("field_kernels.cu", "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu",
+           "bucket_kernels.cu")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

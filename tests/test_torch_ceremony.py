@@ -3,9 +3,10 @@ against dkg_tpu's BatchedCeremony from the same seed.
 
 Every output tensor is compared limb for limb (bare and randomized
 commitments, share and hiding matrices, batch checks, final shares,
-master key), on the honest path and through the blame path.  The JAX
-side runs the Straus point RLC (``DKG_TPU_RLC=straus``), the schedule the
-port has."""
+master key), on the honest path and through the blame path, under both of
+the port's point RLC schedules, Straus and Pippenger.  The JAX side runs
+Straus (``DKG_TPU_RLC=straus``); no output but the timings depends on the
+schedule."""
 
 import os
 import random
@@ -50,6 +51,7 @@ def _torch_tamper(bad):
 
 
 HONEST, ONE_BAD, TOO_MANY = (), ((1, 2),), ((1, 2), (3, 0))
+RLC = pytest.mark.parametrize("rlc", ["straus", "pippenger"])
 
 
 @pytest.fixture(scope="module")
@@ -79,14 +81,15 @@ def _assert_same(tout, jout, keys):
             assert np.array_equal(to_np(got), want), k
 
 
-def test_honest_ceremony_matches_jax(jax_runs):
+@RLC
+def test_honest_ceremony_matches_jax(jax_runs, rlc):
     jc, jout = jax_runs[HONEST]
     tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
     assert np.array_equal(to_np(tc.coeffs_a), np.asarray(jc.coeffs_a))
     assert np.array_equal(to_np(tc.coeffs_b), np.asarray(jc.coeffs_b))
     assert np.array_equal(to_np(tc.g_table), np.asarray(jc.g_table))
     assert np.array_equal(to_np(tc.h_table), np.asarray(jc.h_table))
-    tout = tc.run()
+    tout = tc.run(rlc=rlc)
     assert bool(tout["ok"].all()) and tout["complaints"] == jout["complaints"] == []
     _assert_same(tout, jout, TENSORS + ("final_shares", "master"))
     assert set(tout["phase_seconds"]) == {"tables", "deal", "fiat_shamir", "verify", "finalise"}
@@ -105,10 +108,11 @@ def test_from_arrays_matches_jax(jax_runs):
                                         np.asarray(jc.coeffs_b), device="cpu")
 
 
-def test_tampered_share_is_blamed_like_jax(jax_runs):
+@RLC
+def test_tampered_share_is_blamed_like_jax(jax_runs, rlc):
     _, jout = jax_runs[ONE_BAD]
     tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
-    tout = tc.run(tamper=_torch_tamper(ONE_BAD))
+    tout = tc.run(tamper=_torch_tamper(ONE_BAD), rlc=rlc)
     assert tout["ok"].tolist() == [True, True, False, True]
     assert tout["complaints"] == jout["complaints"] == [(3, 2)]
     assert tout["qualified"].tolist() == [True, False, True, True]
@@ -116,10 +120,11 @@ def test_tampered_share_is_blamed_like_jax(jax_runs):
     assert "blame" in tout["phase_seconds"]
 
 
-def test_more_than_t_guilty_aborts_like_jax(jax_runs):
+@RLC
+def test_more_than_t_guilty_aborts_like_jax(jax_runs, rlc):
     _, jout = jax_runs[TOO_MANY]
     tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
-    tout = tc.run(tamper=_torch_tamper(TOO_MANY))
+    tout = tc.run(tamper=_torch_tamper(TOO_MANY), rlc=rlc)
     assert isinstance(tout["error"], DkgError)
     assert tout["error"].kind is DkgErrorKind.MISBEHAVIOUR_HIGHER_THRESHOLD
     assert tout["error"].kind.value == jout["error"].kind.value

@@ -5,10 +5,11 @@ The shape, seed, shared string and rho width of the JAX package's own
 engine test (``tests/test_ceremony.py``).  Every output tensor is compared
 limb for limb (bare and randomized commitments, share and hiding
 matrices, batch checks, final shares, master key), on the honest path and
-through the blame path.  The JAX side runs the Straus point RLC
-(``DKG_TPU_RLC=straus``), the schedule the port has; its Edwards window
-step there is four XLA doublings and an add, the port's ``pt_double`` and
-``pt_add``."""
+through the blame path, under both of the port's point RLC schedules,
+Straus and Pippenger.  The JAX side runs Straus (``DKG_TPU_RLC=straus``;
+its Edwards window step there is four XLA doublings and an add, the
+port's ``pt_double`` and ``pt_add``); no output but the timings depends
+on the schedule."""
 
 import os
 import random
@@ -30,6 +31,7 @@ from dkg_tpu_torch.groups import host as tgh
 CURVE, N, T, SEED, SHARED, RHO_BITS = "ristretto255", 5, 2, 0xBA7C4, b"engine-test", 64
 TENSORS = ("bare", "randomized", "shares", "hidings", "ok", "qualified", "final_shares", "master")
 BAD = ((1, 2),)  # (dealer, recipient) of the corrupted share
+RLC = pytest.mark.parametrize("rlc", ["straus", "pippenger"])
 
 
 def _jax_tamper(a, e, s, r):
@@ -74,13 +76,14 @@ def _assert_same(tout, jout):
             assert np.array_equal(to_np(got), want), k
 
 
-def test_honest_ristretto_ceremony_matches_jax(jax_runs):
+@RLC
+def test_honest_ristretto_ceremony_matches_jax(jax_runs, rlc):
     jc, jout = jax_runs[False]
     tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
     for name in ("coeffs_a", "coeffs_b", "g_table", "h_table"):
         assert np.array_equal(to_np(getattr(tc, name)), np.asarray(getattr(jc, name))), name
     assert tc.ck.h == jc.ck.h
-    tout = tc.run(rho_bits=RHO_BITS)
+    tout = tc.run(rho_bits=RHO_BITS, rlc=rlc)
     assert bool(tout["ok"].all()) and tout["complaints"] == jout["complaints"] == []
     _assert_same(tout, jout)
     # the master key is g·(Σ_j a_j0) by ristretto equality, on the host
@@ -91,10 +94,11 @@ def test_honest_ristretto_ceremony_matches_jax(jax_runs):
     assert jgh.RISTRETTO255.eq(master, jgh.RISTRETTO255._scalar_mul_ladder(secret, g.generator()))
 
 
-def test_tampered_ristretto_share_is_blamed_like_jax(jax_runs):
+@RLC
+def test_tampered_ristretto_share_is_blamed_like_jax(jax_runs, rlc):
     _, jout = jax_runs[True]
     tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
-    tout = tc.run(rho_bits=RHO_BITS, tamper=_torch_tamper)
+    tout = tc.run(rho_bits=RHO_BITS, tamper=_torch_tamper, rlc=rlc)
     assert tout["ok"].tolist() == [True, True, False, True, True]
     assert tout["complaints"] == jout["complaints"] == [(3, 2)]
     assert tout["qualified"].tolist() == [True, False, True, True, True]

@@ -15,6 +15,7 @@ import torch
 from dkg_tpu_torch.dkg import ceremony as tce
 from dkg_tpu_torch.fields.spec import L25519, SECP256K1_N, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
+from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import point_kernels as pk
@@ -56,6 +57,11 @@ def _meta(shape):
 
 
 ED = tgd.RISTRETTO255
+KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS)
+# a 24-limb curve (BLS12-381 G1's base field): no kernel has its variant yet
+BLS_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+L24 = dataclasses.replace(tgd.SECP256K1, name="bls12_381_g1", field=FieldSpec("bls12_381_base", BLS_P, 24),
+                          const=12)
 
 
 @pytest.mark.parametrize("call", [
@@ -71,21 +77,26 @@ ED = tgd.RISTRETTO255
     lambda: pk.pt_double(tgd.SECP256K1, _meta((4, 3, 16)), 1),
     lambda: pk.pt_ladder_mul_add(ED, _meta((4, 4, 16)), _meta((4, 4, 16)), _meta((4,)), 3),
     lambda: tgd.window_step(ED, _meta((4, 4, 16)), _meta((4, 4, 16)), 4),
+    lambda: bk.bucket_accumulate(tgd.SECP256K1, _meta((2, 5, 3, 16)), _meta((5, 3)), 8, 3),
+    lambda: bk.bucket_accumulate(ED, _meta((2, 5, 4, 16)), _meta((2, 5, 3)), 4, 3),
+    lambda: tgd.msm_pippenger(ED, _meta((5, 16)), _meta((2, 5, 4, 16)), 128),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
-        "ed_window_step"])
+        "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger"])
 def test_wrappers_raise_instead_of_falling_back(call):
-    before = [k.launches for k in (*fk.KERNELS, *pk.KERNELS)]
+    before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
         call()
-    assert [k.launches for k in (*fk.KERNELS, *pk.KERNELS)] == before
+    assert [k.launches for k in KERNELS] == before
 
 
 @pytest.mark.parametrize("call", [
     lambda: fk.mod_madd(SECP256K1_N, _meta((4, 16)), _meta((4, 1)), _meta((4, 16))),
     lambda: pk.pt_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((4, 1, 16))),
     lambda: pk.pt_ladder_mul_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((16,)), _meta((4,)), 3),
-], ids=["limbs", "coords", "too_few_axes"])
+    lambda: bk.bucket_accumulate(tgd.SECP256K1, _meta((4, 2, 16)), _meta((4, 3)), 4, 3),
+    lambda: bk.bucket_accumulate(tgd.SECP256K1, _meta((2, 4, 3, 16)), _meta((4, 2)), 4, 3),
+], ids=["limbs", "coords", "too_few_axes", "bucket_coords", "bucket_digits"])
 def test_wrappers_reject_operands_of_the_wrong_shape(call):
     """A tail that would broadcast (a size-1 limb or coordinate axis)
     is refused before any pointer reaches a kernel."""
@@ -96,7 +107,8 @@ def test_wrappers_reject_operands_of_the_wrong_shape(call):
 def test_unported_variants_raise():
     """A curve or field with no kernel raises before any launch: the
     one-launch Edwards window step, an Edwards curve with another d, a
-    field other than the four of csrc/field.cuh."""
+    24-limb curve, a field other than the four of csrc/field.cuh, a
+    bucket width the kernel does not take."""
     other = dataclasses.replace(ED, name="other", const=ED.const + 1)
     with pytest.raises(NotImplementedError, match="pt_window_step"):
         pk.pt_window_step(ED, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
@@ -105,9 +117,18 @@ def test_unported_variants_raise():
             pk.kernel_for(op, other)
     with pytest.raises(NotImplementedError):
         pk.pt_add(other, _meta((2, 4, 16)), _meta((2, 4, 16)))
+    for cs in (other, L24):
+        with pytest.raises(NotImplementedError, match="bucket_accumulate"):
+            bk.bucket_accumulate(cs, _meta((2, 5, cs.ncoords, cs.field.limbs)), _meta((5, 3)), 4, 3)
+    with pytest.raises(NotImplementedError, match="pt_add"):
+        pk.kernel_for("pt_add", L24)
+    with pytest.raises(ValueError, match="window"):
+        bk.bucket_accumulate(ED, _meta((2, 5, 4, 16)), _meta((5, 1)), 16, 1)
     with pytest.raises(NotImplementedError):
         fk.mod_madd(FieldSpec("other", (1 << 255) - 31, 16), _meta((2, 16)), _meta((2, 16)), _meta((2, 16)))
     assert pk.kernel_for("pt_add", ED) is pk.ED_PT_ADD and pk.kernel_for("pt_double", ED) is pk.PT_DOUBLE
+    assert bk.kernel_for(ED) is bk.ED_BUCKET_ACCUMULATE
+    assert bk.kernel_for(tgd.SECP256K1) is bk.BUCKET_ACCUMULATE
 
 
 def test_cpu_tensors_run_the_plain_versions_uncounted():
@@ -115,6 +136,11 @@ def test_cpu_tensors_run_the_plain_versions_uncounted():
     before = pk.PT_ADD.launches
     assert torch.equal(pk.pt_add(tgd.SECP256K1, p, p), pk.pt_add_plain(tgd.SECP256K1, p, p))
     assert pk.PT_ADD.launches == before
+    digits = torch.tensor([[0], [3]], dtype=torch.int32)  # (m, nw) = (2, 1)
+    before = bk.BUCKET_ACCUMULATE.launches
+    assert torch.equal(bk.bucket_accumulate(tgd.SECP256K1, p, digits, 4, 1),
+                       bk.bucket_accumulate_plain(tgd.SECP256K1, p, digits, 16))
+    assert bk.BUCKET_ACCUMULATE.launches == before
 
 
 def test_entry_points_default_to_cuda():
@@ -138,5 +164,5 @@ def test_library_path_tracks_sources():
     path = build.library_path("point_kernels.cu")
     assert path.parent == build.BUILD_DIR and path.name.startswith("point_kernels-")
     assert path != build.library_path("field_kernels.cu")
-    assert {k.source for k in (*fk.KERNELS, *pk.KERNELS)} == set(build.SOURCES)
+    assert {k.source for k in KERNELS} == set(build.SOURCES)
     assert str(build.BUILD_DIR).startswith(str(REPO / "build"))

@@ -3,9 +3,11 @@
 On the CPU: csrc/host_check.cpp, the kernels' per-lane bodies (the same
 field.cuh, point.cuh and edwards.cuh code the .cu kernels run), built
 with the host compiler and called lane by lane, at the field edge values
-(0, 1, m - 1, near 2**255 and 2**256 - 1) of all four fields.  On a CUDA machine (marker ``cuda``;
-skipped elsewhere): the kernels themselves, built with nvcc.  Both are
-held to the plain versions bit for bit."""
+(0, 1, m - 1, near 2**255 and 2**256 - 1) of all four fields, and the
+bucket kernels' per-bucket fold over every bucket of small scatter
+passes.  On a CUDA machine (marker ``cuda``; skipped elsewhere): the
+kernels themselves, built with nvcc.  Both are held to the plain versions
+bit for bit."""
 
 import ctypes
 import random
@@ -21,6 +23,7 @@ from dkg_tpu.fields import host as jfh
 from dkg_tpu.groups import host as jgh
 from dkg_tpu_torch.fields.spec import L25519, P25519, SECP256K1_N, SECP256K1_P
 from dkg_tpu_torch.groups import device as tgd
+from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import point_kernels as pk
@@ -108,6 +111,37 @@ NAMES = [*FIELD_CASES, "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add
          "ed_pt_ladder_mul_add"]
 
 
+# scatter passes: (curve, window, digits shared by the batch)
+BUCKET_CASES = [("secp256k1", 4, True), ("secp256k1", 8, False), ("ristretto255", 4, False),
+                ("ristretto255", 8, True)]
+BUCKET_IDS = [f"{c}-w{w}-{'shared' if s else 'per_row'}" for c, w, s in BUCKET_CASES]
+
+
+def _bucket_inputs(curve, window, shared):
+    """(cs, points (2, 9, C, L) with identities and edge scalings, int32
+    digits (9, 3) or (2, 9, 3) with digit-0 lanes, window, nw)."""
+    cs = ED if curve == "ristretto255" else CS
+    rows, m, nw = 2, 9, 3
+    pts = _points(curve, 40 + window, rows * m).reshape(rows, m, cs.ncoords, 16)
+    digs = np.random.default_rng(window).integers(0, 1 << window, size=(m, nw) if shared else (rows, m, nw))
+    digs[..., 0, :] = 0
+    digs[..., 4, 1] = 0
+    return cs, pts, _t(digs), window, nw
+
+
+@pytest.mark.parametrize("case", BUCKET_CASES, ids=BUCKET_IDS)
+def test_host_compiled_bucket_fold_matches_plain(host_lib, case):
+    cs, pts, digs, window, nw = _bucket_inputs(*case)
+    want = bk.bucket_accumulate_plain(cs, pts, digs, 1 << window)
+    out = torch.empty_like(want)
+    fn = getattr(host_lib, "host_ed_bucket_accumulate" if cs is ED else "host_bucket_accumulate")
+    fn.argtypes = [PTR, PTR, PTR, I64, I64, INT, INT, I64]
+    fn.restype = None
+    rows, m = pts.shape[:2]
+    fn(pts.data_ptr(), digs.data_ptr(), out.data_ptr(), rows, m, nw, window, 0 if digs.dim() == 2 else m * nw)
+    assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_host_compiled_lane_bodies_match_plain(host_lib, name):
     plain, ops, extra, host = _inputs(name)
@@ -183,3 +217,15 @@ def test_cuda_kernels_match_plain(cuda, name):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert torch.equal(got.cpu(), plain(*(o.cpu() for o in ops)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BUCKET_CASES, ids=BUCKET_IDS)
+def test_cuda_bucket_kernels_match_plain(cuda, case):
+    cs, pts, digs, window, nw = _bucket_inputs(*case)
+    kernel = bk.kernel_for(cs)
+    before = kernel.launches
+    got = bk.bucket_accumulate(cs, pts.to(cuda), digs.to(cuda), window, nw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got.cpu(), bk.bucket_accumulate_plain(cs, pts, digs, 1 << window))

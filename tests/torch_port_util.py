@@ -23,8 +23,13 @@ def field_ints(fs, seed: int, n: int) -> list:
     return (edges + [rng.randrange(p) for _ in range(n)])[:n]
 
 
-def field_limbs(fs, seed: int, n: int) -> np.ndarray:
-    return jfh.encode(fs, field_ints(fs, seed, n))
+def field_limbs(fs, seed: int, n: int, nbits: int | None = None) -> np.ndarray:
+    """``field_ints`` as limbs; with ``nbits`` (a multiple of 16), masked
+    to their low nbits bits, as the RLC's weights are."""
+    limbs = jfh.encode(fs, field_ints(fs, seed, n))
+    if nbits is not None:
+        limbs[:, nbits // 16:] = 0
+    return limbs
 
 
 def edge_ints(fs) -> list:
@@ -99,3 +104,8 @@ def to_torch(arr) -> torch.Tensor:
 def to_np(t: torch.Tensor) -> np.ndarray:
     """int32 tensor -> uint32 numpy, the JAX package's format."""
     return t.numpy().astype(np.uint32)
+
+
+def same(got: torch.Tensor, want) -> bool:
+    """An int32 port result equal, limb for limb, to a JAX package one."""
+    return got.dtype == torch.int32 and np.array_equal(to_np(got), np.asarray(want))
