@@ -1,6 +1,8 @@
 // bucket_accumulate: the scatter pass of Pippenger's MSM, on secp256k1
 // (RCB15 complete add, point.cuh) and edwards25519 (HWCD unified add,
-// edwards.cuh), one bucket per thread.
+// edwards.cuh), one bucket per thread: bucket.cuh's kernel instantiated
+// for each, under a C entry of its own.  The BLS12-381 G1 instance is in
+// bls_kernels.cu.
 //
 // Replaces: dkg_tpu/ops/pallas_mxu.py _bucket_call (the Pallas kernel
 // behind bucket_accumulate) for both curve kinds at 16 limbs.  Points
@@ -36,72 +38,24 @@
 
 #include "bucket.cuh"
 
-namespace {
-
 using namespace dkg;
-
-constexpr int kRows = 32;                  // batch rows of a block: one warp's lanes
-constexpr int kMaxThreads = kRows * 8;     // and up to 8 buckets of one window
-
-template <class K>
-__device__ __forceinline__ void bucket_thread(const int32_t* __restrict__ pts,
-                                              const int32_t* __restrict__ digits,
-                                              int32_t* __restrict__ out, int64_t batch, int64_t m,
-                                              int nw, int window, int64_t dig_batch_stride) {
-  const int64_t b = (int64_t)blockIdx.x * kRows + threadIdx.x;
-  const int w = blockIdx.y;
-  const int e = blockIdx.z * blockDim.y + threadIdx.y;
-  if (b >= batch) return;
-  typename K::P acc;
-  K::identity(acc);
-  bucket_fold<K>(acc, pts + b * m * K::kPointWords, digits + b * dig_batch_stride + w, nw, m, e);
-  K::store(out + ((b * nw + w) * ((int64_t)1 << window) + e) * K::kPointWords, acc);
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-    ws_bucket_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ digits,
-                     int32_t* __restrict__ out, int64_t batch, int64_t m, int nw, int window,
-                     int64_t dig_batch_stride) {
-  bucket_thread<WsCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-    ed_bucket_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ digits,
-                     int32_t* __restrict__ out, int64_t batch, int64_t m, int nw, int window,
-                     int64_t dig_batch_stride) {
-  bucket_thread<EdCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
-}
-
-}  // namespace
 
 extern "C" {
 
-// kind: 0 = secp256k1 (3 coordinates), 1 = edwards25519 (4 coordinates).
 // window must be 1, 2, 4 or 8; dig_batch_stride is 0 for digits shared by
 // the batch, m * nw for one (m, nw) block per batch row.
 int dkg_bucket_accumulate(const int32_t* pts, const int32_t* digits, int32_t* out, int64_t batch,
-                          int64_t m, int nw, int window, int64_t dig_batch_stride, int kind,
-                          void* stream) {
-  if (batch <= 0 || nw <= 0) return 0;
-  if (m < 0 || nw > 65535 || (window != 1 && window != 2 && window != 4 && window != 8))
-    return (int)cudaErrorInvalidValue;
-  const int entries = 1 << window;
-  const int per_block = entries < 8 ? entries : 8;  // buckets of a block
-  const int64_t row_blocks = (batch + kRows - 1) / kRows;
-  if (row_blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)row_blocks, (unsigned)nw, (unsigned)(entries / per_block));
-  const dim3 block(kRows, per_block);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 0) {
-    ws_bucket_kernel<<<grid, block, 0, s>>>(pts, digits, out, batch, m, nw, window,
-                                            dig_batch_stride);
-  } else if (kind == 1) {
-    ed_bucket_kernel<<<grid, block, 0, s>>>(pts, digits, out, batch, m, nw, window,
-                                            dig_batch_stride);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                          int64_t m, int nw, int window, int64_t dig_batch_stride, void* stream) {
+  return bucket_launch<SecpCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride,
+                                  (cudaStream_t)stream);
+}
+
+// As dkg_bucket_accumulate, for edwards25519 points.
+int dkg_ed_bucket_accumulate(const int32_t* pts, const int32_t* digits, int32_t* out,
+                             int64_t batch, int64_t m, int nw, int window,
+                             int64_t dig_batch_stride, void* stream) {
+  return bucket_launch<EdCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride,
+                                (cudaStream_t)stream);
 }
 
 const char* dkg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -20,26 +20,21 @@
 // Pallas kernel keeps it in VMEM), one lane per thread, no shared memory.
 // The window step gives it t + 1 = 86 lanes at the ristretto255 n = 256
 // path's shape: one block of the card's 132 SMs, a latency figure.
+//
+// Each curve has its own C entry: dkg_pt_double runs point_kernels.cuh's
+// doubling kernel instantiated for secp256k1, dkg_ed_pt_double the
+// Edwards one below.
 #include <cuda_runtime.h>
 
 #include "edwards.cuh"
 #include "lanes.cuh"
-#include "point.cuh"
+#include "point_kernels.cuh"
 
 namespace {
 
 using namespace dkg;
 
-constexpr int kWsPointWords = kCoords * kLimbs;    // 48
-constexpr int kEdPointWords = kEdCoords * kLimbs;  // 64
-
-__global__ void __launch_bounds__(kThreads)
-    pt_double_kernel(const int32_t* __restrict__ p, int32_t* __restrict__ out, int64_t n,
-                     int n_doubles) {
-  DKG_LANES(lane, n) {
-    double_lane(p + lane * kWsPointWords, n_doubles, out + lane * kWsPointWords);
-  }
-}
+constexpr int kEdPointWords = kEdCoords * kEdLimbs;  // 64
 
 __global__ void __launch_bounds__(kThreads)
     ed_pt_double_kernel(const int32_t* __restrict__ p, int32_t* __restrict__ out, int64_t n,
@@ -53,19 +48,15 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// kind: 0 = secp256k1 (3 coordinates), 1 = edwards25519 (4 coordinates).
-int dkg_pt_double(const int32_t* p, int32_t* out, int64_t n, int n_doubles, int kind,
-                  void* stream) {
+int dkg_pt_double(const int32_t* p, int32_t* out, int64_t n, int n_doubles, void* stream) {
+  return dkg::launch_pt_double<dkg::Secp256k1>(p, out, n, n_doubles, stream);
+}
+
+int dkg_ed_pt_double(const int32_t* p, int32_t* out, int64_t n, int n_doubles, void* stream) {
   if (n <= 0) return 0;
   if (n_doubles < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 0) {
-    pt_double_kernel<<<blocks_for(n), kThreads, 0, s>>>(p, out, n, n_doubles);
-  } else if (kind == 1) {
-    ed_pt_double_kernel<<<blocks_for(n), kThreads, 0, s>>>(p, out, n, n_doubles);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  ed_pt_double_kernel<<<dkg::blocks_for(n), dkg::kThreads, 0, (cudaStream_t)stream>>>(
+      p, out, n, n_doubles);
   return (int)cudaGetLastError();
 }
 

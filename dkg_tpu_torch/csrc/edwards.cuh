@@ -23,34 +23,36 @@
 namespace dkg {
 
 constexpr int kEdCoords = 4;  // X, Y, Z, T
+constexpr int kEdN = Field<kEdP>::N;  // 8 words a coordinate
+constexpr int kEdLimbs = 2 * kEdN;     // 16 limbs a stored coordinate
 
 // 2d mod p, d = -121665/121666 (the CurveSpec's const)
-__constant__ uint32_t kEd2D[kWords] = {
+__constant__ uint32_t kEd2D[kEdN] = {
     0x26B2F159u, 0xEBD69B94u, 0x8283B156u, 0x00E0149Au,
     0xEEF3D130u, 0x198E80F2u, 0x56DFFCE7u, 0x2406D9DCu,
 };
 
 struct EdPoint {
-  uint32_t x[kWords], y[kWords], z[kWords], t[kWords];
+  uint32_t x[kEdN], y[kEdN], z[kEdN], t[kEdN];
 };
 
 __device__ __forceinline__ void load_ed(const int32_t* src, EdPoint& p) {
-  load16(src, p.x);
-  load16(src + kLimbs, p.y);
-  load16(src + 2 * kLimbs, p.z);
-  load16(src + 3 * kLimbs, p.t);
+  load_elem<kEdN>(src, p.x);
+  load_elem<kEdN>(src + kEdLimbs, p.y);
+  load_elem<kEdN>(src + 2 * kEdLimbs, p.z);
+  load_elem<kEdN>(src + 3 * kEdLimbs, p.t);
 }
 
 __device__ __forceinline__ void store_ed(int32_t* dst, const EdPoint& p) {
-  store16(dst, p.x);
-  store16(dst + kLimbs, p.y);
-  store16(dst + 2 * kLimbs, p.z);
-  store16(dst + 3 * kLimbs, p.t);
+  store_elem<kEdN>(dst, p.x);
+  store_elem<kEdN>(dst + kEdLimbs, p.y);
+  store_elem<kEdN>(dst + 2 * kEdLimbs, p.z);
+  store_elem<kEdN>(dst + 3 * kEdLimbs, p.t);
 }
 
 __device__ __forceinline__ void ed_set_identity(EdPoint& p) {
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
+  for (int k = 0; k < kEdN; ++k) {
     p.x[k] = 0;
     p.y[k] = 0;
     p.z[k] = 0;
@@ -62,11 +64,11 @@ __device__ __forceinline__ void ed_set_identity(EdPoint& p) {
 
 // The shared tail of add and madd: (E, F, G, H) = (B - A, D - C, D + C,
 // B + A), then X = E F, Y = G H, Z = F G, T = E H.
-__device__ __forceinline__ void ed_finish(EdPoint& o, const uint32_t a[kWords],
-                                          const uint32_t b[kWords], const uint32_t c[kWords],
-                                          const uint32_t d[kWords]) {
+__device__ __forceinline__ void ed_finish(EdPoint& o, const uint32_t a[kEdN],
+                                          const uint32_t b[kEdN], const uint32_t c[kEdN],
+                                          const uint32_t d[kEdN]) {
   constexpr int F = kEdP;
-  uint32_t e[kWords], f[kWords], g[kWords], h[kWords];
+  uint32_t e[kEdN], f[kEdN], g[kEdN], h[kEdN];
   fsub<F>(e, b, a);
   fsub<F>(f, d, c);
   fadd<F>(g, d, c);
@@ -78,12 +80,12 @@ __device__ __forceinline__ void ed_finish(EdPoint& o, const uint32_t a[kWords],
 }
 
 // C = (T1 * 2d) * T2
-__device__ __forceinline__ void ed_c(uint32_t c[kWords], const uint32_t t1[kWords],
-                                     const uint32_t t2[kWords]) {
+__device__ __forceinline__ void ed_c(uint32_t c[kEdN], const uint32_t t1[kEdN],
+                                     const uint32_t t2[kEdN]) {
   constexpr int F = kEdP;
-  uint32_t k2d[kWords];
+  uint32_t k2d[kEdN];
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) k2d[k] = kEd2D[k];
+  for (int k = 0; k < kEdN; ++k) k2d[k] = kEd2D[k];
   fmul<F>(c, t1, k2d);
   fmul<F>(c, c, t2);
 }
@@ -91,7 +93,7 @@ __device__ __forceinline__ void ed_c(uint32_t c[kWords], const uint32_t t1[kWord
 // add-2008-hwcd-3, unified.  o may alias p or q.
 __device__ __forceinline__ void ed_add(EdPoint& o, const EdPoint& p, const EdPoint& q) {
   constexpr int F = kEdP;
-  uint32_t a[kWords], b[kWords], c[kWords], d[kWords], u[kWords], v[kWords];
+  uint32_t a[kEdN], b[kEdN], c[kEdN], d[kEdN], u[kEdN], v[kEdN];
   fsub<F>(u, p.y, p.x);
   fsub<F>(v, q.y, q.x);
   fmul<F>(a, u, v);  // A = (Y1 - X1)(Y2 - X2)
@@ -107,7 +109,7 @@ __device__ __forceinline__ void ed_add(EdPoint& o, const EdPoint& p, const EdPoi
 // Mixed unified addition, q affine (Z2 = 1): D = 2 Z1.  o may alias p.
 __device__ __forceinline__ void ed_madd(EdPoint& o, const EdPoint& p, const EdPoint& q) {
   constexpr int F = kEdP;
-  uint32_t a[kWords], b[kWords], c[kWords], d[kWords], u[kWords], v[kWords];
+  uint32_t a[kEdN], b[kEdN], c[kEdN], d[kEdN], u[kEdN], v[kEdN];
   fsub<F>(u, p.y, p.x);
   fsub<F>(v, q.y, q.x);
   fmul<F>(a, u, v);
@@ -123,14 +125,14 @@ __device__ __forceinline__ void ed_madd(EdPoint& o, const EdPoint& p, const EdPo
 // E = (X + Y)^2 - A - B, G = D + B, H = D - B, F = G - C.
 __device__ __forceinline__ void ed_double(EdPoint& p) {
   constexpr int F = kEdP;
-  uint32_t a[kWords], b[kWords], c[kWords], d[kWords], e[kWords], f[kWords], g[kWords],
-      h[kWords];
+  uint32_t a[kEdN], b[kEdN], c[kEdN], d[kEdN], e[kEdN], f[kEdN], g[kEdN],
+      h[kEdN];
   fmul<F>(a, p.x, p.x);
   fmul<F>(b, p.y, p.y);
   fmul<F>(c, p.z, p.z);
   fadd<F>(c, c, c);
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) d[k] = 0;
+  for (int k = 0; k < kEdN; ++k) d[k] = 0;
   fsub<F>(d, d, a);
   fadd<F>(e, p.x, p.y);
   fmul<F>(e, e, e);
@@ -151,7 +153,7 @@ __device__ __forceinline__ void ed_select(EdPoint& o, bool take_a, const EdPoint
                                           const EdPoint& b) {
   const uint32_t mk = 0u - (uint32_t)take_a;
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) {
+  for (int k = 0; k < kEdN; ++k) {
     o.x[k] = (a.x[k] & mk) | (b.x[k] & ~mk);
     o.y[k] = (a.y[k] & mk) | (b.y[k] & ~mk);
     o.z[k] = (a.z[k] & mk) | (b.z[k] & ~mk);

@@ -36,7 +36,7 @@ namespace {
 
 using namespace dkg;
 
-constexpr int kPointWords = kEdCoords * kLimbs;  // int32 words per stored point
+constexpr int kPointWords = kEdCoords * kEdLimbs;  // int32 words per stored point
 
 __global__ void __launch_bounds__(kThreads)
     ed_pt_add_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,

@@ -3,32 +3,35 @@
 // compiler (g++ -O1 -shared -fPIC) and hold every entry against the plain
 // PyTorch version of its kernel: it runs the same field.cuh, point.cuh,
 // edwards.cuh and bucket.cuh code that field_kernels.cu, point_kernels.cu,
-// edwards_kernels.cu, double_kernels.cu and bucket_kernels.cu run on the
-// card, the three reductions (fold at 2^256, fold at 2^255, Barrett)
-// included.
+// edwards_kernels.cu, double_kernels.cu, bucket_kernels.cu and
+// bls_kernels.cu run on the card, the three reductions (fold at 2^256,
+// fold at 2^255, Barrett at 8 and 12 words) included.
 #include "bucket.cuh"
 
 using namespace dkg;
 
 namespace {
-constexpr int kPointWords = kCoords * kLimbs;
-constexpr int kEdPointWords = kEdCoords * kLimbs;
+template <class C>
+constexpr int kPW = point_words<C>();
+constexpr int kEdPointWords = kEdCoords * kEdLimbs;
 
 template <int F>
 void mod_madd_lanes(const int32_t* a, const int32_t* b, const int32_t* c, int32_t* out,
                     int64_t n) {
+  constexpr int N = Field<F>::N;
   for (int64_t lane = 0; lane < n; ++lane) {
-    uint32_t x[kWords], y[kWords], z[kWords], r[kWords];
-    load16(a + lane * kLimbs, x);
-    load16(b + lane * kLimbs, y);
-    load16(c + lane * kLimbs, z);
+    uint32_t x[N], y[N], z[N], r[N];
+    load_elem<N>(a + lane * 2 * N, x);
+    load_elem<N>(b + lane * 2 * N, y);
+    load_elem<N>(c + lane * 2 * N, z);
     fmadd<F>(r, x, y, z);
-    store16(out + lane * kLimbs, r);
+    store_elem<N>(out + lane * 2 * N, r);
   }
 }
 
-// Every bucket (b, w, e) of bucket_kernels.cu, one after another: the
-// same bucket_fold over the whole digit column of window w.
+// Every bucket (b, w, e) of bucket_kernels.cu and bls_kernels.cu, one
+// after another: the same bucket_fold over the whole digit column of
+// window w.
 template <class K>
 void bucket_lanes(const int32_t* pts, const int32_t* digits, int32_t* out, int64_t batch,
                   int64_t m, int nw, int window, int64_t dig_batch_stride) {
@@ -43,6 +46,40 @@ void bucket_lanes(const int32_t* pts, const int32_t* digits, int32_t* out, int64
         K::store(out + ((b * nw + w) * entries + e) * K::kPointWords, acc);
       }
 }
+
+template <class C>
+void add_lanes(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  for (int64_t lane = 0; lane < n; ++lane)
+    add_lane<C>(p + lane * kPW<C>, q + lane * kPW<C>, out + lane * kPW<C>);
+}
+
+template <class C>
+void madd_lanes(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  for (int64_t lane = 0; lane < n; ++lane)
+    madd_lane<C>(p + lane * kPW<C>, q + lane * kPW<C>, out + lane * kPW<C>);
+}
+
+template <class C>
+void window_step_lanes(const int32_t* acc, const int32_t* entry, int32_t* out, int64_t n,
+                       int n_doubles) {
+  for (int64_t lane = 0; lane < n; ++lane)
+    window_step_lane<C>(acc + lane * kPW<C>, entry + lane * kPW<C>, n_doubles,
+                        out + lane * kPW<C>);
+}
+
+template <class C>
+void ladder_lanes(const int32_t* p, const int32_t* addend, const int32_t* x, int32_t* out,
+                  int64_t n, int nbits) {
+  for (int64_t lane = 0; lane < n; ++lane)
+    ladder_lane<C>(p + lane * kPW<C>, addend + lane * kPW<C>, (uint32_t)x[lane], nbits,
+                   out + lane * kPW<C>);
+}
+
+template <class C>
+void double_lanes(const int32_t* p, int32_t* out, int64_t n, int n_doubles) {
+  for (int64_t lane = 0; lane < n; ++lane)
+    double_lane<C>(p + lane * kPW<C>, n_doubles, out + lane * kPW<C>);
+}
 }  // namespace
 
 extern "C" {
@@ -55,37 +92,54 @@ int host_mod_madd(const int32_t* a, const int32_t* b, const int32_t* c, int32_t*
     case kSecpN: mod_madd_lanes<kSecpN>(a, b, c, out, n); return 0;
     case kEdP: mod_madd_lanes<kEdP>(a, b, c, out, n); return 0;
     case kEdL: mod_madd_lanes<kEdL>(a, b, c, out, n); return 0;
+    case kBlsP: mod_madd_lanes<kBlsP>(a, b, c, out, n); return 0;
+    case kBlsR: mod_madd_lanes<kBlsR>(a, b, c, out, n); return 0;
     default: return 1;
   }
 }
 
 void host_pt_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
-  for (int64_t lane = 0; lane < n; ++lane)
-    add_lane(p + lane * kPointWords, q + lane * kPointWords, out + lane * kPointWords);
+  add_lanes<Secp256k1>(p, q, out, n);
 }
 
 void host_pt_madd(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
-  for (int64_t lane = 0; lane < n; ++lane)
-    madd_lane(p + lane * kPointWords, q + lane * kPointWords, out + lane * kPointWords);
+  madd_lanes<Secp256k1>(p, q, out, n);
 }
 
 void host_pt_window_step(const int32_t* acc, const int32_t* entry, int32_t* out, int64_t n,
                          int n_doubles) {
-  for (int64_t lane = 0; lane < n; ++lane)
-    window_step_lane(acc + lane * kPointWords, entry + lane * kPointWords, n_doubles,
-                     out + lane * kPointWords);
+  window_step_lanes<Secp256k1>(acc, entry, out, n, n_doubles);
 }
 
 void host_pt_ladder_mul_add(const int32_t* p, const int32_t* addend, const int32_t* x,
                             int32_t* out, int64_t n, int nbits) {
-  for (int64_t lane = 0; lane < n; ++lane)
-    ladder_lane(p + lane * kPointWords, addend + lane * kPointWords, (uint32_t)x[lane], nbits,
-                out + lane * kPointWords);
+  ladder_lanes<Secp256k1>(p, addend, x, out, n, nbits);
 }
 
 void host_pt_double(const int32_t* p, int32_t* out, int64_t n, int n_doubles) {
-  for (int64_t lane = 0; lane < n; ++lane)
-    double_lane(p + lane * kPointWords, n_doubles, out + lane * kPointWords);
+  double_lanes<Secp256k1>(p, out, n, n_doubles);
+}
+
+void host_bls_pt_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  add_lanes<Bls12381>(p, q, out, n);
+}
+
+void host_bls_pt_madd(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
+  madd_lanes<Bls12381>(p, q, out, n);
+}
+
+void host_bls_pt_window_step(const int32_t* acc, const int32_t* entry, int32_t* out, int64_t n,
+                             int n_doubles) {
+  window_step_lanes<Bls12381>(acc, entry, out, n, n_doubles);
+}
+
+void host_bls_pt_ladder_mul_add(const int32_t* p, const int32_t* addend, const int32_t* x,
+                                int32_t* out, int64_t n, int nbits) {
+  ladder_lanes<Bls12381>(p, addend, x, out, n, nbits);
+}
+
+void host_bls_pt_double(const int32_t* p, int32_t* out, int64_t n, int n_doubles) {
+  double_lanes<Bls12381>(p, out, n, n_doubles);
 }
 
 void host_ed_pt_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n) {
@@ -113,13 +167,19 @@ void host_ed_pt_ladder_mul_add(const int32_t* p, const int32_t* addend, const in
 void host_bucket_accumulate(const int32_t* pts, const int32_t* digits, int32_t* out,
                             int64_t batch, int64_t m, int nw, int window,
                             int64_t dig_batch_stride) {
-  bucket_lanes<WsCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
+  bucket_lanes<SecpCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
 }
 
 void host_ed_bucket_accumulate(const int32_t* pts, const int32_t* digits, int32_t* out,
                                int64_t batch, int64_t m, int nw, int window,
                                int64_t dig_batch_stride) {
   bucket_lanes<EdCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
+}
+
+void host_bls_bucket_accumulate(const int32_t* pts, const int32_t* digits, int32_t* out,
+                                int64_t batch, int64_t m, int nw, int window,
+                                int64_t dig_batch_stride) {
+  bucket_lanes<BlsCurve>(pts, digits, out, batch, m, nw, window, dig_batch_stride);
 }
 
 }  // extern "C"

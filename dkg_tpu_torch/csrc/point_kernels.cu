@@ -1,5 +1,8 @@
 // Complete projective point kernels on secp256k1, one point per thread:
-// pt_add, pt_madd, pt_window_step and pt_ladder_mul_add.
+// pt_add, pt_madd, pt_window_step and pt_ladder_mul_add, the kernels of
+// point_kernels.cuh instantiated for the Secp256k1 curve of point.cuh.
+// Its pt_double is in double_kernels.cu, and the BLS12-381 G1 instances
+// of the same kernels are in bls_kernels.cu.
 //
 // Replaces: dkg_tpu/ops/pallas_point.py _add_call, _madd_call,
 // _window_call and _ladder_call (the Pallas kernels behind pt_add,
@@ -36,84 +39,28 @@
 // The ladder is launched once per Horner step of eval_point_poly, over
 // n = 1024 lanes at the ceremony's shape: 8 blocks of 128 threads on a
 // 132-SM card, so one launch leaves most of the card idle.
-#include <cuda_runtime.h>
-
-#include "lanes.cuh"
-#include "point.cuh"
-
-namespace {
+#include "point_kernels.cuh"
 
 using namespace dkg;
-
-constexpr int kPointWords = kCoords * kLimbs;  // int32 words per stored point
-
-__global__ void __launch_bounds__(kThreads)
-    pt_add_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
-                  int32_t* __restrict__ out, int64_t n) {
-  DKG_LANES(lane, n) {
-    add_lane(p + lane * kPointWords, q + lane * kPointWords, out + lane * kPointWords);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    pt_madd_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
-                   int32_t* __restrict__ out, int64_t n) {
-  DKG_LANES(lane, n) {
-    madd_lane(p + lane * kPointWords, q + lane * kPointWords, out + lane * kPointWords);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    pt_window_step_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ entry,
-                          int32_t* __restrict__ out, int64_t n, int n_doubles) {
-  DKG_LANES(lane, n) {
-    window_step_lane(acc + lane * kPointWords, entry + lane * kPointWords, n_doubles,
-                     out + lane * kPointWords);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    pt_ladder_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ addend,
-                     const int32_t* __restrict__ x, int32_t* __restrict__ out, int64_t n,
-                     int nbits) {
-  DKG_LANES(lane, n) {
-    ladder_lane(p + lane * kPointWords, addend + lane * kPointWords, (uint32_t)x[lane], nbits,
-                out + lane * kPointWords);
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
 int dkg_pt_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n, void* stream) {
-  if (n <= 0) return 0;
-  pt_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(p, q, out, n);
-  return (int)cudaGetLastError();
+  return launch_pt_add<Secp256k1>(p, q, out, n, stream);
 }
 
 int dkg_pt_madd(const int32_t* p, const int32_t* q, int32_t* out, int64_t n, void* stream) {
-  if (n <= 0) return 0;
-  pt_madd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(p, q, out, n);
-  return (int)cudaGetLastError();
+  return launch_pt_madd<Secp256k1>(p, q, out, n, stream);
 }
 
 int dkg_pt_window_step(const int32_t* acc, const int32_t* entry, int32_t* out, int64_t n,
                        int n_doubles, void* stream) {
-  if (n <= 0) return 0;
-  if (n_doubles < 0) return (int)cudaErrorInvalidValue;
-  pt_window_step_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(acc, entry, out, n,
-                                                                              n_doubles);
-  return (int)cudaGetLastError();
+  return launch_pt_window_step<Secp256k1>(acc, entry, out, n, n_doubles, stream);
 }
 
 int dkg_pt_ladder_mul_add(const int32_t* p, const int32_t* addend, const int32_t* x,
                           int32_t* out, int64_t n, int nbits, void* stream) {
-  if (n <= 0) return 0;
-  if (nbits < 0 || nbits > 31) return (int)cudaErrorInvalidValue;
-  pt_ladder_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(p, addend, x, out, n,
-                                                                         nbits);
-  return (int)cudaGetLastError();
+  return launch_pt_ladder_mul_add<Secp256k1>(p, addend, x, out, n, nbits, stream);
 }
 
 const char* dkg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -7,8 +7,10 @@ limb is < 2**16, so the values are exact, and PyTorch's CPU build has
 signed ``add`` and ``>>`` where it has none for ``uint32``.  The CUDA
 kernels read the same memory as ``uint32_t``.
 
-Only what the secp256k1 ceremony slice needs is here: the moduli, the
-Barrett constants the plain multiply uses, and the limb conversions.
+What the ported ceremonies need is here: the moduli of secp256k1,
+ristretto255 and BLS12-381 G1 (its 381-bit base field takes L = 24
+limbs), the Barrett constants the plain multiply uses, and the limb
+conversions.
 """
 
 from __future__ import annotations
@@ -105,4 +107,17 @@ SECP256K1_N = FieldSpec(
     16,
 )
 
-ALL_FIELDS = {fs.name: fs for fs in (P25519, L25519, SECP256K1_P, SECP256K1_N)}
+BLS12_381_P = FieldSpec(
+    "bls12_381_base",
+    0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB,
+    24,
+)
+BLS12_381_R = FieldSpec(
+    "bls12_381_scalar",
+    0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
+    16,
+)
+
+ALL_FIELDS = {
+    fs.name: fs for fs in (P25519, L25519, SECP256K1_P, SECP256K1_N, BLS12_381_P, BLS12_381_R)
+}

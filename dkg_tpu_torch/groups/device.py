@@ -63,7 +63,16 @@ RISTRETTO255 = CurveSpec(
     (gh.BASE_X, gh.BASE_Y),
 )
 
-ALL_CURVES = {c.name: c for c in (SECP256K1, RISTRETTO255)}
+BLS12_381_G1 = CurveSpec(
+    "bls12_381_g1",
+    "weierstrass_a0",
+    gh.BLS12_381_G1.base_field,
+    gh.BLS12_381_G1.scalar_field,
+    12,
+    (gh.BLS12_381_G1.gen_x, gh.BLS12_381_G1.gen_y),
+)
+
+ALL_CURVES = {c.name: c for c in (SECP256K1, RISTRETTO255, BLS12_381_G1)}
 
 
 # ---------------------------------------------------------------------------

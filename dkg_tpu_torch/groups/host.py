@@ -1,9 +1,10 @@
 """Host-side (Python-int) group arithmetic for the ceremony slices.
 
 A JAX-free copy of what the port needs from ``dkg_tpu/groups/host.py``:
-the short Weierstrass a=0 group secp256k1 (complete RCB15 addition,
-scalar multiplication, SEC encoding, try-and-increment hash-to-curve
-for the Pedersen base ``h``) and the ristretto255 group over
+the short Weierstrass a=0 groups secp256k1 and BLS12-381 G1 (complete
+RCB15 addition, scalar multiplication, SEC-style encoding and decoding,
+try-and-increment hash-to-curve with cofactor clearing for the Pedersen
+base ``h``, the subgroup check) and the ristretto255 group over
 edwards25519 (unified extended addition, the RFC 9496 encode, decode,
 equality and one-way map, hash-to-group for ``h``).  Scalar
 multiplication is the pure-Python fixed-length Montgomery ladder (the
@@ -230,7 +231,7 @@ def _ladder(group, k: int, p):
 
 
 def _sqrt_mod(a: int, p: int) -> Optional[int]:
-    """Square root mod p for p % 4 == 3 (secp256k1)."""
+    """Square root mod p for p % 4 == 3 (secp256k1, BLS12-381)."""
     if p % 4 != 3:
         raise ValueError("_sqrt_mod needs p % 4 == 3")
     r = pow(a, (p + 1) // 4, p)
@@ -239,8 +240,11 @@ def _sqrt_mod(a: int, p: int) -> Optional[int]:
 
 @dataclass(frozen=True)
 class WeierstrassGroup:
-    """y^2 = x^3 + b over F_p, prime order n (a = 0), cofactor 1, with the
-    compressed SEC encoding (parity byte || big-endian x)."""
+    """y^2 = x^3 + b over F_p (a = 0), the group of prime order n generated
+    by (gen_x, gen_y), with the compressed SEC-style encoding (parity byte
+    || big-endian x).  ``cofactor`` is the curve's order over n: 1 for
+    secp256k1; BLS12-381 G1 clears its cofactor on hash and checks the
+    subgroup on decode."""
 
     name: str
     base_field: FieldSpec
@@ -248,6 +252,7 @@ class WeierstrassGroup:
     b: int
     gen_x: int
     gen_y: int
+    cofactor: int = 1
 
     @property
     def prime(self) -> int:
@@ -287,6 +292,29 @@ class WeierstrassGroup:
         x, y = aff
         return bytes([2 + (y & 1)]) + x.to_bytes(nb, "big")
 
+    def decode(self, data: bytes):
+        """The affine point of an :meth:`encode` output; None for a bad
+        length or tag, an x off the curve or not below p, or (cofactor
+        above 1) a point outside the order-n subgroup."""
+        nb = self.base_field.nbytes
+        if len(data) != 1 + nb:
+            return None
+        if data == bytes(1 + nb):
+            return self.identity()
+        tag = data[0]
+        if tag not in (2, 3):
+            return None
+        x = int.from_bytes(data[1:], "big")
+        if x >= self.prime:
+            return None
+        y = self.lift_x(x, tag & 1)
+        if y is None:
+            return None
+        pt = (x, y, 1)
+        if self.cofactor != 1 and not self.in_subgroup(pt):
+            return None
+        return pt
+
     def lift_x(self, x: int, parity: int) -> Optional[int]:
         rhs = (x * x % self.prime * x + self.b) % self.prime
         y = _sqrt_mod(rhs, self.prime)
@@ -296,8 +324,27 @@ class WeierstrassGroup:
             y = self.prime - y
         return y
 
+    def in_subgroup(self, p) -> bool:
+        """n·P is the identity."""
+        return ws_eq(self.mul_int(self.scalar_field.modulus, p), self.identity(), self.prime)
+
+    def mul_int(self, k: int, p):
+        """k·P for any non-negative integer k (not reduced mod n), by
+        double-and-add from the low bit: the JAX package's ``_mul_int``,
+        whose projective coordinates the commitment key inherits."""
+        acc, base = self.identity(), p
+        while k:
+            if k & 1:
+                acc = self.add(acc, base)
+            base = self.add(base, base)
+            k >>= 1
+        return acc
+
     def hash_to_group(self, data: bytes, domain: bytes = b""):
-        """Try-and-increment (public inputs only: the commitment key)."""
+        """Try-and-increment with cofactor clearing (public inputs only:
+        the commitment key).  The first x with a square root gives the
+        point (x, y even); its cofactor multiple is returned unless it is
+        the identity."""
         ctr = 0
         while True:
             h = hashlib.blake2b(
@@ -308,9 +355,9 @@ class WeierstrassGroup:
             x = int.from_bytes(h, "little") % self.prime
             y = self.lift_x(x, 0)
             if y is not None:
-                # cofactor clearing by 1 (identity + P), kept so the
-                # projective coordinates equal the JAX package's
-                return self.add(self.identity(), (x, y, 1))
+                pt = self.mul_int(self.cofactor, (x, y, 1))
+                if not self.eq(pt, self.identity()):
+                    return pt
             ctr += 1
 
 
@@ -368,4 +415,14 @@ SECP256K1 = WeierstrassGroup(
     gen_y=0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8,
 )
 
-ALL_GROUPS = {g.name: g for g in (RISTRETTO255, SECP256K1)}
+BLS12_381_G1 = WeierstrassGroup(
+    "bls12_381_g1",
+    fspec.BLS12_381_P,
+    fspec.BLS12_381_R,
+    b=4,
+    gen_x=0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB,
+    gen_y=0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1,
+    cofactor=0x396C8C005555E1568C00AAAB0000AAAB,
+)
+
+ALL_GROUPS = {g.name: g for g in (RISTRETTO255, SECP256K1, BLS12_381_G1)}

@@ -1,16 +1,18 @@
-"""Time ``bucket_accumulate`` alone at the point RLC's two path shapes.
+"""Time ``bucket_accumulate`` alone at the point RLC's three path shapes.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 -m dkg_tpu_torch.ops.bucket_bench
 
-It builds ``csrc/bucket_kernels.cu`` only, makes the scatter's inputs
-from a fixed numpy seed (random limbs below p in every coordinate, and
-the digits of 128-bit weights shared by every column, as the RLC passes
-them): secp256k1 342 columns of 1024 points at c = 8, ristretto255 86
-columns of 256 at c = 4.  It times 5 wrapper calls after one warm-up by
-CUDA events and prints one JSON line: the card, ptxas's register and
-spill lines, and per path the ms and a digest of the buckets.  To compare
+It builds the two sources with bucket kernels (``csrc/bucket_kernels.cu``,
+``csrc/bls_kernels.cu``), makes the scatter's inputs from a fixed numpy
+seed (random limbs below p in every coordinate, and the digits of 128-bit
+weights shared by every column, as the RLC passes them): secp256k1 342
+columns of 1024 points at c = 8, ristretto255 86 columns of 256 at c = 4,
+BLS12-381 G1 342 columns of 1024 at c = 8.  It times 5 wrapper calls
+after one warm-up by CUDA events and prints one JSON line: the card,
+ptxas's register and spill lines, and per path the ms and a digest of
+the buckets.  To compare
 two versions of the kernel, run it in both checkouts on the same card,
 alternating (old, new, new, old): equal digests say the buckets are the
 same bit for bit.
@@ -29,7 +31,9 @@ from ..groups import device as gd
 from . import bucket_kernels as bk
 from . import build
 
-PATHS = (("secp256k1", 342, 1024), ("ristretto255", 86, 256))  # (curve, columns, m)
+# (curve, columns, m)
+PATHS = (("secp256k1", 342, 1024), ("ristretto255", 86, 256), ("bls12_381_g1", 342, 1024))
+SOURCES = ("bucket_kernels.cu", "bls_kernels.cu")
 RHO_BITS = 128
 REPS = 5
 
@@ -48,8 +52,8 @@ def scatter_inputs(rng, cs, cols: int, m: int):
 
 
 def main() -> None:
-    build.build(("bucket_kernels.cu",))
-    log = build.BUILD_LOGS.get("bucket_kernels.cu", "")
+    build.build(SOURCES)
+    log = "\n".join(build.BUILD_LOGS.get(src, "") for src in SOURCES)
     res = {"ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]}
     rng = np.random.default_rng(7)
     for curve, cols, m in PATHS:

@@ -7,9 +7,10 @@ m points, of those whose window-w digit is e, starting from the
 identity.  Digit-0 points land in bucket 0 and stay there (the bucket
 close ignores it).
 
-On a CUDA tensor :func:`bucket_accumulate` launches
-``csrc/bucket_kernels.cu`` for the points' curve (secp256k1's
-``bucket_accumulate``, edwards25519's ``bucket_accumulate[edwards]``; any
+On a CUDA tensor :func:`bucket_accumulate` launches the kernel of the
+points' curve (secp256k1's ``bucket_accumulate`` and edwards25519's
+``bucket_accumulate[edwards]`` in ``csrc/bucket_kernels.cu``, BLS12-381
+G1's ``bucket_accumulate[bls12_381]`` in ``csrc/bls_kernels.cu``; any
 other curve raises); on a CPU tensor it runs
 :func:`bucket_accumulate_plain`, the plain PyTorch version the kernel is
 held against.  Digits of shape ``(m, nw)`` are shared by the whole batch
@@ -23,28 +24,26 @@ import torch
 from . import build
 from . import point_kernels as pk
 
-_ARGS = [build.PTR, build.PTR, build.PTR, build.I64, build.I64, build.INT, build.INT, build.I64,
-         build.INT, build.PTR]
+# points, digits, out, batch rows, m, nw, window, digit batch stride, stream
+_ARGS = [build.PTR, build.PTR, build.PTR, build.I64, build.I64, build.INT, build.INT, build.I64, build.PTR]
 BUCKET_ACCUMULATE = build.Kernel("bucket_accumulate", "bucket_kernels.cu", "dkg_bucket_accumulate", _ARGS)
 ED_BUCKET_ACCUMULATE = build.Kernel("bucket_accumulate[edwards]", "bucket_kernels.cu",
-                                    "dkg_bucket_accumulate", _ARGS)
-KERNELS = (BUCKET_ACCUMULATE, ED_BUCKET_ACCUMULATE)
+                                    "dkg_ed_bucket_accumulate", _ARGS)
+BLS_BUCKET_ACCUMULATE = build.Kernel("bucket_accumulate[bls12_381]", "bls_kernels.cu",
+                                     "dkg_bls_bucket_accumulate", _ARGS)
+KERNELS = (BUCKET_ACCUMULATE, ED_BUCKET_ACCUMULATE, BLS_BUCKET_ACCUMULATE)
 
-# (kind, base field, curve constant) -> (kernel, dkg_bucket_accumulate's kind)
-_VARIANTS = {pk._WS_KEY: (BUCKET_ACCUMULATE, 0), pk._ED_KEY: (ED_BUCKET_ACCUMULATE, 1)}
+# (kind, base field, curve constant) -> kernel
+_VARIANTS = {pk._WS_KEY: BUCKET_ACCUMULATE, pk._ED_KEY: ED_BUCKET_ACCUMULATE, pk._BLS_KEY: BLS_BUCKET_ACCUMULATE}
 WINDOWS = (1, 2, 4, 8)  # the bucket widths the kernel takes
 
 
 def kernel_for(cs) -> build.Kernel:
     """The kernel that scatters points of curve ``cs``; raises if there is none."""
-    return _variant(cs)[0]
-
-
-def _variant(cs):
-    found = _VARIANTS.get((cs.kind, cs.field.name, cs.const))
-    if found is None:
+    kernel = _VARIANTS.get((cs.kind, cs.field.name, cs.const))
+    if kernel is None:
         raise NotImplementedError(f"bucket_accumulate has no CUDA kernel for {cs.name}")
-    return found
+    return kernel
 
 
 def bucket_accumulate_plain(cs, points: torch.Tensor, digits: torch.Tensor, entries: int) -> torch.Tensor:
@@ -74,7 +73,7 @@ def bucket_accumulate(cs, points: torch.Tensor, digits: torch.Tensor, window: in
     entries = 1 << window
     if points.device.type == "cpu":
         return bucket_accumulate_plain(cs, points, digits, entries)
-    kernel, kind = _variant(cs)
+    kernel = kernel_for(cs)
     if window not in WINDOWS:
         raise ValueError(f"bucket_accumulate takes a window of {WINDOWS}, got {window}")
     point = (cs.ncoords, cs.field.limbs)
@@ -97,6 +96,6 @@ def bucket_accumulate(cs, points: torch.Tensor, digits: torch.Tensor, window: in
     out = torch.empty(batch + (nw, entries) + point, dtype=torch.int32, device=points.device)
     rows = batch.numel()
     if out.numel():
-        kernel(points.data_ptr(), digits.data_ptr(), out.data_ptr(), rows, m, nw, window, stride, kind,
+        kernel(points.data_ptr(), digits.data_ptr(), out.data_ptr(), rows, m, nw, window, stride,
                build.stream_ptr(out.device))
     return out

@@ -2,13 +2,15 @@
 
 Counterpart of ``dkg_tpu/ops/pallas_field.py`` ``mod_madd``.  On a CUDA
 tensor :func:`mod_madd` launches ``csrc/field_kernels.cu`` over the field
-of its operands (secp256k1's base and scalar fields, ed25519's base field
-and the ristretto255 scalar field; any other field raises); on a CPU
-tensor it runs :func:`mod_madd_plain`, the plain PyTorch version the
-kernel is held against.  Operands broadcast over their batch axes.
+of its operands (secp256k1's base and scalar fields, ed25519's base field,
+the ristretto255 scalar field, BLS12-381's 24-limb base field and its
+scalar field; any other field raises); on a CPU tensor it runs
+:func:`mod_madd_plain`, the plain PyTorch version the kernel is held
+against.  Operands broadcast over their batch axes.
 
-The two field families count their launches apart: ``MOD_MADD`` for
-secp256k1's fields, ``MOD_MADD_ED`` for ed25519's.
+The three field families count their launches apart: ``MOD_MADD`` for
+secp256k1's fields, ``MOD_MADD_ED`` for ed25519's, ``MOD_MADD_BLS`` for
+BLS12-381's.
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ from __future__ import annotations
 import torch
 
 from ..fields import device as fd
-from ..fields.spec import L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
+from ..fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
 from . import build
 
 _ARGS = [build.PTR, build.PTR, build.PTR, build.PTR, build.I64, build.INT, build.PTR]
 MOD_MADD = build.Kernel("mod_madd", "field_kernels.cu", "dkg_mod_madd", _ARGS)
 MOD_MADD_ED = build.Kernel("mod_madd[ed25519]", "field_kernels.cu", "dkg_mod_madd", _ARGS)
-KERNELS = (MOD_MADD, MOD_MADD_ED)
+MOD_MADD_BLS = build.Kernel("mod_madd[bls12_381]", "field_kernels.cu", "dkg_mod_madd", _ARGS)
+KERNELS = (MOD_MADD, MOD_MADD_ED, MOD_MADD_BLS)
 
 # field -> (kernel, field id of csrc/field.cuh)
 _FIELDS = {
@@ -30,6 +33,8 @@ _FIELDS = {
     SECP256K1_N: (MOD_MADD, 1),
     P25519: (MOD_MADD_ED, 2),
     L25519: (MOD_MADD_ED, 3),
+    BLS12_381_P: (MOD_MADD_BLS, 4),
+    BLS12_381_R: (MOD_MADD_BLS, 5),
 }
 
 

@@ -4,20 +4,21 @@ versions.
 
 Counterpart of ``dkg_tpu/ops/pallas_point.py``.  Points are int32 limb
 tensors of shape ``(..., C, L)``: C projective coordinates (3 for short
-Weierstrass a = 0, 4 for extended Edwards) of L 16-bit limbs.  On a CUDA
-tensor each wrapper launches the kernel of its curve: secp256k1's in
-``csrc/point_kernels.cu``, edwards25519's (ristretto255) in
-``csrc/edwards_kernels.cu``, ``pt_double`` for both in
-``csrc/double_kernels.cu``; a curve with no kernel raises.  On a CPU
+Weierstrass a = 0, 4 for extended Edwards) of L 16-bit limbs (16, or
+24 on BLS12-381 G1).  On a CUDA tensor each wrapper launches the kernel
+of its curve: secp256k1's in ``csrc/point_kernels.cu``, edwards25519's
+(ristretto255) in ``csrc/edwards_kernels.cu``, ``pt_double`` for both in
+``csrc/double_kernels.cu``, and every BLS12-381 G1 kernel in
+``csrc/bls_kernels.cu``; a curve with no kernel raises.  On a CPU
 tensor it runs the plain version below.  The plain versions are the
 formulas of the JAX package's ``groups/device.py`` (RCB15 algorithms 7,
 8 and 9 for Weierstrass, HWCD add and doubling for Edwards) in the same
 order, so their projective coordinates equal the JAX package's limb for
 limb.
 
-Each variant is its own :class:`build.Kernel` with its own launch count,
-but ``pt_double``, one C entry for both kinds.  ``cs`` is a
-``groups.device.CurveSpec``.
+Each variant is its own :class:`build.Kernel`, with its own C entry and
+launch count; the variants of one op take the same arguments.  ``cs`` is
+a ``groups.device.CurveSpec``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..fields import device as fd
 from ..groups import host as gh
 from . import build
 
-_WS, _ED, _DBL = "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu"
+_WS, _ED, _DBL, _BLS = "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu", "bls_kernels.cu"
 _P, _I, _INT = build.PTR, build.I64, build.INT
 _BINARY = [_P, _P, _P, _I, _P]
 _LADDER = [_P, _P, _P, _P, _I, _INT, _P]
@@ -40,20 +41,33 @@ PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add", _WS, "dkg_pt_ladder_mul_ad
 ED_PT_ADD = build.Kernel("pt_add[edwards]", _ED, "dkg_ed_pt_add", _BINARY)
 ED_PT_MADD = build.Kernel("pt_madd[edwards]", _ED, "dkg_ed_pt_madd", _BINARY)
 ED_PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add[edwards]", _ED, "dkg_ed_pt_ladder_mul_add", _LADDER)
-PT_DOUBLE = build.Kernel("pt_double", _DBL, "dkg_pt_double", [_P, _P, _I, _INT, _INT, _P])
+_DOUBLE = [_P, _P, _I, _INT, _P]
+PT_DOUBLE = build.Kernel("pt_double", _DBL, "dkg_pt_double", _DOUBLE)
+ED_PT_DOUBLE = build.Kernel("pt_double[edwards]", _DBL, "dkg_ed_pt_double", _DOUBLE)
+BLS_PT_ADD = build.Kernel("pt_add[bls12_381]", _BLS, "dkg_bls_pt_add", _BINARY)
+BLS_PT_MADD = build.Kernel("pt_madd[bls12_381]", _BLS, "dkg_bls_pt_madd", _BINARY)
+BLS_PT_DOUBLE = build.Kernel("pt_double[bls12_381]", _BLS, "dkg_bls_pt_double", _DOUBLE)
+BLS_PT_WINDOW_STEP = build.Kernel("pt_window_step[bls12_381]", _BLS, "dkg_bls_pt_window_step",
+                                  [_P, _P, _P, _I, _INT, _P])
+BLS_PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add[bls12_381]", _BLS, "dkg_bls_pt_ladder_mul_add",
+                                     _LADDER)
 KERNELS = (PT_ADD, PT_MADD, PT_WINDOW_STEP, PT_LADDER_MUL_ADD,
-           ED_PT_ADD, ED_PT_MADD, ED_PT_LADDER_MUL_ADD, PT_DOUBLE)
+           ED_PT_ADD, ED_PT_MADD, ED_PT_LADDER_MUL_ADD, PT_DOUBLE, ED_PT_DOUBLE,
+           BLS_PT_ADD, BLS_PT_MADD, BLS_PT_DOUBLE, BLS_PT_WINDOW_STEP, BLS_PT_LADDER_MUL_ADD)
 
 # The curves the kernels cover, by (kind, base field, curve constant): the
-# constants (b3 = 21, 2d) are compiled into csrc/point.cuh and edwards.cuh.
+# constants (b3 = 21 and 12, 2d) are compiled into csrc/point.cuh and
+# edwards.cuh.
 _WS_KEY = ("weierstrass_a0", "secp256k1_base", 21)
 _ED_KEY = ("edwards", "ed25519_base", 2 * gh.D % gh.P)
+_BLS_KEY = ("weierstrass_a0", "bls12_381_base", 12)
 _VARIANTS = {
-    "pt_add": {_WS_KEY: PT_ADD, _ED_KEY: ED_PT_ADD},
-    "pt_madd": {_WS_KEY: PT_MADD, _ED_KEY: ED_PT_MADD},
-    "pt_window_step": {_WS_KEY: PT_WINDOW_STEP},
-    "pt_ladder_mul_add": {_WS_KEY: PT_LADDER_MUL_ADD, _ED_KEY: ED_PT_LADDER_MUL_ADD},
-    "pt_double": {_WS_KEY: PT_DOUBLE, _ED_KEY: PT_DOUBLE},
+    "pt_add": {_WS_KEY: PT_ADD, _ED_KEY: ED_PT_ADD, _BLS_KEY: BLS_PT_ADD},
+    "pt_madd": {_WS_KEY: PT_MADD, _ED_KEY: ED_PT_MADD, _BLS_KEY: BLS_PT_MADD},
+    "pt_window_step": {_WS_KEY: PT_WINDOW_STEP, _BLS_KEY: BLS_PT_WINDOW_STEP},
+    "pt_ladder_mul_add": {_WS_KEY: PT_LADDER_MUL_ADD, _ED_KEY: ED_PT_LADDER_MUL_ADD,
+                          _BLS_KEY: BLS_PT_LADDER_MUL_ADD},
+    "pt_double": {_WS_KEY: PT_DOUBLE, _ED_KEY: ED_PT_DOUBLE, _BLS_KEY: BLS_PT_DOUBLE},
 }
 
 
@@ -272,8 +286,7 @@ def pt_double(cs, p: torch.Tensor, n_doubles: int = 1) -> torch.Tensor:
         return pt_double_plain(cs, p, n_doubles)
     if n_doubles < 0:
         raise ValueError("n_doubles must be >= 0")
-    kind = int(cs.kind == "edwards")  # dkg_pt_double's kind: 0 secp256k1, 1 edwards25519
-    return _launch("pt_double", cs, [(p, (cs.ncoords, cs.field.limbs))], (n_doubles, kind))
+    return _launch("pt_double", cs, [(p, (cs.ncoords, cs.field.limbs))], (n_doubles,))
 
 
 def pt_window_step(cs, acc: torch.Tensor, entry: torch.Tensor, n_doubles: int = 4) -> torch.Tensor:

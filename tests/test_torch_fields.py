@@ -1,8 +1,9 @@
 """dkg_tpu_torch.fields and the mod_madd plain version against dkg_tpu.fields.
 
 Same limbs in, same canonical limbs out: the field ops are exact, so
-the tolerance is zero, on the secp256k1 base and scalar fields (and the
-Edwards fields the plain point formulas use)."""
+the tolerance is zero, on the secp256k1 base and scalar fields, the
+Edwards fields the plain point formulas use, and BLS12-381's 24-limb
+base field and its scalar field."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,8 @@ from dkg_tpu_torch.fields import host as tfh
 from dkg_tpu_torch.fields import spec as tspec
 from dkg_tpu_torch.ops import field_kernels as fk
 
-FIELDS = ["secp256k1_base", "secp256k1_scalar", "ed25519_base", "ed25519_scalar"]
+FIELDS = ["secp256k1_base", "secp256k1_scalar", "ed25519_base", "ed25519_scalar", "bls12_381_base",
+          "bls12_381_scalar"]
 N = 24
 
 
@@ -123,3 +125,18 @@ def test_mod_madd_plain_matches_jax(name):
     want = jfd.add(j, jfd.mul(j, jnp.asarray(a[:12]).reshape(3, 4, -1), jnp.asarray(b[:4])),
                    jnp.asarray(c[:3]).reshape(3, 1, -1))
     assert np.array_equal(to_np(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_barrett_reduce_worst_cases_match(name):
+    """barrett_reduce (the plain multiply's reduction) at its largest
+    inputs, (m-1-i)·(m-1-j) for i, j < 4 and the top of the 2L-limb range,
+    against the JAX package's and big ints."""
+    t, j = _specs(name)
+    m = j.modulus
+    big = [m - 1 - i for i in range(4)]
+    prods = [x * y for x in big for y in big] + [(1 << (32 * t.limbs)) - 1, m * m - 1, m * (m - 1)]
+    x = np.stack([tspec.int_to_limbs(v, 2 * t.limbs) for v in prods])
+    got = tfd.barrett_reduce(t, torch.from_numpy(x.astype(np.int64)))
+    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(jfd.barrett_reduce(j, jnp.asarray(x))))
+    assert list(tfh.decode(t, got.numpy().astype(np.uint32))) == [v % m for v in prods]

@@ -28,7 +28,7 @@ from dkg_tpu_torch.groups import host as tgh
 from dkg_tpu_torch.groups import precompute as tgp
 from dkg_tpu_torch.ops import point_kernels as pk
 
-CURVES = ["secp256k1", "ristretto255"]
+CURVES = ["secp256k1", "ristretto255", "bls12_381_g1"]
 B = 8
 
 
@@ -127,9 +127,12 @@ def test_host_group_and_commitment_key_match():
         assert TCommitmentKey.generate(t, shared).h == JCommitmentKey.generate(j, shared).h
 
 
-def test_tables_and_fixed_base_mul_match():
-    tcs, jcs = _cs("secp256k1")
-    h = TCommitmentKey.generate(tgh.SECP256K1, b"tables").h
+@pytest.mark.parametrize("curve", ["secp256k1", "bls12_381_g1"])
+def test_tables_and_fixed_base_mul_match(curve):
+    """The 8-bit host-built g/h tables (32 windows of 256 affine entries
+    for both curves' 255/256-bit scalars), and fixed_base_mul over them."""
+    tcs, jcs = _cs(curve)
+    h = TCommitmentKey.generate(tgh.ALL_GROUPS[curve], b"tables").h
     for base in ((tcs.gen_affine[0], tcs.gen_affine[1], 1), h):
         key = tgp.base_key(tcs, base)
         assert key == jgd.base_key(jcs, base)
@@ -210,3 +213,38 @@ def test_edwards_tables_and_fixed_base_mul_match():
     got = tgd.fixed_base_mul(tcs, g_t, to_torch(k))
     want = jgd.fixed_base_mul(jcs, jnp.asarray(to_np(g_t)), jnp.asarray(k))
     assert _same(got, want)
+
+
+def test_bls_host_group_matches():
+    """BLS12-381 G1 on the host: the generator has order r, hash_to_group
+    clears the cofactor into the subgroup (the same projective point as the
+    JAX package's), encode/decode round trip, and decode refuses a curve
+    point outside the subgroup."""
+    t, j = tgh.BLS12_381_G1, jgh.BLS12_381_G1
+    assert (t.base_field.modulus, t.scalar_field.modulus, t.b, t.cofactor) == (
+        j.base_field.modulus, j.scalar_field.modulus, j.b, j.cofactor)
+    assert t.generator() == j.generator() and t.identity() == j.identity()
+    assert tgh.ALL_GROUPS["bls12_381_g1"] is t
+    g = t.generator()
+    assert t.in_subgroup(g) and t.eq(t.mul_int(t.scalar_field.modulus, g), t.identity())
+    assert not t.eq(t.mul_int(t.scalar_field.modulus - 1, g), t.identity())
+    rng = random.Random(75)
+    pts = point_tuples("bls12_381_g1", 76, 6)
+    for a, b in zip(pts, pts[1:] + pts[:1]):
+        assert t.add(a, b) == j.add(a, b) and t.eq(a, b) == j.eq(a, b)
+        k = rng.randrange(j.scalar_field.modulus)
+        assert t.scalar_mul(k, a) == j._scalar_mul_ladder(k, a)
+        enc = t.encode(a)
+        assert enc == j.encode(a) and len(enc) == 49
+        back = t.decode(enc)
+        assert back == j.decode(enc) and t.eq(back, a)
+    for shared, domain in ((b"", b""), (b"ceremony", b"dkgtpu-ck"), (b"chip-smoke-bls", b"x" * 20)):
+        h = t.hash_to_group(shared, domain)
+        assert h == j.hash_to_group(shared, domain) and t.in_subgroup(h)
+        assert TCommitmentKey.generate(t, shared).h == JCommitmentKey.generate(j, shared).h
+    # a curve point outside the order-r subgroup: on the curve, refused
+    x = next(x for x in range(1, 100) if t.lift_x(x, 0) is not None and not t.in_subgroup((x, t.lift_x(x, 0), 1)))
+    bad = bytes([2]) + x.to_bytes(48, "big")
+    assert t.decode(bad) is None and j.decode(bad) is None
+    assert t.decode(bytes(49)) == t.identity() and t.decode(bytes(48)) is None
+    assert t.decode(bytes([4]) + bytes(48)) is None

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from dkg_tpu_torch.dkg import ceremony as tce
-from dkg_tpu_torch.fields.spec import L25519, SECP256K1_N, FieldSpec
+from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, SECP256K1_N, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
@@ -56,12 +56,13 @@ def _meta(shape):
     return torch.zeros(shape, dtype=torch.int32, device="meta")
 
 
-ED = tgd.RISTRETTO255
+ED, BLS = tgd.RISTRETTO255, tgd.BLS12_381_G1
 KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS)
-# a 24-limb curve (BLS12-381 G1's base field): no kernel has its variant yet
-BLS_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
-L24 = dataclasses.replace(tgd.SECP256K1, name="bls12_381_g1", field=FieldSpec("bls12_381_base", BLS_P, 24),
-                          const=12)
+# 24-limb curves with no kernel: BLS12-381 G1 with another b3, and a curve
+# over another 24-limb field (a 381-bit modulus other than BLS12-381 p)
+OTHER_P = (1 << 381) - 1287
+L24_B3 = dataclasses.replace(BLS, name="other_b3", const=24)
+L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", OTHER_P, 24))
 
 
 @pytest.mark.parametrize("call", [
@@ -80,9 +81,20 @@ L24 = dataclasses.replace(tgd.SECP256K1, name="bls12_381_g1", field=FieldSpec("b
     lambda: bk.bucket_accumulate(tgd.SECP256K1, _meta((2, 5, 3, 16)), _meta((5, 3)), 8, 3),
     lambda: bk.bucket_accumulate(ED, _meta((2, 5, 4, 16)), _meta((2, 5, 3)), 4, 3),
     lambda: tgd.msm_pippenger(ED, _meta((5, 16)), _meta((2, 5, 4, 16)), 128),
+    lambda: fk.mod_madd(BLS12_381_P, _meta((4, 24)), _meta((4, 24)), _meta((4, 24))),
+    lambda: fk.mod_madd(BLS12_381_R, _meta((4, 16)), _meta((4, 16)), _meta((4, 16))),
+    lambda: pk.pt_add(BLS, _meta((4, 3, 24)), _meta((4, 3, 24))),
+    lambda: pk.pt_madd(BLS, _meta((4, 3, 24)), _meta((4, 3, 24))),
+    lambda: pk.pt_double(BLS, _meta((4, 3, 24)), 4),
+    lambda: pk.pt_window_step(BLS, _meta((4, 3, 24)), _meta((4, 3, 24)), 4),
+    lambda: pk.pt_ladder_mul_add(BLS, _meta((4, 3, 24)), _meta((4, 3, 24)), _meta((4,)), 3),
+    lambda: bk.bucket_accumulate(BLS, _meta((2, 5, 3, 24)), _meta((5, 3)), 8, 3),
+    lambda: tgd.msm_pippenger(BLS, _meta((5, 16)), _meta((2, 5, 3, 24)), 128),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
-        "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger"])
+        "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
+        "mod_madd_bls_base", "mod_madd_bls_scalar", "bls_pt_add", "bls_pt_madd", "bls_pt_double",
+        "bls_pt_window_step", "bls_pt_ladder_mul_add", "bls_bucket_accumulate", "bls_msm_pippenger"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -107,8 +119,9 @@ def test_wrappers_reject_operands_of_the_wrong_shape(call):
 def test_unported_variants_raise():
     """A curve or field with no kernel raises before any launch: the
     one-launch Edwards window step, an Edwards curve with another d, a
-    24-limb curve, a field other than the four of csrc/field.cuh, a
-    bucket width the kernel does not take."""
+    24-limb curve with another b3 or another base field, a field other
+    than the six of csrc/field.cuh (24 limbs included), a bucket width
+    the kernel does not take."""
     other = dataclasses.replace(ED, name="other", const=ED.const + 1)
     with pytest.raises(NotImplementedError, match="pt_window_step"):
         pk.pt_window_step(ED, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
@@ -117,18 +130,39 @@ def test_unported_variants_raise():
             pk.kernel_for(op, other)
     with pytest.raises(NotImplementedError):
         pk.pt_add(other, _meta((2, 4, 16)), _meta((2, 4, 16)))
-    for cs in (other, L24):
+    for cs in (other, L24_B3, L24_P):
         with pytest.raises(NotImplementedError, match="bucket_accumulate"):
             bk.bucket_accumulate(cs, _meta((2, 5, cs.ncoords, cs.field.limbs)), _meta((5, 3)), 4, 3)
-    with pytest.raises(NotImplementedError, match="pt_add"):
-        pk.kernel_for("pt_add", L24)
+    for cs in (L24_B3, L24_P):
+        for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add"):
+            with pytest.raises(NotImplementedError, match=op):
+                pk.kernel_for(op, cs)
+        with pytest.raises(NotImplementedError):
+            pk.pt_add(cs, _meta((2, 3, 24)), _meta((2, 3, 24)))
+    with pytest.raises(NotImplementedError):
+        fk.mod_madd(L24_P.field, _meta((2, 24)), _meta((2, 24)), _meta((2, 24)))
     with pytest.raises(ValueError, match="window"):
         bk.bucket_accumulate(ED, _meta((2, 5, 4, 16)), _meta((5, 1)), 16, 1)
     with pytest.raises(NotImplementedError):
         fk.mod_madd(FieldSpec("other", (1 << 255) - 31, 16), _meta((2, 16)), _meta((2, 16)), _meta((2, 16)))
-    assert pk.kernel_for("pt_add", ED) is pk.ED_PT_ADD and pk.kernel_for("pt_double", ED) is pk.PT_DOUBLE
+    assert pk.kernel_for("pt_add", ED) is pk.ED_PT_ADD and pk.kernel_for("pt_double", ED) is pk.ED_PT_DOUBLE
+    assert pk.kernel_for("pt_double", tgd.SECP256K1) is pk.PT_DOUBLE
     assert bk.kernel_for(ED) is bk.ED_BUCKET_ACCUMULATE
     assert bk.kernel_for(tgd.SECP256K1) is bk.BUCKET_ACCUMULATE
+    assert bk.kernel_for(BLS) is bk.BLS_BUCKET_ACCUMULATE
+    assert pk.kernel_for("pt_double", BLS) is pk.BLS_PT_DOUBLE
+    assert {pk.kernel_for(op, BLS).source for op in pk._VARIANTS} == {"bls_kernels.cu"}
+
+
+@pytest.mark.parametrize("variants", [*pk._VARIANTS.values(), bk._VARIANTS],
+                         ids=[*pk._VARIANTS, "bucket_accumulate"])
+def test_variants_of_an_op_share_one_calling_convention(variants):
+    """Every curve's variant of an op is its own C entry, with its own
+    launch count, taking the same arguments: the wrapper passes them alike
+    whatever the curve."""
+    kernels = list(variants.values())
+    assert len({k.symbol for k in kernels}) == len({k.name for k in kernels}) == len(kernels)
+    assert len({tuple(k._argtypes) for k in kernels}) == 1
 
 
 def test_cpu_tensors_run_the_plain_versions_uncounted():
@@ -164,5 +198,15 @@ def test_library_path_tracks_sources():
     path = build.library_path("point_kernels.cu")
     assert path.parent == build.BUILD_DIR and path.name.startswith("point_kernels-")
     assert path != build.library_path("field_kernels.cu")
+    assert build.library_path("bls_kernels.cu").name.startswith("bls_kernels-")
     assert {k.source for k in KERNELS} == set(build.SOURCES)
     assert str(build.BUILD_DIR).startswith(str(REPO / "build"))
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=[k.name for k in KERNELS])
+def test_every_kernel_entry_is_in_its_source(kernel):
+    """Each wrapper's C entry is defined, with C linkage, in the source it
+    builds, so a launch never reaches a missing symbol on the card."""
+    text = (build.CSRC / kernel.source).read_text()
+    assert 'extern "C"' in text and re.search(rf"\bint {kernel.symbol}\(", text)
+    assert "dkg_error_string" in text

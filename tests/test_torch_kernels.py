@@ -3,9 +3,10 @@
 On the CPU: csrc/host_check.cpp, the kernels' per-lane bodies (the same
 field.cuh, point.cuh and edwards.cuh code the .cu kernels run), built
 with the host compiler and called lane by lane, at the field edge values
-(0, 1, m - 1, near 2**255 and 2**256 - 1) of all four fields, and the
+(0, 1, m - 1, near 2**255 and 2**256 - 1, near 2**383 and 2**384 - 1 at
+24 limbs) of all six fields, the Barrett fields' worst cases, and the
 bucket kernels' per-bucket fold over every bucket of small scatter
-passes.  On a CUDA machine (marker ``cuda``; skipped elsewhere): the
+passes, for secp256k1, ristretto255 and BLS12-381 G1.  On a CUDA machine (marker ``cuda``; skipped elsewhere): the
 kernels themselves, built with nvcc.  Both are held to the plain versions
 bit for bit."""
 
@@ -21,14 +22,17 @@ from torch_port_util import edge_ints, edge_operands, point_limbs
 
 from dkg_tpu.fields import host as jfh
 from dkg_tpu.groups import host as jgh
-from dkg_tpu_torch.fields.spec import L25519, P25519, SECP256K1_N, SECP256K1_P
+from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, SECP256K1_P
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import point_kernels as pk
 
-CS, ED = tgd.SECP256K1, tgd.RISTRETTO255
+CS, ED, BLS = tgd.SECP256K1, tgd.RISTRETTO255, tgd.BLS12_381_G1
+# case prefix -> (curve, CurveSpec, host_check prefix)
+PREFIXES = {"": ("secp256k1", CS, "host_"), "ed_": ("ristretto255", ED, "host_ed_"),
+            "bls_": ("bls12_381_g1", BLS, "host_bls_")}
 LANES = 40
 PTR, I64, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -53,6 +57,8 @@ FIELD_CASES = {  # case -> (field, field id of csrc/field.cuh)
     "mod_madd_scalar": (SECP256K1_N, 1),
     "mod_madd_ed_base": (P25519, 2),
     "mod_madd_ed_scalar": (L25519, 3),
+    "mod_madd_bls_base": (BLS12_381_P, 4),
+    "mod_madd_bls_scalar": (BLS12_381_R, 5),
 }
 
 
@@ -64,7 +70,7 @@ def _affine_points(curve, seed):
     """Affine points; Weierstrass ones without the identity (the mixed
     add does not take it), the Edwards identity (0, 1, 1, 0) kept."""
     qa = _points(curve, seed, LANES * 2, projective=False)
-    if curve == "secp256k1":
+    if curve != "ristretto255":
         qa = qa[qa[:, 2, 0] == 1]
     return qa[:LANES]
 
@@ -80,6 +86,12 @@ def _op(case):
     return case.removesuffix("_1").removesuffix("_4")
 
 
+def _split(name):
+    """A point case's (curve, CurveSpec, host_check prefix, op)."""
+    prefix = next((k for k in ("ed_", "bls_") if name.startswith(k)), "")
+    return (*PREFIXES[prefix], name.removeprefix(prefix))
+
+
 def _inputs(name):
     """(plain function, operand tensors, extra int args, host_check entry)
     for one kernel case."""
@@ -87,10 +99,8 @@ def _inputs(name):
         fs, fid = FIELD_CASES[name]
         ops = [_t(jfh.encode(fs, col)) for col in edge_operands(fs, 3, 3)]
         return (lambda a, b, c: fk.mod_madd_plain(fs, a, b, c)), ops, [fid], "host_mod_madd"
-    ed = name.startswith("ed_")
-    curve, cs = ("ristretto255", ED) if ed else ("secp256k1", CS)
-    op = name.removeprefix("ed_")
-    host = ("host_ed_" if ed else "host_") + _op(op)
+    curve, cs, host, op = _split(name)
+    host += _op(op)
     p, q = _points(curve, 1), _points(curve, 2)
     q[4] = p[4]  # doubling through the complete add
     if op == "pt_add":
@@ -106,23 +116,25 @@ def _inputs(name):
     return (lambda a, b, c: pk.pt_ladder_mul_add_plain(cs, a, b, c, nbits)), [p, q, _ladder_x(nbits)], [nbits], host
 
 
-NAMES = [*FIELD_CASES, "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add",
-         "pt_double_1", "pt_double_4", "ed_pt_add", "ed_pt_madd", "ed_pt_double_1", "ed_pt_double_4",
-         "ed_pt_ladder_mul_add"]
+_WS_OPS = ["pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "pt_double_1", "pt_double_4"]
+NAMES = [*FIELD_CASES, *_WS_OPS, "ed_pt_add", "ed_pt_madd", "ed_pt_double_1", "ed_pt_double_4",
+         "ed_pt_ladder_mul_add", *("bls_" + op for op in _WS_OPS)]
 
 
 # scatter passes: (curve, window, digits shared by the batch)
 BUCKET_CASES = [("secp256k1", 4, True), ("secp256k1", 8, False), ("ristretto255", 4, False),
-                ("ristretto255", 8, True)]
+                ("ristretto255", 8, True), ("bls12_381_g1", 4, True), ("bls12_381_g1", 8, False)]
 BUCKET_IDS = [f"{c}-w{w}-{'shared' if s else 'per_row'}" for c, w, s in BUCKET_CASES]
+BUCKET_HOST = {"secp256k1": "host_bucket_accumulate", "ristretto255": "host_ed_bucket_accumulate",
+               "bls12_381_g1": "host_bls_bucket_accumulate"}
 
 
 def _bucket_inputs(curve, window, shared):
     """(cs, points (2, 9, C, L) with identities and edge scalings, int32
     digits (9, 3) or (2, 9, 3) with digit-0 lanes, window, nw)."""
-    cs = ED if curve == "ristretto255" else CS
+    cs = tgd.ALL_CURVES[curve]
     rows, m, nw = 2, 9, 3
-    pts = _points(curve, 40 + window, rows * m).reshape(rows, m, cs.ncoords, 16)
+    pts = _points(curve, 40 + window, rows * m).reshape(rows, m, cs.ncoords, cs.field.limbs)
     digs = np.random.default_rng(window).integers(0, 1 << window, size=(m, nw) if shared else (rows, m, nw))
     digs[..., 0, :] = 0
     digs[..., 4, 1] = 0
@@ -134,7 +146,7 @@ def test_host_compiled_bucket_fold_matches_plain(host_lib, case):
     cs, pts, digs, window, nw = _bucket_inputs(*case)
     want = bk.bucket_accumulate_plain(cs, pts, digs, 1 << window)
     out = torch.empty_like(want)
-    fn = getattr(host_lib, "host_ed_bucket_accumulate" if cs is ED else "host_bucket_accumulate")
+    fn = getattr(host_lib, BUCKET_HOST[case[0]])
     fn.argtypes = [PTR, PTR, PTR, I64, I64, INT, INT, I64]
     fn.restype = None
     rows, m = pts.shape[:2]
@@ -155,6 +167,32 @@ def test_host_compiled_lane_bodies_match_plain(host_lib, name):
     assert torch.equal(out, want)
 
 
+BARRETT = {"ed25519_scalar": (L25519, 3), "bls12_381_scalar": (BLS12_381_R, 5),
+           "bls12_381_base": (BLS12_381_P, 4)}
+
+
+@pytest.mark.parametrize("name", list(BARRETT))
+def test_host_compiled_barrett_worst_cases(host_lib, name):
+    """The Barrett fields at their largest products: (m-1-i)·(m-1-j) + c
+    for i, j < 4 and c in {0, 1, m-2, m-1}, where one conditional
+    subtraction must land in [0, m) (csrc/field.cuh reduce_barrett's
+    bound), against big ints and the plain version."""
+    fs, fid = BARRETT[name]
+    m = fs.modulus
+    big = [m - 1 - i for i in range(4)]
+    cs_ = [0, 1, m - 2, m - 1]
+    a, b, c = zip(*[(x, y, z) for x in big for y in big for z in cs_])
+    ops = [_t(jfh.encode(fs, list(col))) for col in (a, b, c)]
+    out = torch.empty_like(ops[0])
+    fn = host_lib.host_mod_madd
+    fn.argtypes = [PTR] * 4 + [I64, INT]
+    fn.restype = INT
+    assert fn(*(o.data_ptr() for o in ops), out.data_ptr(), len(a), fid) == 0
+    want = [(x * y + z) % m for x, y, z in zip(a, b, c)]
+    assert [int(v) for v in jfh.decode(fs, out.numpy().astype(np.uint32))] == want
+    assert torch.equal(out, fk.mod_madd_plain(fs, *ops))
+
+
 def test_edge_operands_cover_the_field_edges():
     """The field cases see 0, 1, m - 1 and the values near 2**255 and
     2**256 - 1 reduced, in every pair of the first two operands."""
@@ -162,6 +200,8 @@ def test_edge_operands_cover_the_field_edges():
         a, b, c = edge_operands(fs, 3, 3)
         edges = edge_ints(fs)
         assert {fs.modulus - 1, 0, 1, ((1 << 256) - 1) % fs.modulus} <= set(edges)
+        if fs.limbs == 24:
+            assert {fs.modulus - 2, ((1 << 384) - 1) % fs.modulus} <= set(edges)
         assert set(zip(a, b)) >= {(x, y) for x in edges for y in edges}
         assert max(a + b + c) < fs.modulus
 
@@ -181,6 +221,14 @@ def test_host_compiled_ladder_reaches_the_host_oracle(host_lib):
     g = jgh.SECP256K1
     p, a = (g.scalar_mul(k, g.generator()) for k in (3, 5))
     got = _host_ladder(host_lib, "host_pt_ladder_mul_add", CS, p, a, 1000, 11)
+    assert g.eq(got, g.scalar_mul(1000 * 3 + 5, g.generator()))
+
+
+def test_host_compiled_bls_ladder_reaches_the_host_oracle(host_lib):
+    """The 24-limb lane body: x·P + A on BLS12-381 G1 equals the group law."""
+    g = jgh.BLS12_381_G1
+    p, a = (g.scalar_mul(k, g.generator()) for k in (3, 5))
+    got = _host_ladder(host_lib, "host_bls_pt_ladder_mul_add", BLS, p, a, 1000, 11)
     assert g.eq(got, g.scalar_mul(1000 * 3 + 5, g.generator()))
 
 
@@ -205,12 +253,12 @@ def test_cuda_kernels_match_plain(cuda, name):
     ops = [o.to(cuda) for o in ops]
     if name in FIELD_CASES:
         fs = FIELD_CASES[name][0]
-        kernel = fk.MOD_MADD_ED if fs in (P25519, L25519) else fk.MOD_MADD
+        kernel = fk._FIELDS[fs][0]
         before = kernel.launches
         got = fk.mod_madd(fs, *ops)
     else:
-        cs = ED if name.startswith("ed_") else CS
-        op = _op(name.removeprefix("ed_"))
+        _, cs, _, op = _split(name)
+        op = _op(op)
         kernel = pk.kernel_for(op, cs)
         before = kernel.launches
         got = getattr(pk, op)(cs, *ops, *extra)

@@ -18,7 +18,7 @@ from dkg_tpu.groups import device as jgd
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import bucket_kernels as bk
 
-CURVES = ["secp256k1", "ristretto255"]
+CURVES = ["secp256k1", "ristretto255", "bls12_381_g1"]
 
 
 def _cs(curve):
@@ -44,7 +44,7 @@ def test_bucket_accumulate_plain_matches_bucket_scan(curve, window):
     digs = _digits(window, (m, nw), entries)
     got = bk.bucket_accumulate_plain(tcs, to_torch(pts), torch.from_numpy(digs), entries)
     want = jgd._bucket_scan(jcs, jnp.asarray(pts), jnp.asarray(digs), entries)
-    assert got.shape == (nw, entries, tcs.ncoords, 16)
+    assert got.shape == (nw, entries, tcs.ncoords, tcs.field.limbs)
     assert same(got, want)
     assert torch.equal(got, tgd._bucket_scan(tcs, to_torch(pts), torch.from_numpy(digs), entries))
 
@@ -55,7 +55,7 @@ def test_bucket_accumulate_plain_two_axis_batch(curve):
     under one shared (m, nw) digit block, which broadcasts."""
     tcs, jcs = _cs(curve)
     entries, m, nw = 16, 5, 2
-    pts = point_limbs(curve, 111, 2 * 3 * m).reshape(2, 3, m, tcs.ncoords, 16)
+    pts = point_limbs(curve, 111, 2 * 3 * m).reshape(2, 3, m, tcs.ncoords, tcs.field.limbs)
     digs = _digits(3, (2, 3, m, nw), entries)
     got = bk.bucket_accumulate_plain(tcs, to_torch(pts), torch.from_numpy(digs), entries)
     assert same(got, jgd._bucket_scan(jcs, jnp.asarray(pts), jnp.asarray(digs), entries))

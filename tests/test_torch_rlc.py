@@ -17,7 +17,7 @@ from dkg_tpu.groups import device as jgd
 from dkg_tpu_torch.dkg import ceremony as tce
 from dkg_tpu_torch.groups import device as tgd
 
-CURVES = ["secp256k1", "ristretto255"]
+CURVES = ["secp256k1", "ristretto255", "bls12_381_g1"]
 
 
 def _cs(curve):
@@ -31,7 +31,7 @@ def test_point_rlc_schedules_match(curve, monkeypatch):
     JAX package's under the same DKG_TPU_RLC; all three agree in
     canonical affine form."""
     tcs, jcs = _cs(curve)
-    pts = point_limbs(curve, 151, 18).reshape(6, 3, tcs.ncoords, 16)
+    pts = point_limbs(curve, 151, 18).reshape(6, 3, tcs.ncoords, tcs.field.limbs)
     w = field_limbs(jcs.scalar, 152, 6, nbits=128)
     affine = []
     for mode in tce.RLC_MODES:

@@ -34,10 +34,15 @@ def field_limbs(fs, seed: int, n: int, nbits: int | None = None) -> np.ndarray:
 
 def edge_ints(fs) -> list:
     """The field's edge values: 0, 1, m - 1, and values within 2**32 of
-    2**255 and of 2**256 - 1, reduced mod m."""
+    2**255 and of 2**256 - 1, reduced mod m; for a field wider than 16
+    limbs (BLS12-381 p), also m - 2 and values near 2**(16L - 1) and
+    2**(16L) - 1."""
     m = fs.modulus
     near = [(1 << 255) + d for d in (-(1 << 32), -1, 0, 1, 1 << 32)]
     near += [(1 << 256) - 1 - d for d in (0, 1, 1 << 32)]
+    top = 16 * fs.limbs
+    if top > 256:
+        near += [m - 2, (1 << (top - 1)) - 1, 1 << (top - 1), (1 << top) - 1, (1 << top) - (1 << 32)]
     return [0, 1, m - 1] + [v % m for v in near]
 
 
