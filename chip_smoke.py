@@ -13,8 +13,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    values and edge projective scalings in the first lanes, points on the
    curve; the bucket kernels at windows 4 and 8 over identity points,
    digit-0 lanes, digits shared by the batch or one block per row, and a
-   point count past one digit tile), and at the shapes its ceremony path
-   gives it, where both are also timed (CUDA events over repeated wrapper
+   point count past one digit tile; mod_mul and mxu_mod_mul over both
+   fields of their family), and at the shapes its ceremony path gives it,
+   where both are also timed (CUDA events over repeated wrapper
    calls, the operands' broadcast copies included; the bucket kernels'
    plain versions, m sequential steps, once, and BLS12-381's on the first
    32 of its 342 columns only, which its row's plain_rows says).  The
@@ -27,14 +28,21 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2);
    - BatchedCeremony("bls12_381_g1", 1024, 341) (BASELINE.md config 5,
      its n = 16384 cut to config 3's committee);
-   each with the Straus point RLC (the default), then again with
-   run(rlc="pippenger"), whose scatter pass is bucket_accumulate.
-   Checks ok, the master key, some commitments and shares against host
-   big-int oracles, and that the Pippenger run's outputs equal the Straus
-   run's.  On the BLS12-381 path only (the earlier paths skip these two
-   repeated passes to keep the command's time) it also splits the
-   fiat_shamir phase and runs the Straus path once more under
-   torch.profiler for device time by kernel and the busy share.
+   each with the Straus point RLC and the device transcript digest with
+   mod_mul's multiply (the defaults), then again with
+   run(rlc="pippenger"), whose scatter pass is bucket_accumulate, and
+   with run(mul="gemm"), whose canonical affine form multiplies through
+   mxu_mod_mul.  Checks ok, the master key, some commitments and shares
+   against host big-int oracles, that the other runs' outputs equal the
+   Straus run's, and that no plain field multiply reached a CUDA tensor.
+   Once per path, on the Straus run's round-1 tensors, the device digest
+   under each multiply (each launching its own kernel family and no
+   other) and the host leg give the same three (n, 8) row arrays and the
+   run's rho.  On the BLS12-381 path only (the earlier paths skip these
+   repeated passes to keep the command's time) it also splits both legs
+   of the fiat_shamir phase step by step and runs the Straus path once
+   more under torch.profiler for device time by kernel and the busy
+   share.
 5. On each Straus path's tensors: the point RLC D of verify_batch under
    the three schedules (straus, bits, pippenger), equal in canonical
    affine form and timed; and the verify phase under Straus and under
@@ -45,8 +53,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    the qualified set.
 7. Prints one JSON line of per-kernel numbers (launches: the count the
    first main path that launched the kernel read, Straus before
-   Pippenger, or the 0 every path read; plain_rows: the leading rows of
-   the path's shape on which plain_ms was timed, null for all of them),
+   Pippenger before gemm, or the 0 every path read; device_ms: a wrapper
+   call's device time, its kernels timed back to back; plain_rows:
+   the leading rows of the path's shape on which plain_ms was timed, null
+   for all of them),
    the card line again, and last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero without the last line;
@@ -66,6 +76,7 @@ import time
 import numpy as np
 import torch
 
+from dkg_tpu_torch.crypto import device_hash as dh
 from dkg_tpu_torch.crypto.blake2s import row_digests_np
 from dkg_tpu_torch.dkg import ceremony as cer
 from dkg_tpu_torch.fields import device as fd
@@ -76,6 +87,7 @@ from dkg_tpu_torch.groups import precompute as gp
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
+from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
 
 DEV = "cuda"  # every tensor of the script lives here
@@ -91,6 +103,7 @@ class Path:
     shared: bytes
     kernels: tuple  # the build.Kernel objects the path must launch
     rlc: str = "straus"  # the point RLC's schedule
+    mul: str = "classic"  # the canonical affine form's multiply
 
     @property
     def cs(self) -> gd.CurveSpec:
@@ -102,24 +115,31 @@ class Path:
 
     @property
     def tag(self) -> str:
-        return f"{self.curve} n={self.n} t={self.t} rlc={self.rlc}"
+        return f"{self.curve} n={self.n} t={self.t} rlc={self.rlc} mul={self.mul}"
 
     def pippenger(self) -> Path:
         """The same ceremony with the Pippenger point RLC, which adds the
         curve's bucket kernel to the path."""
         return dataclasses.replace(self, rlc="pippenger", kernels=self.kernels + (bk.kernel_for(self.cs),))
 
+    def gemm(self) -> Path:
+        """The same ceremony with the canonical affine form's multiplies
+        through mxu_mod_mul, which adds the base field's mxu kernel (point
+        equality keeps mod_mul's)."""
+        return dataclasses.replace(self, mul="gemm", kernels=self.kernels + (mk.kernel_for(self.cs.field),))
+
 
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
-            (fk.MOD_MADD, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP, pk.PT_LADDER_MUL_ADD))
+            (fk.MOD_MADD, fk.MOD_MUL, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP, pk.PT_LADDER_MUL_ADD))
 R255 = Path("ristretto255", 256, 85, b"chip-smoke-r255",  # BASELINE.md config 2
-            (fk.MOD_MADD_ED, pk.ED_PT_ADD, pk.ED_PT_MADD, pk.ED_PT_DOUBLE, pk.ED_PT_LADDER_MUL_ADD))
+            (fk.MOD_MADD_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_MADD, pk.ED_PT_DOUBLE, pk.ED_PT_LADDER_MUL_ADD))
 BLS = Path("bls12_381_g1", 1024, 341, b"chip-smoke-bls",  # BASELINE.md config 5 at config 3's n, t
-           (fk.MOD_MADD_BLS, pk.BLS_PT_ADD, pk.BLS_PT_MADD, pk.BLS_PT_WINDOW_STEP, pk.BLS_PT_LADDER_MUL_ADD))
+           (fk.MOD_MADD_BLS, fk.MOD_MUL_BLS, pk.BLS_PT_ADD, pk.BLS_PT_MADD, pk.BLS_PT_WINDOW_STEP,
+            pk.BLS_PT_LADDER_MUL_ADD))
 PATHS = (SECP, R255, BLS)
-# paths that also split the fiat_shamir phase and run once more under the
-# profiler; the earlier paths skip those repeated passes (never a check)
-# to keep the command's time
+# paths that also split the fiat_shamir phase's two legs and run once more
+# under the profiler; the earlier paths skip those repeated passes (never
+# a check) to keep the command's time
 REPEATED_PASSES = (BLS,)
 TAMPER_N, TAMPER_T = 16, 5
 RANDOM_LANES = 1 << 16
@@ -130,6 +150,7 @@ RHO_BITS = 128  # BatchedCeremony.run's default
 # x 64 INT32 lanes x 1.98 GHz boost).
 BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations (a product-add is two)
 
 # 32x32->64-bit multiply-adds per lane of the kernels in csrc/ (field.cuh,
 # point.cuh, edwards.cuh), each counted as two 32-bit multiplies (the low
@@ -148,7 +169,15 @@ POINT_COSTS = {  # curve -> multiply-adds of (add, madd, double)
     "bls12_381_g1": (BLS_ADD, BLS_MADD, BLS_DOUBLE),
 }
 MADD_FIELD = {"secp256k1_scalar": 134, "secp256k1_base": 86, "ed25519_scalar": 189, "ed25519_base": 73,
-              "bls12_381_scalar": 189, "bls12_381_base": 403}
+              "bls12_381_scalar": 189, "bls12_381_base": 403}  # mod_madd's and mod_mul's multiply-adds
+
+
+def mxu_ops(fs) -> tuple[int, int]:
+    """The fused multiply-reduce of csrc/mxu.cuh per lane: 32-bit multiplies
+    (L**2 16x16-bit column products, n_split x L fold and L + 1 quotient
+    products) and the fold's (3L + 1) x 2L byte products."""
+    L, mr = fs.limbs, fs.mulred
+    return L * L + mr.n_split * L + L + 1, (3 * L + 1) * 2 * L
 
 PDIR = "dkg_tpu/ops/pallas_point.py"
 SOURCES = {
@@ -172,8 +201,14 @@ SOURCES = {
     "pt_window_step[bls12_381]": ("bls_kernels.cu", PDIR + ":328"),
     "pt_ladder_mul_add[bls12_381]": ("bls_kernels.cu", PDIR + ":356"),
     "bucket_accumulate[bls12_381]": ("bls_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
+    "mod_mul": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
+    "mod_mul[ed25519]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
+    "mod_mul[bls12_381]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
+    "mxu_mod_mul": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
+    "mxu_mod_mul[ed25519]": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
+    "mxu_mod_mul[bls12_381]": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
 }
-KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS)
+KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS, *mk.KERNELS)
 
 
 def check(cond, what: str) -> None:
@@ -292,7 +327,9 @@ class Case:
     plain: object
     rand_args: list  # of (label, wrapper, plain, args)
     main_args: list
-    muladds: int
+    muladds: int  # 32x32->64-bit multiply-adds, two 32-bit multiplies each
+    int32_muls: int = 0  # single 32-bit multiplies besides
+    int8_products: int = 0  # byte product-adds (the fused multiply-reduce's fold)
     plain_reps: int = 2  # timed calls of the plain version at main_args (1: no warm-up either)
     plain_rows: int | None = None  # hold and time the plain version on main_args' first rows only
 
@@ -307,6 +344,13 @@ def ladder_muladds(xs, double: int, add: int) -> int:
 def field_fns(fs):
     """(wrapper, plain) of mod_madd over ``fs``."""
     return (lambda a, b, c: fk.mod_madd(fs, a, b, c), lambda a, b, c: fk.mod_madd_plain(fs, a, b, c))
+
+
+def mul_fns(fs, gemm: bool):
+    """(wrapper, plain) of mod_mul (or, with ``gemm``, mxu_mod_mul) over ``fs``."""
+    if gemm:
+        return (lambda a, b: mk.mxu_mod_mul(fs, a, b), lambda a, b: fd._mul_gemm(fs, a, b))
+    return (lambda a, b: fk.mod_mul(fs, a, b), lambda a, b: fd.mul(fs, a, b))
 
 
 def point_fns(cs, op: str, *extra):
@@ -424,6 +468,21 @@ def kernel_cases(rng) -> dict:
         cases[name("pt_double")] = Case(
             path, *point_fns(cs, "pt_double", gd.WINDOW), dbl_rand, [points((t + 1,))],
             gd.WINDOW * dbl_c * (t + 1))
+        # the canonical affine form of the n(t+1) commitments A (and E): x·zi
+        # over all of them (the row), and one step of the batch inversion's
+        # chain over one of its 256 rows; each kernel over both fields of
+        # its family at random lanes
+        F, lanes_all = cs.field, n * (t + 1)
+        for gemm in (False, True):
+            kname = (mk.kernel_for(F) if gemm else fk.mul_kernel_for(F)).name
+            mul_rand = [(f"{lanes} of {fs.name}", *mul_fns(fs, gemm),
+                         [rand_field(rng, fs, R, 0), rand_field(rng, fs, R, 1)]) for fs in (F, S)]
+            for suffix, m in (("", lanes_all), (" batch_inv step", -(-lanes_all // 256))):
+                int32_muls, int8 = mxu_ops(F) if gemm else (0, 0)
+                cases[kname + suffix] = Case(
+                    path, *mul_fns(F, gemm), mul_rand if not suffix else [],
+                    [rand_field(rng, F, (m,)), rand_field(rng, F, (m,))],
+                    0 if gemm else MADD_FIELD[F.name] * m, int32_muls * m, int8 * m)
     return cases
 
 
@@ -442,22 +501,26 @@ def check_kernels(rng) -> dict:
         for label, wrapper, plain, args in case.rand_args:
             err = max(err, held(f"{name} {label}", wrapper(*args), plain(*args)))
         ms, res = cuda_ms(lambda: case.wrapper(*case.main_args), reps=10)
+        dev_ms = device_ms(lambda: case.wrapper(*case.main_args), reps=10)
         rows = case.plain_rows
         plain_args = case.main_args if rows is None else [case.main_args[0][:rows], *case.main_args[1:]]
         plain_ms, want = cuda_ms(lambda: case.plain(*plain_args), reps=case.plain_reps,
                                  warm_up=case.plain_reps > 1)
         err = max(err, held(name, res if rows is None else res[:rows], want))
         nbytes = sum(a.numel() * a.element_size() for a in case.main_args) + res.numel() * 4
-        bytes_ms, ops_ms = 1e3 * nbytes / BYTES_PER_S, 1e3 * 2 * case.muladds / INT32_MUL_PER_S
+        bytes_ms = 1e3 * nbytes / BYTES_PER_S
+        ops_ms = (1e3 * (2 * case.muladds + case.int32_muls) / INT32_MUL_PER_S
+                  + 1e3 * 2 * case.int8_products / INT8_OPS_PER_S)
         out[name] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "plain_rows": rows,
         }
-        print(f"kernel {name}: exact at random inputs "
-              f"({'; '.join(lbl for lbl, *_ in case.rand_args)}) and at "
+        rand = f"at random inputs ({'; '.join(lbl for lbl, *_ in case.rand_args)}) and " if case.rand_args else ""
+        print(f"kernel {name}: exact {rand}at "
               f"{case.path.curve} n={case.path.n} shape {tuple(res.shape)}"
-              f"{'' if rows is None else f' (plain on the first {rows} rows)'}; {ms:.4f} ms, "
+              f"{'' if rows is None else f' (plain on the first {rows} rows)'}; {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms), "
               f"plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.6f} ms "
               f"({out[name]['bound_by']})", flush=True)
     return out
@@ -479,6 +542,31 @@ def eval_host(q: int, coeffs_row, x: int) -> int:
     return acc
 
 
+class PlainMuls:
+    """Counts the plain field multiplies (``fd.mul``, ``fd._mul_gemm``) that
+    reach a CUDA tensor while the block runs: a kernel wrapper runs them
+    only on CPU tensors, so on a path of the card the count must stay 0."""
+
+    def __enter__(self):
+        self.count = 0
+        self._orig = {name: getattr(fd, name) for name in ("mul", "_mul_gemm")}
+
+        def counted(fn):
+            def wrapped(fs, a, b):
+                if a.device.type == "cuda" or b.device.type == "cuda":
+                    self.count += 1
+                return fn(fs, a, b)
+            return wrapped
+
+        for name, fn in self._orig.items():
+            setattr(fd, name, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(fd, name, fn)
+
+
 def main_path(path: Path, seed: int) -> tuple[cer.BatchedCeremony, dict, dict]:
     """Run the path's ceremony with every launch count set to 0 just
     before and read just after, and hold its outputs to host oracles.
@@ -488,10 +576,12 @@ def main_path(path: Path, seed: int) -> tuple[cer.BatchedCeremony, dict, dict]:
     for k in KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    c = cer.BatchedCeremony(path.curve, n, t, path.shared, random.Random(seed), device=DEV)
-    out = c.run(rlc=path.rlc)
-    sync()
+    with PlainMuls() as plain:
+        c = cer.BatchedCeremony(path.curve, n, t, path.shared, random.Random(seed), device=DEV)
+        out = c.run(rlc=path.rlc, mul=path.mul)
+        sync()
     launches = {k.name: k.launches for k in KERNELS}
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor on the {path.tag} path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     tag = path.tag
     print(f"main path {tag}: phases " + json.dumps({k: round(v, 6) for k, v in out["phase_seconds"].items()})
@@ -534,24 +624,97 @@ def same_outputs(tag: str, got: dict, want: dict) -> None:
     check(got["complaints"] == want["complaints"], f"{tag}: complaints differ from the Straus run's")
 
 
-def fiat_shamir_breakdown(cfg, out) -> None:
-    """Host-clock split of the fiat_shamir phase, its steps redone on the
-    main path's round-1 tensors."""
+ROUND1 = ("bare", "randomized", "shares", "hidings")
+
+
+def host_leg(cfg, out, split: bool) -> tuple:
+    """The host leg's three (n, 8) row arrays on the run's round-1 tensors;
+    with ``split``, step by step on the host clock, printed."""
+    if not split:
+        return cer._dealer_rows(cfg, *(out[k] for k in ROUND1), digest="host")
     n = cfg.n
     t = [time.perf_counter()]
-    a, e, s, r = (fh.from_tensor(out[k]) for k in ("bare", "randomized", "shares", "hidings"))
+    a, e, s, r = (fh.from_tensor(out[k]) for k in ROUND1)
     t.append(time.perf_counter())
     a, e = gd.affine_canon_host(cfg.cs, a), gd.affine_canon_host(cfg.cs, e)
     t.append(time.perf_counter())
     sr = np.concatenate([s.reshape(n, -1), r.reshape(n, -1)], axis=-1)
-    rows = [row_digests_np(x.reshape(n, -1), domain=d) for d, x in ((1, a), (2, e), (3, sr))]
+    rows = tuple(row_digests_np(x.reshape(n, -1), domain=d) for d, x in ((1, a), (2, e), (3, sr)))
     t.append(time.perf_counter())
-    cer.fiat_shamir_rho(cfg, cer._fold_digest_device(cfg, *rows), 128)
+    cer.fiat_shamir_rho(cfg, cer._fold_digest_device(cfg, *rows), RHO_BITS)
     t.append(time.perf_counter())
-    check(all(x.shape == (n, 8) for x in rows), "row digests have the wrong shape")
     steps = ("device to host", "canonical affine A, E", "BLAKE2s rows", "fold and rho")
-    print(f"fiat_shamir breakdown {cfg.curve} (host clock, s): " + json.dumps(
+    print(f"fiat_shamir host leg {cfg.curve} (host clock, s): " + json.dumps(
         {k: round(t[i + 1] - t[i], 6) for i, k in enumerate(steps)}), flush=True)
+    return rows
+
+
+def device_leg_split(cfg, out) -> None:
+    """The device leg (mod_mul's multiply) step by step on the run's round-1
+    tensors: CUDA events around each step and the host clock, each step
+    ended by a synchronise."""
+    k = cfg.n
+    a, e, s, r = (out[key] for key in ROUND1)
+    gemm_ms, gemm_canon = cuda_ms(lambda: [gd.affine_canon(cfg.cs, x, mul="gemm") for x in (a, e)], reps=1,
+                                  warm_up=False)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    sync()
+    t = [time.perf_counter()]
+    events[0].record()
+    canon = [gd.affine_canon(cfg.cs, x) for x in (a, e)]
+    events[1].record()
+    sync()
+    t.append(time.perf_counter())
+    check(all(torch.equal(x, y) for x, y in zip(canon, gemm_canon)), "affine_canon differs under mul=gemm")
+    sr = torch.cat([s.reshape(k, -1), r.reshape(k, -1)], dim=-1)
+    rows = [dh.to_numpy(dh.row_digests(x.reshape(k, -1), domain=d))
+            for d, x in ((1, canon[0]), (2, canon[1]), (3, sr))]
+    events[2].record()
+    sync()
+    t.append(time.perf_counter())
+    rho = cer.fiat_shamir_rho(cfg, cer._fold_digest_device(cfg, *rows), RHO_BITS)
+    events[3].record()
+    sync()
+    t.append(time.perf_counter())
+    check(np.array_equal(rho, fh.from_tensor(out["rho"])), "the split device leg's rho differs from the run's")
+    steps = ("canonical affine A, E", "BLAKE2s rows", "fold and rho")
+    print(f"fiat_shamir device leg {cfg.curve}: CUDA events (ms) " + json.dumps(
+        {k: round(events[i].elapsed_time(events[i + 1]), 3) for i, k in enumerate(steps)})
+        + "; host clock (s) " + json.dumps({k: round(t[i + 1] - t[i], 6) for i, k in enumerate(steps)})
+        + f"; canonical affine A, E under mul=gemm {gemm_ms:.3f} ms (CUDA events)", flush=True)
+
+
+def digest_legs(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
+    """On the Straus run's round-1 tensors: the device leg under each
+    multiply, with every launch count set to 0 just before, must launch its
+    own kernel family and not the other, and no plain multiply may reach a
+    CUDA tensor; both give the host leg's three (n, 8) row arrays, and those
+    the run's rho.  On REPEATED_PASSES, each leg is also split step by step."""
+    cfg, F = c.cfg, path.cs.field
+    rows = {}
+    for mul, own, other in (("classic", fk.mul_kernel_for(F), mk.kernel_for(F)),
+                            ("gemm", mk.kernel_for(F), fk.mul_kernel_for(F))):
+        for k in KERNELS:
+            k.launches = 0
+        with PlainMuls() as plain:
+            rows[mul] = cer._dealer_rows(cfg, *(out[k] for k in ROUND1), digest="device", mul=mul)
+            sync()
+        check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the digest")
+        check(own.launches > 0 and other.launches == 0,
+              f"digest mul={mul}: {own.name} launched {own.launches}, {other.name} {other.launches} times")
+        print(f"digest {path.curve} mul={mul}: {own.launches} launches of {own.name}, none of {other.name}, "
+              "no plain multiply on the card", flush=True)
+    rows["host"] = host_leg(cfg, out, path in REPEATED_PASSES)
+    for leg, arrays in rows.items():
+        check(len(arrays) == 3 and all(x.shape == (cfg.n, 8) and x.dtype == np.uint32 for x in arrays),
+              f"{leg} leg: row digests have the wrong shape")
+        check(all(np.array_equal(x, y) for x, y in zip(arrays, rows["host"])), f"{leg} leg's rows != the host leg's")
+    rho = cer.fiat_shamir_rho(cfg, cer._fold_digest_device(cfg, *rows["host"]), RHO_BITS)
+    check(np.array_equal(rho, fh.from_tensor(out["rho"])), "the host leg's rho differs from the run's")
+    print(f"digest {path.curve} n={cfg.n}: the device leg's three (n, 8) row arrays under mul=classic and "
+          "mul=gemm equal the host leg's, and give the run's rho", flush=True)
+    if path in REPEATED_PASSES:
+        device_leg_split(cfg, out)
 
 
 # profiler kernel names -> kernel names: the first entry whose every
@@ -559,7 +722,9 @@ def fiat_shamir_breakdown(cfg, out) -> None:
 # are templates (csrc/point_kernels.cuh, bucket.cuh) whose name carries
 # the curve (Secp256k1, Bls12381) as its template argument, mangled or
 # not; "pt_add_kernel" is also inside "ed_pt_add_kernel", so the Edwards
-# kernels come first.  mod_madd_kernel is the path's mod_madd.
+# kernels come first, and "mod_mul_kernel" is inside "mxu_mod_mul_kernel".
+# The field kernels' names carry a field id: "madd", "mul" and "mxu" stand
+# for the path's own family of mod_madd, mod_mul and mxu_mod_mul.
 PROFILE_GROUPS = (
     (("ed_pt_add_kernel",), "pt_add[edwards]"), (("ed_pt_madd_kernel",), "pt_madd[edwards]"),
     (("ed_pt_double_kernel",), "pt_double[edwards]"), (("ed_pt_ladder_kernel",), "pt_ladder_mul_add[edwards]"),
@@ -569,8 +734,26 @@ PROFILE_GROUPS = (
       for fn, op in (("pt_add", "pt_add"), ("pt_madd", "pt_madd"), ("pt_double", "pt_double"),
                      ("pt_window_step", "pt_window_step"), ("pt_ladder", "pt_ladder_mul_add"),
                      ("bucket", "bucket_accumulate"))),
-    (("mod_madd_kernel",), None), (("Memcpy DtoH",), "copy to host"),
+    (("mxu_mod_mul_kernel",), "mxu"), (("mod_mul_kernel",), "mul"), (("mod_madd_kernel",), "madd"),
+    (("Memcpy DtoH",), "copy to host"),
 )
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` with the host out of the way: a
+    spin kernel (about 25 ms) holds the stream while the host enqueues all
+    ``reps`` calls, so the CUDA events around them time the calls' kernels
+    back to back (the wrappers' broadcast copies included)."""
+    fn()
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def profiled(path: Path, label: str, fn) -> None:
@@ -580,23 +763,26 @@ def profiled(path: Path, label: str, fn) -> None:
     Every kernel of the path must show device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    madd = next(k.name for k in path.kernels if k.name.startswith("mod_madd"))
+    F = path.cs.field
+    family = {"madd": fk._FIELDS[path.cs.scalar][0].name, "mul": fk.mul_kernel_for(F).name,
+              "mxu": mk.kernel_for(F).name}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    device_ms: dict[str, float] = {}
+    dev: dict[str, float] = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        group = next((g or madd for keys, g in PROFILE_GROUPS if all(k in e.name for k in keys)), "torch ops")
-        device_ms[group] = device_ms.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(device_ms.values())
-    check(all(device_ms.get(k.name, 0) > 0 for k in path.kernels), f"profile saw {device_ms}")
+        group = next((family.get(g, g) for keys, g in PROFILE_GROUPS if all(k in e.name for k in keys)),
+                     "torch ops")
+        dev[group] = dev.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(dev.values())
+    check(all(dev.get(k.name, 0) > 0 for k in path.kernels), f"profile saw {dev}")
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.2f} %), device ms "
-          + json.dumps({k: round(v, 3) for k, v in sorted(device_ms.items())}), flush=True)
+          + json.dumps({k: round(v, 3) for k, v in sorted(dev.items())}), flush=True)
 
 
 def profile_main_path(path: Path, seed: int) -> None:
@@ -686,8 +872,8 @@ def main() -> None:
     for path in PATHS:
         c, out, path_launches = main_path(path, args.seed)
         keep(path_launches)
+        digest_legs(path, c, out)
         if path in REPEATED_PASSES:
-            fiat_shamir_breakdown(c.cfg, out)
             profile_main_path(path, args.seed)
         pip = path.pippenger()
         _, pip_out, pip_launches = main_path(pip, args.seed)
@@ -697,6 +883,14 @@ def main() -> None:
               f"straus {out['phase_seconds']['verify']:.6f}, pippenger {pip_out['phase_seconds']['verify']:.6f}",
               flush=True)
         del pip_out
+        gemm = path.gemm()
+        _, gemm_out, gemm_launches = main_path(gemm, args.seed)
+        same_outputs(gemm.tag, gemm_out, out)
+        keep(gemm_launches)
+        print(f"main path {gemm.tag}: every output equals the Straus run's; fiat_shamir (host clock, s) "
+              f"classic {out['phase_seconds']['fiat_shamir']:.6f}, gemm {gemm_out['phase_seconds']['fiat_shamir']:.6f}",
+              flush=True)
+        del gemm_out
         rlc_schedules(path, c, out)
         del c, out
     for i, path in enumerate(PATHS):

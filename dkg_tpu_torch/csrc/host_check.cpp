@@ -5,8 +5,11 @@
 // edwards.cuh and bucket.cuh code that field_kernels.cu, point_kernels.cu,
 // edwards_kernels.cu, double_kernels.cu, bucket_kernels.cu and
 // bls_kernels.cu run on the card, the three reductions (fold at 2^256,
-// fold at 2^255, Barrett at 8 and 12 words) included.
+// fold at 2^255, Barrett at 8 and 12 words) included, and the fused
+// multiply-reduce of mxu.cuh (mxu_kernels.cu), whole and from its two
+// inner steps, so its integer bounds can be driven to their worst cases.
 #include "bucket.cuh"
+#include "mxu.cuh"
 
 using namespace dkg;
 
@@ -26,6 +29,41 @@ void mod_madd_lanes(const int32_t* a, const int32_t* b, const int32_t* c, int32_
     load_elem<N>(c + lane * 2 * N, z);
     fmadd<F>(r, x, y, z);
     store_elem<N>(out + lane * 2 * N, r);
+  }
+}
+
+template <int F>
+void mod_mul_lanes(const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
+  constexpr int N = Field<F>::N;
+  for (int64_t lane = 0; lane < n; ++lane) {
+    uint32_t x[N], y[N], r[N];
+    load_elem<N>(a + lane * 2 * N, x);
+    load_elem<N>(b + lane * 2 * N, y);
+    fmul<F>(r, x, y);
+    store_elem<N>(out + lane * 2 * N, r);
+  }
+}
+
+// mode 0: (a, b) -> a * b mod p, the kernel's lane; mode 1: 2L columns
+// at a -> their value mod p (steps 2 to 8); mode 2: L + 1 normalized
+// limbs at a -> their value mod p (steps 7 and 8).
+template <int L>
+void mxu_lanes(int mode, const int32_t* a, const int32_t* b, int32_t* out, int64_t n,
+               const MulRed& k) {
+  for (int64_t lane = 0; lane < n; ++lane) {
+    if (mode == 0) {
+      mxu_mul_lane<L>(a + lane * L, b + lane * L, out + lane * L, k);
+      continue;
+    }
+    uint32_t col[2 * L], v[L + 1], r[L];
+    if (mode == 1) {
+      for (int j = 0; j < 2 * L; ++j) col[j] = (uint32_t)a[lane * 2 * L + j];
+      mxu_fold<L>(col, v, k);
+    } else {
+      for (int j = 0; j <= L; ++j) v[j] = (uint32_t)a[lane * (L + 1) + j];
+    }
+    mxu_quotient<L>(v, r, k);
+    for (int j = 0; j < L; ++j) out[lane * L + j] = (int32_t)r[j];
   }
 }
 
@@ -94,6 +132,31 @@ int host_mod_madd(const int32_t* a, const int32_t* b, const int32_t* c, int32_t*
     case kEdL: mod_madd_lanes<kEdL>(a, b, c, out, n); return 0;
     case kBlsP: mod_madd_lanes<kBlsP>(a, b, c, out, n); return 0;
     case kBlsR: mod_madd_lanes<kBlsR>(a, b, c, out, n); return 0;
+    default: return 1;
+  }
+}
+
+int host_mod_mul(const int32_t* a, const int32_t* b, int32_t* out, int64_t n, int field) {
+  switch (field) {
+    case kSecpP: mod_mul_lanes<kSecpP>(a, b, out, n); return 0;
+    case kSecpN: mod_mul_lanes<kSecpN>(a, b, out, n); return 0;
+    case kEdP: mod_mul_lanes<kEdP>(a, b, out, n); return 0;
+    case kEdL: mod_mul_lanes<kEdL>(a, b, out, n); return 0;
+    case kBlsP: mod_mul_lanes<kBlsP>(a, b, out, n); return 0;
+    case kBlsR: mod_mul_lanes<kBlsR>(a, b, out, n); return 0;
+    default: return 1;
+  }
+}
+
+// The constants as dkg_mxu_mod_mul takes them; returns 1 for another
+// limb count.
+int host_mxu_mod_mul(int mode, const int32_t* a, const int32_t* b, int32_t* out, int64_t n,
+                     int limbs, const void* foldm, const uint32_t* qtable, const uint32_t* c,
+                     const uint32_t* np, int n_split, int shift_e) {
+  const MulRed k{(const uint32_t*)foldm, qtable, c, np, n_split, shift_e};
+  switch (limbs) {
+    case 16: mxu_lanes<16>(mode, a, b, out, n, k); return 0;
+    case 24: mxu_lanes<24>(mode, a, b, out, n, k); return 0;
     default: return 1;
   }
 }

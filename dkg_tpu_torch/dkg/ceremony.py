@@ -11,7 +11,12 @@ randomizers.  State is struct-of-arrays over all parties at once:
   ``pt_madd`` launch per window), and the n×n share/hiding matrices by
   Horner (``eval_many``, one ``mod_madd`` launch per coefficient);
 * ``derive_rho`` — per-dealer BLAKE2s Merkle digests of the canonical
-  transcript, folded with BLAKE2b, then n BLAKE2b randomizers;
+  transcript, folded with BLAKE2b, then n BLAKE2b randomizers; on the
+  device leg (the default) the commitments are made canonical affine
+  (``affine_canon``: each multiply one ``mod_mul`` launch, or
+  ``mxu_mod_mul`` under ``mul="gemm"``) and the Merkle rows hashed where
+  the tensors are (``crypto/device_hash.py``), only the (n, 8) row
+  digests crossing to the host; the host leg does both on the host;
 * ``verify_batch`` — with randomizers rho_j each recipient i checks
   g·(Σ_j rho_j s_ji) + h·(Σ_j rho_j s'_ji) == Σ_l i^l · (Σ_j rho_j E_jl):
   scalar RLCs folded through ``mod_madd``, the point RLC by Straus
@@ -37,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from ..crypto import device_hash as dh
 from ..crypto.blake2s import row_digests_np
 from ..crypto.commitment import CommitmentKey
 from ..fields import device as fd
@@ -224,26 +230,44 @@ def master_key_from_bare(cfg: CeremonyConfig, a_comm, qualified):
 
 
 # ---------------------------------------------------------------------------
-# transcript digest and Fiat-Shamir randomizers (host)
+# transcript digest and Fiat-Shamir randomizers
 # ---------------------------------------------------------------------------
 
+DIGESTS = ("device", "host")
 
-def _dealer_rows(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings):
+
+def _dealer_rows(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings, *, digest: str = "device",
+                 mul: str = "classic"):
     """Per-dealer BLAKE2s Merkle digests of the four round-1 tensors,
     commitments in canonical affine form (rho must not depend on which
     addition schedule produced the projective coordinates): three (k, 8)
-    uint32 arrays."""
+    uint32 arrays, the same under either leg.
+
+    ``digest="device"`` canonicalises (``gd.affine_canon`` with ``mul``'s
+    multiply) and hashes (``crypto/device_hash.py``) where the tensors are;
+    ``"host"`` moves them to the host for big-int canonicalisation
+    (``gd.affine_canon_host``) and the numpy tree (``row_digests_np``).
+    They stand for the JAX package's ``DKG_TPU_DIGEST=device|host``."""
     k = shares.shape[0]
-    a_canon = gd.affine_canon_host(cfg.cs, fh.from_tensor(a_comm))
-    e_canon = gd.affine_canon_host(cfg.cs, fh.from_tensor(e_comm))
-    sr = np.concatenate(
-        [fh.from_tensor(shares).reshape(k, -1), fh.from_tensor(hidings).reshape(k, -1)], axis=-1
-    )
-    return (
-        row_digests_np(a_canon.reshape(k, -1), domain=1),
-        row_digests_np(e_canon.reshape(k, -1), domain=2),
-        row_digests_np(sr, domain=3),
-    )
+    if digest == "host":
+        a_canon = gd.affine_canon_host(cfg.cs, fh.from_tensor(a_comm))
+        e_canon = gd.affine_canon_host(cfg.cs, fh.from_tensor(e_comm))
+        sr = np.concatenate(
+            [fh.from_tensor(shares).reshape(k, -1), fh.from_tensor(hidings).reshape(k, -1)], axis=-1
+        )
+        return (
+            row_digests_np(a_canon.reshape(k, -1), domain=1),
+            row_digests_np(e_canon.reshape(k, -1), domain=2),
+            row_digests_np(sr, domain=3),
+        )
+    if digest != "device":
+        raise ValueError(f"digest must be one of {DIGESTS}, got {digest!r}")
+    a_canon = gd.affine_canon(cfg.cs, a_comm, mul=mul)
+    e_canon = gd.affine_canon(cfg.cs, e_comm, mul=mul)
+    sr = torch.cat([shares.reshape(k, -1), hidings.reshape(k, -1)], dim=-1)
+    rows = (dh.row_digests(a_canon.reshape(k, -1), domain=1), dh.row_digests(e_canon.reshape(k, -1), domain=2),
+            dh.row_digests(sr, domain=3))
+    return tuple(dh.to_numpy(r) for r in rows)
 
 
 def _fold_digest_device(cfg: CeremonyConfig, rows_a, rows_e, rows_sr) -> bytes:
@@ -256,10 +280,46 @@ def _fold_digest_device(cfg: CeremonyConfig, rows_a, rows_e, rows_sr) -> bytes:
     return h.digest()
 
 
-def transcript_digest_device(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings) -> bytes:
+def transcript_digest_device(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings, *, digest: str = "device",
+                             mul: str = "classic") -> bytes:
     """The canonical engine transcript digest (the JAX package's device
-    family, computed here by its host leg)."""
-    return _fold_digest_device(cfg, *_dealer_rows(cfg, a_comm, e_comm, shares, hidings))
+    family), by either leg of :func:`_dealer_rows`."""
+    return _fold_digest_device(cfg, *_dealer_rows(cfg, a_comm, e_comm, shares, hidings, digest=digest, mul=mul))
+
+
+def _dealer_row_digests(shares_rows: np.ndarray, hidings_rows: np.ndarray) -> np.ndarray:
+    """Per-dealer BLAKE2b digests of the delivered share and hiding rows:
+    (k, n, L) uint32 x2 -> (k, 32) uint8."""
+    out = np.zeros((len(shares_rows), 32), np.uint8)
+    for i in range(len(shares_rows)):
+        h = hashlib.blake2b(digest_size=32, person=b"dkgtpu-row")
+        h.update(np.ascontiguousarray(shares_rows[i]))
+        h.update(np.ascontiguousarray(hidings_rows[i]))
+        out[i] = np.frombuffer(h.digest(), np.uint8)
+    return out
+
+
+def _fold_digest(cfg: CeremonyConfig, a_np: np.ndarray, e_np: np.ndarray, row_digests: np.ndarray) -> bytes:
+    h = hashlib.blake2b(digest_size=32, person=b"dkgtpu-tr")
+    h.update(f"{cfg.curve}|{cfg.n}|{cfg.t}|".encode())
+    for arr in (a_np, e_np):
+        a = np.ascontiguousarray(arr)
+        h.update(str(a.shape).encode() + str(a.dtype).encode())
+        h.update(a)
+    h.update(np.ascontiguousarray(row_digests))
+    return h.digest()
+
+
+def transcript_digest(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings, *, mul: str = "classic") -> bytes:
+    """The byte-level audit digest of the complete round-1 transcript (the
+    JAX package's ``transcript_digest``): BLAKE2b over the canonical affine
+    commitments (``gd.affine_canon``, where the tensors are) and per-dealer
+    BLAKE2b digests of the share and hiding rows.  A ceremony uses one
+    digest family; the engine's is :func:`transcript_digest_device`."""
+    rows = _dealer_row_digests(fh.from_tensor(shares), fh.from_tensor(hidings))
+    a_canon = fh.from_tensor(gd.affine_canon(cfg.cs, a_comm, mul=mul))
+    e_canon = fh.from_tensor(gd.affine_canon(cfg.cs, e_comm, mul=mul))
+    return _fold_digest(cfg, a_canon, e_canon, rows)
 
 
 def rho_digests(transcript: bytes, n: int, nbytes: int) -> np.ndarray:
@@ -303,10 +363,18 @@ def fiat_shamir_rho(cfg: CeremonyConfig, transcript: bytes, rho_bits: int) -> np
     return out
 
 
-def derive_rho(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings, rho_bits: int) -> np.ndarray:
+def derive_rho(cfg: CeremonyConfig, a_comm, e_comm, shares, hidings, rho_bits: int, *, device: bool = True,
+               digest: str = "device", mul: str = "classic") -> np.ndarray:
     """rho from the real round-1 transcript: binds all four tensors (A as
-    well, since it feeds the master key)."""
-    return fiat_shamir_rho(cfg, transcript_digest_device(cfg, a_comm, e_comm, shares, hidings), rho_bits)
+    well, since it feeds the master key).  ``device=True`` takes the
+    Merkle family (:func:`transcript_digest_device`, by the ``digest`` leg),
+    ``device=False`` the byte-level audit digest (:func:`transcript_digest`);
+    ``mul`` is the canonical affine form's multiply."""
+    if device:
+        transcript = transcript_digest_device(cfg, a_comm, e_comm, shares, hidings, digest=digest, mul=mul)
+    else:
+        transcript = transcript_digest(cfg, a_comm, e_comm, shares, hidings, mul=mul)
+    return fiat_shamir_rho(cfg, transcript, rho_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +429,8 @@ class BatchedCeremony:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, rho_bits: int = 128, tamper=None, rlc: str = "straus") -> dict:
+    def run(self, rho_bits: int = 128, tamper=None, rlc: str = "straus", digest: str = "device",
+            mul: str = "classic") -> dict:
         """The whole ceremony, blame path included.
 
         One RLC batch verification covers all n·(n-1) share relations.  If
@@ -373,14 +442,20 @@ class BatchedCeremony:
 
         ``tamper(a, e, s, r) -> (a, e, s, r)`` runs after dealing, to
         inject faults.  ``rlc`` is the point RLC's schedule (``"straus"``,
-        ``"pippenger"`` or ``"bits"``); every output but the timings is the
-        same under each.  Returns tensors (``bare``, ``randomized``,
+        ``"pippenger"`` or ``"bits"``), ``digest`` the transcript digest's
+        leg (``"device"``, the JAX package's own choice on its accelerator,
+        or ``"host"``) and ``mul`` the multiply of its canonical affine form
+        (``"classic"``, ``mod_mul``, or ``"gemm"``, ``mxu_mod_mul``); every
+        output but the timings is the same under each.  Returns tensors (``bare``, ``randomized``,
         ``shares``, ``hidings``, ``rho``, ``ok``, ``qualified``,
         ``final_shares``, ``master``), ``complaints`` as 1-based (recipient,
         dealer) pairs, and ``phase_seconds`` (host clock, each phase ended
         by a device synchronise)."""
         if rlc not in RLC_MODES:
             raise ValueError(f"rlc must be one of {RLC_MODES}, got {rlc!r}")
+        if digest not in DIGESTS:
+            raise ValueError(f"digest must be one of {DIGESTS}, got {digest!r}")
+        gd.field_mul(mul)  # raises for an unknown mul
         cfg = self.cfg
         seconds = {"tables": self.table_seconds}
         clock = time.perf_counter()
@@ -397,7 +472,7 @@ class BatchedCeremony:
         if tamper is not None:
             a, e, s, r = tamper(a, e, s, r)
             clock = time.perf_counter()
-        rho = fh.to_tensor(derive_rho(cfg, a, e, s, r, rho_bits), self.device)
+        rho = fh.to_tensor(derive_rho(cfg, a, e, s, r, rho_bits, digest=digest, mul=mul), self.device)
         phase("fiat_shamir")
         ok = verify_batch(cfg, e, s, r, rho, rho_bits, self.g_table, self.h_table, rlc)
         phase("verify")

@@ -10,7 +10,12 @@ Public functions take and return ``int32`` limbs.  Inside, limbs widen
 to ``int64``: schoolbook columns reach ``L * 2**32`` and a borrow is
 ``s < 0`` rather than the JAX package's ``uint32`` wrap ``s >> 31``.
 These functions are also the plain versions that the CUDA kernels in
-``dkg_tpu_torch/ops`` are held against.
+``dkg_tpu_torch/ops`` are held against: :func:`mul` of ``mod_mul``,
+:func:`_mul_gemm` of ``mxu_mod_mul``.
+
+:func:`pow_const`, :func:`inv` and :func:`batch_inv` chain a multiply
+given as ``mul=`` (default :func:`mul`, resolved when called): the device
+path passes a kernel wrapper, so each step is one launch.
 """
 
 from __future__ import annotations
@@ -78,14 +83,23 @@ def cond_sub(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Full product of int64 limb tensors: (..., La) x (..., Lb) -> (..., La+Lb)."""
+def _mul_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unnormalized schoolbook product columns of int64 limb tensors:
+    (..., La) x (..., Lb) -> (..., La+Lb), column i+j taking the low 16
+    bits of a_i·b_j and column i+j+1 its high 16 bits (each column < 2**22
+    for L <= 24)."""
     la, lb = a.shape[-1], b.shape[-1]
     prod = (a[..., :, None] * b[..., None, :]).flatten(-2)  # 16x16 -> 32 bits, exact
     col = (torch.arange(la, device=a.device)[:, None] + torch.arange(lb, device=a.device)).flatten()
     cols = torch.zeros(prod.shape[:-1] + (la + lb,), dtype=torch.int64, device=prod.device)
-    cols.index_add_(-1, col, prod)  # columns < L * 2**32
-    return normalize(cols, la + lb)
+    cols.index_add_(-1, col, prod & MASK16)
+    cols.index_add_(-1, col + 1, prod >> 16)
+    return cols
+
+
+def mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full product of int64 limb tensors: (..., La) x (..., Lb) -> (..., La+Lb)."""
+    return normalize(_mul_columns(a, b), a.shape[-1] + b.shape[-1])
 
 
 def barrett_reduce(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
@@ -144,8 +158,92 @@ def mul(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return barrett_reduce(fs, mul_wide(_wide(a), _wide(b))).to(torch.int32)
 
 
+def _mul_gemm(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a·b) mod p by the fused multiply-reduce (``fs.mulred``): the plain
+    version of the ``mxu_mod_mul`` kernel, the JAX package's
+    ``fields.device._mul_gemm`` step for step.
+
+    1. the unnormalized product columns (:func:`_mul_columns`);
+    2. the high half's three byte planes and P_{L-1}'s spill, 3L+1 digits
+       in :class:`~dkg_tpu_torch.fields.spec.MulReduceSpec`'s order,
+       folded against the byte matrix ``foldm`` as an int64 sum of
+       digit x byte products (exact: every column sum is < 2**24 by the
+       admission proof), never a floating-point product;
+    3. ``n_split`` scan-free column folds through c = b**L mod p, one
+       normalize into L+1 limbs, the quotient from ``qtable`` indexed by
+       the top bits, w = v - q·p, one conditional subtraction.
+
+    The result is the canonical residue, equal to :func:`mul`'s."""
+    mr = fs.mulred
+    if mr is None:
+        raise ValueError(f"{fs.name} does not admit the fused multiply-reduce")
+    L = fs.limbs
+    cols = _mul_columns(_wide(a), _wide(b))
+    plo, phi = cols[..., :L], cols[..., L:]
+    digits = torch.cat([phi & 0xFF, (phi >> 8) & 0xFF, phi >> 16, plo[..., L - 1 :] >> 16], dim=-1)
+    foldm = _limb_const(mr.foldm, cols)  # (3L+1, 2L) bytes
+    cols8 = torch.zeros_like(cols)
+    for i in range(3 * L + 1):
+        cols8 += digits[..., i : i + 1] * foldm[i]
+    keep = torch.cat([plo[..., : L - 1], plo[..., L - 1 :] & MASK16], dim=-1)
+    cols = keep + cols8[..., 0::2] + (cols8[..., 1::2] << 8)
+    c = _limb_const(mr.c_limbs, cols)
+    for _ in range(mr.n_split):
+        hi16 = cols >> 16
+        cols = (cols & MASK16) + torch.nn.functional.pad(hi16[..., :-1], (1, 0)) + hi16[..., L - 1 :] * c
+    v = normalize(cols, L + 1)
+    u = (v[..., L - 1] >> mr.shift_e) | (v[..., L] << (16 - mr.shift_e))
+    q = _limb_const(mr.qtable, v)[u]
+    w = normalize(v + q[..., None] * _limb_const(mr.np_limbs, v), L + 1)
+    return cond_sub(w, _limb_const(fs.p_limbs_ext, w))[..., :L].to(torch.int32)
+
+
 def square(fs: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mul(fs, a, a)
+
+
+def pow_const(fs: FieldSpec, x: torch.Tensor, e: int, *, mul=None) -> torch.Tensor:
+    """x**e mod p for a public exponent, MSB first: one squaring a bit and
+    one multiply by x a set bit (the exponent is public, so a zero bit
+    skips its multiply; the value equals the JAX package's
+    square-and-select).  ``mul(fs, a, b)`` is the multiply chained."""
+    if e < 0:
+        raise ValueError("negative exponent")
+    mul = globals()["mul"] if mul is None else mul
+    if e == 0:
+        return ones(fs, x.shape[:-1], device=x.device)
+    acc = x
+    for bit in bin(e)[3:]:
+        acc = mul(fs, acc, acc)
+        if bit == "1":
+            acc = mul(fs, acc, x)
+    return acc
+
+
+def inv(fs: FieldSpec, x: torch.Tensor, *, mul=None) -> torch.Tensor:
+    """Fermat inverse x**(p-2); maps 0 to 0 (callers guard zero)."""
+    return pow_const(fs, x, fs.modulus - 2, mul=mul)
+
+
+def batch_inv(fs: FieldSpec, x: torch.Tensor, axis: int = 0, *, mul=None) -> torch.Tensor:
+    """Montgomery-trick inversion along ``axis``: one Fermat inversion and
+    3(k-1) multiplies for k elements, each over the other axes at once.
+    A zero input spoils its own lane only (callers never invert zero)."""
+    mul = globals()["mul"] if mul is None else mul
+    x = x.movedim(axis, 0)
+    k = x.shape[0]
+    prefix = [ones(fs, x.shape[1:-1], device=x.device)]  # exclusive prefix products
+    total = x[0]
+    for i in range(1, k):
+        prefix.append(total)
+        total = mul(fs, total, x[i])
+    run = inv(fs, total, mul=mul)
+    out = [None] * k
+    for i in reversed(range(k)):
+        out[i] = mul(fs, run, prefix[i]) if i else run
+        if i:
+            run = mul(fs, run, x[i])  # strip x_i from the running inverse
+    return torch.stack(out).movedim(0, axis)
 
 
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

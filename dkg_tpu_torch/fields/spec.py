@@ -9,8 +9,9 @@ kernels read the same memory as ``uint32_t``.
 
 What the ported ceremonies need is here: the moduli of secp256k1,
 ristretto255 and BLS12-381 G1 (its 381-bit base field takes L = 24
-limbs), the Barrett constants the plain multiply uses, and the limb
-conversions.
+limbs), the Barrett constants the plain multiply uses, the constants of
+the fused multiply-reduce (:class:`MulReduceSpec`, with their admission
+proof), and the limb conversions.
 """
 
 from __future__ import annotations
@@ -84,6 +85,20 @@ class FieldSpec:
         mu = (1 << (2 * LIMB_BITS * self.limbs)) // self.modulus
         return int_to_limbs(mu, self.limbs + 1)
 
+    @functools.cached_property
+    def mulred(self) -> "MulReduceSpec | None":
+        """Constants of the fused multiply-reduce (``fields.device._mul_gemm``
+        and the ``mxu_mod_mul`` kernel), or ``None`` when the field fails
+        admission.
+
+        The *unnormalized* schoolbook product columns fold directly: each
+        high column P_c (c >= L, < 2**22) splits into three bytes with
+        residues 2**(16c + 8t) mod p, plus the spill digit P_{L-1} >> 16
+        with residue 2**(16L) mod p: 3L+1 digits against one byte matrix,
+        then scan-free column folds and a quotient table.  Every bound is
+        proved with exact Python ints in :func:`_build_mulred`."""
+        return _build_mulred(self)
+
     def rand_int(self, rng) -> int:
         """Uniform field element by rejection sampling from ``rng.getrandbits``
         (the same draw sequence as the JAX package, so one
@@ -92,6 +107,130 @@ class FieldSpec:
             x = rng.getrandbits(self.bits)
             if x < self.modulus:
                 return x
+
+
+@dataclasses.dataclass(frozen=True)
+class MulReduceSpec:
+    """Constants of the fused multiply-reduce, every bound proved with
+    exact integer arithmetic in :func:`_build_mulred`.
+
+    Digit order (the plain version and the kernel build the digits in
+    exactly this order): for the unnormalized product columns P_c,
+
+    * digits [0, L)   -- byte 0 of P_c, c = L .. 2L-1
+    * digits [L, 2L)  -- byte 1 of P_c, c = L .. 2L-1
+    * digits [2L, 3L) -- byte 2 of P_c (< 2**6), c = L .. 2L-1
+    * digit  3L       -- P_{L-1} >> 16 (< 2**6), residue b**L mod p
+
+    ``foldm`` holds bytes, as uint8: the JAX package keeps the same values
+    as float32 for its matrix unit; the port folds them as integers."""
+
+    foldm: np.ndarray  # (3L+1, 2L) uint8: foldm[i, m] = byte m of R_i
+    c_limbs: np.ndarray  # (L,) uint32: c = b**L mod p
+    n_split: int  # scan-free column-fold iterations
+    shift_e: int  # quotient index = value >> (16*(L-1) + shift_e)
+    qtable: np.ndarray  # (u_max+1,) uint32: floor(u * 2**s / p)
+    np_limbs: np.ndarray  # (L+1,) uint32: b**(L+1) - p  (adds as "-p")
+
+
+def _fold_tail(fs: FieldSpec, colb: list) -> tuple | None:
+    """Replay the scan-free column folds and derive the quotient table over
+    exact per-column integer bounds ``colb``.
+
+    Returns ``(n_split, shift_e, qtable, np_limbs, c)``, or ``None`` when
+    an invariant fails (inadmissible rather than silently wrong)."""
+    L, p, b = fs.limbs, fs.modulus, 1 << LIMB_BITS
+    col_cap = (1 << 32) - (1 << LIMB_BITS)  # columns stay inside uint32
+    if max(colb) > col_cap:
+        return None
+
+    # scan-free column folds: the top spill times c = b**L mod p
+    c = (1 << (LIMB_BITS * L)) % p
+    c_l = [int(v) for v in int_to_limbs(c, L)]
+    vb = sum(cb << (LIMB_BITS * j) for j, cb in enumerate(colb))
+    n_split, best = 0, (vb, list(colb))
+    for it in range(1, 65):
+        lob = [min(cb, b - 1) for cb in colb]
+        hib = [cb >> LIMB_BITS for cb in colb]
+        topb = hib[L - 1]
+        colb = [lob[j] + (hib[j - 1] if j else 0) + topb * c_l[j] for j in range(L)]
+        if max(colb) > col_cap:
+            return None
+        vb = sum(cb << (LIMB_BITS * j) for j, cb in enumerate(colb))
+        if vb >= best[0]:
+            break
+        n_split, best = it, (vb, list(colb))
+    vb = best[0]
+    if vb >= 1 << (LIMB_BITS * (L + 1)):  # must normalize into L+1 limbs
+        return None
+
+    # quotient table over the top ~12 bits: with u = floor(v / 2**s) and
+    # 2**s <= p the true quotient is qtable[u] or qtable[u] + 1, which one
+    # conditional subtraction fixes
+    u_full_bits = (vb >> (LIMB_BITS * (L - 1))).bit_length()
+    shift_e = max(0, u_full_bits - 12)
+    s = LIMB_BITS * (L - 1) + shift_e
+    if (1 << s) > p:
+        return None
+    u_max = vb >> s
+    if u_max >= 1 << 13:
+        return None
+    qtable = np.array([(u << s) // p for u in range(u_max + 1)], np.uint32)
+    q_max = vb // p
+    if (b - 1) + q_max * (b - 1) > col_cap:  # final-fold column bound
+        return None
+    np_limbs = int_to_limbs((1 << (LIMB_BITS * (L + 1))) - p, L + 1)
+    return n_split, shift_e, qtable, np_limbs, c
+
+
+def _build_mulred(fs: FieldSpec) -> MulReduceSpec | None:
+    """Derive and prove the fused multiply-reduce constants.
+
+    The algorithm is replayed over exact per-column integer upper bounds.
+    Its input is the unnormalized schoolbook product of two canonical
+    elements: column P_c sums at most ``n_lo(c) + n_lo(c-1)`` terms of
+    < 2**16 (the low and high halves of the 16x16 partial products), so
+    P_c < 2**22 for L <= 24.  The fold sums (digit cap x byte) stay below
+    2**24, so a uint32 (or float32) accumulator is exact."""
+    L, b = fs.limbs, 1 << LIMB_BITS
+    p = fs.modulus
+
+    def n_lo(c: int) -> int:
+        if c < 0 or c > 2 * L - 2:
+            return 0
+        return L - abs(c - (L - 1))
+
+    pcap = [(n_lo(c) + n_lo(c - 1)) * (b - 1) for c in range(2 * L)]
+    if max(pcap) >= 1 << 24:
+        return None
+
+    # digit caps and residues, in the MulReduceSpec digit order
+    d_caps: list[int] = []
+    residues: list[int] = []
+    for t in range(3):
+        for c in range(L, 2 * L):
+            d_caps.append(min(0xFF, pcap[c] >> (8 * t)))
+            residues.append((1 << (LIMB_BITS * c + 8 * t)) % p)
+    d_caps.append(pcap[L - 1] >> LIMB_BITS)
+    residues.append((1 << (LIMB_BITS * L)) % p)
+
+    foldm = np.zeros((3 * L + 1, 2 * L), np.uint8)
+    for i, r in enumerate(residues):
+        for m in range(2 * L):
+            foldm[i, m] = (r >> (8 * m)) & 0xFF
+    fmi = foldm.astype(np.int64)
+    caps = np.array(d_caps, np.int64)
+    if int((caps[:, None] * fmi).sum(axis=0).max()) >= 1 << 24:  # fold column sums
+        return None
+    s16 = [int((caps * fmi[:, 2 * j]).sum() + 256 * (caps * fmi[:, 2 * j + 1]).sum()) for j in range(L)]
+    # kept low part: full columns P_j for j < L-1, P_{L-1} mod 2**16
+    keep = [pcap[j] for j in range(L - 1)] + [b - 1]
+    tail = _fold_tail(fs, [k + s for k, s in zip(keep, s16)])
+    if tail is None:
+        return None
+    n_split, shift_e, qtable, np_limbs, c = tail
+    return MulReduceSpec(foldm=foldm, c_limbs=int_to_limbs(c, L), n_split=n_split, shift_e=shift_e,
+                         qtable=qtable, np_limbs=np_limbs)
 
 
 P25519 = FieldSpec("ed25519_base", (1 << 255) - 19, 16)

@@ -22,6 +22,8 @@ from ..fields import device as fd
 from ..fields import host as fh
 from ..fields.spec import L25519, P25519, FieldSpec
 from ..ops import bucket_kernels as bk
+from ..ops import field_kernels as fk
+from ..ops import mxu_kernels as mk
 from ..ops import point_kernels as pk
 from . import host as gh
 
@@ -119,18 +121,19 @@ def madd(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def eq(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Projective equality -> bool over the batch shape: cross-multiplied
     for Weierstrass (identity-correct), torsion-safe ristretto equality
-    for Edwards."""
-    f = cs.field
+    for Edwards.  Each product is one ``mod_mul`` (its plain version on
+    CPU tensors)."""
+    f, mul = cs.field, fk.mod_mul
     if cs.kind == "edwards":
         x1, y1 = p[..., 0, :], p[..., 1, :]
         x2, y2 = q[..., 0, :], q[..., 1, :]
-        lhs = fd.eq(fd.mul(f, x1, y2), fd.mul(f, y1, x2))
-        rhs = fd.eq(fd.mul(f, y1, y2), fd.mul(f, x1, x2))
+        lhs = fd.eq(mul(f, x1, y2), mul(f, y1, x2))
+        rhs = fd.eq(mul(f, y1, y2), mul(f, x1, x2))
         return lhs | rhs
     x1, y1, z1 = p[..., 0, :], p[..., 1, :], p[..., 2, :]
     x2, y2, z2 = q[..., 0, :], q[..., 1, :], q[..., 2, :]
-    ex = fd.eq(fd.mul(f, x1, z2), fd.mul(f, x2, z1))
-    ey = fd.eq(fd.mul(f, y1, z2), fd.mul(f, y2, z1))
+    ex = fd.eq(mul(f, x1, z2), mul(f, x2, z1))
+    ey = fd.eq(mul(f, y1, z2), mul(f, y2, z1))
     return ex & ey
 
 
@@ -336,8 +339,58 @@ _bucket_scan = bk.bucket_accumulate_plain  # the JAX package's name for the scat
 
 
 # ---------------------------------------------------------------------------
-# canonical affine form (host)
+# canonical affine form
 # ---------------------------------------------------------------------------
+
+MUL_MODES = ("classic", "gemm")
+
+
+def field_mul(mode: str):
+    """The field multiply of a ``mul=`` mode, as ``f(fs, a, b)``:
+    ``"classic"`` is ``mod_mul`` (``csrc/field_kernels.cu`` over
+    ``field.cuh``'s core), ``"gemm"`` is ``mxu_mod_mul`` (the fused
+    multiply-reduce); on CPU tensors their plain versions.  The two stand
+    for the JAX package's ``DKG_TPU_MUL=classic|gemm``; both give the
+    canonical residue."""
+    if mode == "classic":
+        return fk.mod_mul
+    if mode == "gemm":
+        return mk.mxu_mod_mul
+    raise ValueError(f"mul must be one of {MUL_MODES}, got {mode!r}")
+
+
+def affine_canon(cs: CurveSpec, pts: torch.Tensor, *, mul: str = "classic") -> torch.Tensor:
+    """Canonical affine limbs of a point batch, where the points live:
+    (..., C, L) -> (..., C, L) with X/Z, Y/Z, Z = 1 (Edwards T = XY);
+    zero-Z lanes map to the canonical identity.  Any schedule that yields
+    the same group elements yields the same limbs, which is why the
+    transcript digest hashes this form.
+
+    The JAX package's shape: the lanes (padded with ones to a multiple of
+    256) invert in one Montgomery-trick ``batch_inv`` down 256 rows, each
+    multiply one launch of ``mul``'s kernel over a row; then x·zi, y·zi
+    (and t = x·y) over all lanes.  The selects and the padding are plain
+    tensor ops, as the JAX package leaves them to XLA."""
+    f = cs.field
+    mulf = field_mul(mul)
+    z = pts[..., 2, :]
+    z_is_zero = fd.is_zero(z)
+    z_safe = fd.select(z_is_zero, fd.ones(f, z.shape[:-1], device=z.device), z)
+    flat = z_safe.reshape(-1, f.limbs)
+    n_lanes = flat.shape[0]
+    pad = (-n_lanes) % 256
+    if pad:
+        flat = torch.cat([flat, fd.ones(f, (pad,), device=z.device)])
+    rows = 256 if flat.shape[0] >= 256 else 1
+    zi = fd.batch_inv(f, flat.reshape(rows, -1, f.limbs), axis=0, mul=mulf)
+    zi = zi.reshape(-1, f.limbs)[:n_lanes].reshape(z.shape)
+    x_a = mulf(f, pts[..., 0, :], zi)
+    y_a = mulf(f, pts[..., 1, :], zi)
+    coords = [x_a, y_a, fd.ones(f, x_a.shape[:-1], device=z.device)]
+    if cs.kind == "edwards":
+        coords.append(mulf(f, x_a, y_a))
+    out = torch.stack(coords, dim=-2)
+    return torch.where(z_is_zero[..., None, None], identity(cs, device=z.device), out)
 
 
 def _batch_zinv_host(zs: list[int], p: int) -> list[int]:

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu",
-           "bucket_kernels.cu", "bls_kernels.cu")
+           "bucket_kernels.cu", "bls_kernels.cu", "mxu_kernels.cu")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

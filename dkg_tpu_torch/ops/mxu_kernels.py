@@ -1,0 +1,91 @@
+"""The ``mxu_mod_mul`` kernel: ``(a * b) mod p`` by the fused
+multiply-reduce, in one launch.
+
+Counterpart of ``dkg_tpu/ops/pallas_mxu.py`` ``mxu_mod_mul``.  On a CUDA
+tensor :func:`mxu_mod_mul` launches ``csrc/mxu_kernels.cu`` with the
+constants of its operands' field (``FieldSpec.mulred``), built once per
+field and device as buffers on the card: ``foldm`` as bytes, transposed
+and packed four digits a word, the quotient table, c = b**L mod p and
+b**(L+1) - p.  Fields the kernel does not take raise.  On a CPU tensor it
+runs ``fields.device._mul_gemm``, the plain PyTorch version the kernel is
+held against.  Operands broadcast over their batch axes.
+
+The field families count their launches apart, as ``mod_mul``'s do:
+``MXU_MOD_MUL`` for secp256k1's fields, ``MXU_MOD_MUL_ED`` for ed25519's,
+``MXU_MOD_MUL_BLS`` for BLS12-381's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields import device as fd
+from ..fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
+from . import build
+
+# a, b, out, lanes, limbs, foldm, qtable, table length, c, b**(L+1) - p, n_split, shift_e, stream
+_ARGS = [build.PTR, build.PTR, build.PTR, build.I64, build.INT, build.PTR, build.PTR, build.INT,
+         build.PTR, build.PTR, build.INT, build.INT, build.PTR]
+MXU_MOD_MUL = build.Kernel("mxu_mod_mul", "mxu_kernels.cu", "dkg_mxu_mod_mul", _ARGS)
+MXU_MOD_MUL_ED = build.Kernel("mxu_mod_mul[ed25519]", "mxu_kernels.cu", "dkg_mxu_mod_mul", _ARGS)
+MXU_MOD_MUL_BLS = build.Kernel("mxu_mod_mul[bls12_381]", "mxu_kernels.cu", "dkg_mxu_mod_mul", _ARGS)
+KERNELS = (MXU_MOD_MUL, MXU_MOD_MUL_ED, MXU_MOD_MUL_BLS)
+
+_FIELDS = {
+    SECP256K1_P: MXU_MOD_MUL,
+    SECP256K1_N: MXU_MOD_MUL,
+    P25519: MXU_MOD_MUL_ED,
+    L25519: MXU_MOD_MUL_ED,
+    BLS12_381_P: MXU_MOD_MUL_BLS,
+    BLS12_381_R: MXU_MOD_MUL_BLS,
+}
+_CONSTANTS: dict = {}  # (field name, device) -> the kernel's constant buffers
+
+
+def kernel_for(fs: FieldSpec) -> build.Kernel:
+    """The ``mxu_mod_mul`` kernel of field ``fs``; raises if there is none."""
+    if fs not in _FIELDS:
+        raise NotImplementedError(f"mxu_mod_mul has no CUDA kernel for {fs.name}")
+    return _FIELDS[fs]
+
+
+def packed_foldm(fs: FieldSpec) -> np.ndarray:
+    """``fs.mulred.foldm`` (3L+1, 2L) as the kernel reads it: (2L, 4·K4)
+    bytes, K4 = ceil((3L+1)/4), byte t of row m's word k being
+    foldm[4k + t][m] (zero past the last digit)."""
+    fm = fs.mulred.foldm
+    k4 = -(-fm.shape[0] // 4)
+    padded = np.zeros((4 * k4, fm.shape[1]), np.uint8)
+    padded[: fm.shape[0]] = fm
+    return np.ascontiguousarray(padded.T)
+
+
+def _constants(fs: FieldSpec, device: torch.device) -> tuple:
+    key = (fs.name, device)
+    if key not in _CONSTANTS:
+        mr = fs.mulred
+
+        def put(arr):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+        _CONSTANTS[key] = (put(packed_foldm(fs)), put(mr.qtable.astype(np.int32)),
+                           put(mr.c_limbs.astype(np.int32)), put(mr.np_limbs.astype(np.int32)))
+    return _CONSTANTS[key]
+
+
+def mxu_mod_mul(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod p on (..., L) int32 limbs by the fused multiply-reduce,
+    batch axes broadcast; equal to ``fields.device.mul``."""
+    if a.device.type == "cpu":
+        return fd._mul_gemm(fs, a, b)
+    kernel = kernel_for(fs)
+    tail = (fs.limbs,)
+    (a, b), out, n = build.lanes([(a, tail), (b, tail)], tail)
+    if n:
+        mr = fs.mulred
+        foldm, qtable, c, np_limbs = _constants(fs, out.device)
+        kernel(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, fs.limbs, foldm.data_ptr(), qtable.data_ptr(),
+               qtable.numel(), c.data_ptr(), np_limbs.data_ptr(), mr.n_split, mr.shift_e,
+               build.stream_ptr(out.device))
+    return out

@@ -163,3 +163,36 @@ def test_field_dot_and_aggregate_match_jax():
     got = tce.aggregate_shares(cfg, to_torch(vals), torch.from_numpy(qual))
     want = jce.aggregate_shares(jcfg, jnp.asarray(vals), jnp.asarray(qual))
     assert np.array_equal(to_np(got), np.asarray(want))
+
+
+def _jax_rho(jcfg, jout, rho_bits=128):
+    return np.asarray(jce.derive_rho(jcfg, *(jout[k] for k in ("bare", "randomized", "shares", "hidings")), rho_bits))
+
+
+@pytest.mark.parametrize("digest,mul", [("host", "classic"), ("device", "gemm")])
+def test_digest_legs_and_gemm_match_jax(jax_runs, digest, mul):
+    """run(digest=, mul=): the host leg of the transcript digest, and the
+    device leg with mxu_mod_mul's multiply, give the JAX run's outputs and
+    rho (the default device leg with mod_mul's is the honest test's)."""
+    jc, jout = jax_runs[HONEST]
+    tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
+    tout = tc.run(digest=digest, mul=mul)
+    _assert_same(tout, jout, TENSORS + ("final_shares", "master"))
+    assert np.array_equal(to_np(tout["rho"]), _jax_rho(jc.cfg, jout))
+    with pytest.raises(ValueError, match="digest"):
+        tc.run(digest="gpu")
+    with pytest.raises(ValueError, match="mul"):
+        tc.run(mul="fast")
+
+
+def test_audit_transcript_digest_matches_jax(jax_runs):
+    """The byte-level audit digest (transcript_digest, derive_rho(device=False))
+    of the JAX run's round-1 tensors, canonicalised where they are."""
+    jc, jout = jax_runs[ONE_BAD]
+    arrays = [np.asarray(jout[k]) for k in ("bare", "randomized", "shares", "hidings")]
+    want = jce.transcript_digest(jc.cfg, *(jnp.asarray(x) for x in arrays))
+    cfg = tce.CeremonyConfig(CURVE, N, T)
+    assert tce.transcript_digest(cfg, *map(to_torch, arrays)) == want
+    rho = tce.derive_rho(cfg, *map(to_torch, arrays), 128, device=False, mul="gemm")
+    assert np.array_equal(rho, np.asarray(jce.derive_rho(jc.cfg, *(jnp.asarray(x) for x in arrays), 128,
+                                                         device=False)))

@@ -120,3 +120,21 @@ def test_tampered_bls_share_is_blamed_like_jax(jax_runs, port, rlc):
     assert tout["qualified"].tolist() == [True, False, True]
     _assert_same(tout, jout, jc.cfg)
     assert "blame" in tout["phase_seconds"]
+
+
+@pytest.mark.parametrize("digest,mul", [("host", "classic"), ("device", "gemm")])
+def test_bls_digest_legs_match_jax(jax_runs, port, digest, mul):
+    """The host leg, and the device leg through mxu_mod_mul's 24-limb
+    multiply, give the JAX run's outputs and rho (the default device leg
+    with mod_mul's is the honest test's)."""
+    jc, jout = jax_runs[False]
+    tout = port.run(rho_bits=RHO_BITS, digest=digest, mul=mul)
+    _assert_same(tout, jout, jc.cfg)
+
+
+def test_bls_audit_digest_matches_jax(jax_runs):
+    jc, jout = jax_runs[True]
+    arrays = [np.asarray(jout[k]) for k in ("bare", "randomized", "shares", "hidings")]
+    cfg = tce.CeremonyConfig(CURVE, N, T)
+    tensors = [torch.from_numpy(x.astype(np.int32)) for x in arrays]
+    assert tce.transcript_digest(cfg, *tensors) == jce.transcript_digest(jc.cfg, *arrays)

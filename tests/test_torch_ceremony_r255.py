@@ -104,3 +104,24 @@ def test_tampered_ristretto_share_is_blamed_like_jax(jax_runs, rlc):
     assert tout["qualified"].tolist() == [True, False, True, True, True]
     _assert_same(tout, jout)
     assert "blame" in tout["phase_seconds"]
+
+
+@pytest.mark.parametrize("digest,mul", [("device", "classic"), ("host", "classic"), ("device", "gemm")])
+def test_ristretto_digest_legs_match_jax(jax_runs, digest, mul):
+    """rho and every output under each leg of the transcript digest and
+    each multiply of its canonical affine form (Edwards: t = x·y too)
+    equal the JAX run's, rho its derive_rho of the same transcript."""
+    jc, jout = jax_runs[False]
+    tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
+    tout = tc.run(rho_bits=RHO_BITS, digest=digest, mul=mul)
+    _assert_same(tout, jout)
+    rho = jce.derive_rho(jc.cfg, *(jout[k] for k in ("bare", "randomized", "shares", "hidings")), RHO_BITS)
+    assert np.array_equal(to_np(tout["rho"]), np.asarray(rho))
+
+
+def test_ristretto_audit_digest_matches_jax(jax_runs):
+    jc, jout = jax_runs[True]
+    arrays = [np.asarray(jout[k]) for k in ("bare", "randomized", "shares", "hidings")]
+    cfg = tce.CeremonyConfig(CURVE, N, T)
+    tensors = [torch.from_numpy(x.astype(np.int32)) for x in arrays]
+    assert tce.transcript_digest(cfg, *tensors, mul="gemm") == jce.transcript_digest(jc.cfg, *arrays)

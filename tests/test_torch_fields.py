@@ -140,3 +140,78 @@ def test_barrett_reduce_worst_cases_match(name):
     got = tfd.barrett_reduce(t, torch.from_numpy(x.astype(np.int64)))
     assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(jfd.barrett_reduce(j, jnp.asarray(x))))
     assert list(tfh.decode(t, got.numpy().astype(np.uint32))) == [v % m for v in prods]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_mulred_constants_match(name):
+    """The fused multiply-reduce's constants and admission, the port's own
+    copy of the proof, equal the JAX package's (foldm as bytes there as
+    float32, here as uint8: the same values)."""
+    t, j = _specs(name)
+    tm, jm = t.mulred, j.mulred
+    assert tm is not None and jm is not None
+    assert (tm.n_split, tm.shift_e) == (jm.n_split, jm.shift_e)
+    assert tm.foldm.dtype == np.uint8 and tm.foldm.shape == (3 * t.limbs + 1, 2 * t.limbs)
+    for attr in ("foldm", "c_limbs", "qtable", "np_limbs"):
+        assert np.array_equal(getattr(tm, attr), getattr(jm, attr)), attr
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_mul_gemm_matches_jax(name):
+    """_mul_gemm (mxu_mod_mul's plain version) against the JAX package's
+    _mul_gemm, the MXU kernel's row core at XLA level (mxu_mul_rows), its
+    classic mul and big ints, at the edge values and random elements."""
+    from dkg_tpu.ops import pallas_mxu as jpm
+
+    t, j = _specs(name)
+    a, b = field_limbs(j, 12, N), field_limbs(j, 13, N)
+    b[:8] = a[:8][::-1]  # edge x edge pairs
+    got = tfd._mul_gemm(t, to_torch(a), to_torch(b))
+    assert got.dtype == torch.int32
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    assert np.array_equal(to_np(got), np.asarray(jfd._mul_gemm(j, ja, jb)))
+    rows = jpm.mxu_mul_rows(j, [ja.T[i : i + 1] for i in range(j.limbs)], [jb.T[i : i + 1] for i in range(j.limbs)])
+    assert np.array_equal(to_np(got), np.asarray(jnp.concatenate(rows, axis=0).T))
+    assert torch.equal(got, tfd.mul(t, to_torch(a), to_torch(b)))
+    assert list(tfh.decode(t, to_np(got))) == [int(x) * int(y) % j.modulus
+                                              for x, y in zip(jfh.decode(j, a), jfh.decode(j, b))]
+    # broadcast of one operand over a two-axis batch
+    got = tfd._mul_gemm(t, to_torch(a).reshape(4, 6, -1), to_torch(b[3]))
+    assert np.array_equal(to_np(got), np.asarray(jfd.mul(j, ja.reshape(4, 6, -1), jb[3])))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_mod_mul_plain_matches_jax_mul(name):
+    """mod_mul's plain version (fd.mul, on a CPU tensor) against the JAX
+    package's fields.device.mul, which pallas_field.mod_mul is held to."""
+    t, j = _specs(name)
+    a, b = field_limbs(j, 14, N), field_limbs(j, 15, N)
+    got = fk.mod_mul(t, to_torch(a), to_torch(b))
+    assert np.array_equal(to_np(got), np.asarray(jfd.mul(j, jnp.asarray(a), jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_pow_inv_batch_inv_match(name):
+    """pow_const, inv and batch_inv, chaining either multiply (mod_mul's
+    and mxu_mod_mul's plain versions), against the JAX package's
+    (square-and-select, Fermat, Montgomery's trick)."""
+    from dkg_tpu_torch.groups import device as tgd
+
+    t, j = _specs(name)
+    a = field_limbs(j, 16, 6)  # lane 0 holds 0, which inverts to 0
+    x = field_limbs(j, 17, 12)
+    x[x.sum(-1) == 0] = jfh.encode(j, 3)  # batch_inv: no zero lanes
+    ja = jnp.asarray(a)
+    want_pow = {e: np.asarray(jfd.pow_const(j, ja, e)) for e in (0, 1, 0x10001)}
+    want_inv = np.asarray(jfd.inv(j, ja))
+    assert list(jfh.decode(j, want_inv)) == [pow(v, -1, j.modulus) if v else 0 for v in field_ints(j, 16, 6)]
+    cases = (((3, 4), 1),)
+    want_binv = [np.asarray(jfd.batch_inv(j, jnp.asarray(x.reshape(s + (-1,))), axis=ax)) for s, ax in cases]
+    for mul in ("classic", "gemm"):
+        mulf = tgd.field_mul(mul)
+        for e, want in want_pow.items():
+            assert np.array_equal(to_np(tfd.pow_const(t, to_torch(a), e, mul=mulf)), want), (mul, e)
+        assert np.array_equal(to_np(tfd.inv(t, to_torch(a), mul=mulf)), want_inv), mul
+        for (shape, axis), want in zip(cases, want_binv):
+            got = tfd.batch_inv(t, to_torch(x.reshape(shape + (-1,))), axis=axis, mul=mulf)
+            assert np.array_equal(to_np(got), want), (mul, shape)

@@ -248,3 +248,25 @@ def test_bls_host_group_matches():
     assert t.decode(bad) is None and j.decode(bad) is None
     assert t.decode(bytes(49)) == t.identity() and t.decode(bytes(48)) is None
     assert t.decode(bytes([4]) + bytes(48)) is None
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_affine_canon_matches(curve):
+    """The device canonical affine form under both multiplies (mod_mul's
+    and mxu_mod_mul's plain versions) against the JAX package's
+    gd.affine_canon (one shape) and affine_canon_host (more shapes), with
+    identity (zero-Z) lanes; past 256 lanes the inversion runs down 256
+    rows, as the JAX package's does."""
+    tcs, jcs = _cs(curve)
+    pts = point_limbs(curve, 62, 10)  # every 5th point the identity
+    want = np.asarray(jgd.affine_canon(jcs, jnp.asarray(pts)))
+    assert np.array_equal(want, jgd.affine_canon_host(jcs, pts))
+    for mul in ("classic", "gemm"):
+        got = tgd.affine_canon(tcs, to_torch(pts), mul=mul)
+        assert _same(got, want), mul
+    wide = point_limbs(curve, 63, 300).reshape(3, 100, *pts.shape[1:])
+    got = tgd.affine_canon(tcs, to_torch(wide), mul="gemm")
+    assert _same(got, jgd.affine_canon_host(jcs, wide))
+    assert np.array_equal(to_np(got[0, 2]), np.asarray(jgd.identity(jcs)))
+    with pytest.raises(ValueError, match="mul"):
+        tgd.affine_canon(tcs, to_torch(pts), mul="fast")

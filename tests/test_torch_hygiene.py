@@ -13,11 +13,12 @@ import pytest
 import torch
 
 from dkg_tpu_torch.dkg import ceremony as tce
-from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, SECP256K1_N, FieldSpec
+from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
+from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -57,7 +58,7 @@ def _meta(shape):
 
 
 ED, BLS = tgd.RISTRETTO255, tgd.BLS12_381_G1
-KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS)
+KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS, *mk.KERNELS)
 # 24-limb curves with no kernel: BLS12-381 G1 with another b3, and a curve
 # over another 24-limb field (a 381-bit modulus other than BLS12-381 p)
 OTHER_P = (1 << 381) - 1287
@@ -90,11 +91,21 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: pk.pt_ladder_mul_add(BLS, _meta((4, 3, 24)), _meta((4, 3, 24)), _meta((4,)), 3),
     lambda: bk.bucket_accumulate(BLS, _meta((2, 5, 3, 24)), _meta((5, 3)), 8, 3),
     lambda: tgd.msm_pippenger(BLS, _meta((5, 16)), _meta((2, 5, 3, 24)), 128),
+    lambda: fk.mod_mul(SECP256K1_N, _meta((4, 16)), _meta((4, 16))),
+    lambda: fk.mod_mul(P25519, _meta((4, 16)), _meta((4, 16))),
+    lambda: fk.mod_mul(BLS12_381_P, _meta((4, 24)), _meta((4, 24))),
+    lambda: mk.mxu_mod_mul(SECP256K1_N, _meta((4, 16)), _meta((4, 16))),
+    lambda: mk.mxu_mod_mul(P25519, _meta((4, 16)), _meta((4, 16))),
+    lambda: mk.mxu_mod_mul(BLS12_381_P, _meta((4, 24)), _meta((4, 24))),
+    lambda: tgd.affine_canon(BLS, _meta((2, 3, 24))),
+    lambda: tgd.affine_canon(ED, _meta((2, 4, 16)), mul="gemm"),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
         "mod_madd_bls_base", "mod_madd_bls_scalar", "bls_pt_add", "bls_pt_madd", "bls_pt_double",
-        "bls_pt_window_step", "bls_pt_ladder_mul_add", "bls_bucket_accumulate", "bls_msm_pippenger"])
+        "bls_pt_window_step", "bls_pt_ladder_mul_add", "bls_bucket_accumulate", "bls_msm_pippenger",
+        "mod_mul", "mod_mul_ed", "mod_mul_bls", "mxu_mod_mul", "mxu_mod_mul_ed", "mxu_mod_mul_bls",
+        "bls_affine_canon", "ed_affine_canon_gemm"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -145,6 +156,12 @@ def test_unported_variants_raise():
         bk.bucket_accumulate(ED, _meta((2, 5, 4, 16)), _meta((5, 1)), 16, 1)
     with pytest.raises(NotImplementedError):
         fk.mod_madd(FieldSpec("other", (1 << 255) - 31, 16), _meta((2, 16)), _meta((2, 16)), _meta((2, 16)))
+    other_fs = FieldSpec("other", (1 << 255) - 31, 16)
+    with pytest.raises(NotImplementedError, match="mod_mul"):
+        fk.mod_mul(other_fs, _meta((2, 16)), _meta((2, 16)))
+    with pytest.raises(NotImplementedError, match="mxu_mod_mul"):
+        mk.mxu_mod_mul(L24_P.field, _meta((2, 24)), _meta((2, 24)))
+    assert fk.mul_kernel_for(BLS12_381_R) is fk.MOD_MUL_BLS and mk.kernel_for(L25519) is mk.MXU_MOD_MUL_ED
     assert pk.kernel_for("pt_add", ED) is pk.ED_PT_ADD and pk.kernel_for("pt_double", ED) is pk.ED_PT_DOUBLE
     assert pk.kernel_for("pt_double", tgd.SECP256K1) is pk.PT_DOUBLE
     assert bk.kernel_for(ED) is bk.ED_BUCKET_ACCUMULATE

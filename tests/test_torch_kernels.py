@@ -4,9 +4,11 @@ On the CPU: csrc/host_check.cpp, the kernels' per-lane bodies (the same
 field.cuh, point.cuh and edwards.cuh code the .cu kernels run), built
 with the host compiler and called lane by lane, at the field edge values
 (0, 1, m - 1, near 2**255 and 2**256 - 1, near 2**383 and 2**384 - 1 at
-24 limbs) of all six fields, the Barrett fields' worst cases, and the
+24 limbs) of all six fields, the Barrett fields' worst cases, the
 bucket kernels' per-bucket fold over every bucket of small scatter
-passes, for secp256k1, ristretto255 and BLS12-381 G1.  On a CUDA machine (marker ``cuda``; skipped elsewhere): the
+passes, for secp256k1, ristretto255 and BLS12-381 G1, and mod_mul and
+the fused multiply-reduce of mxu_mod_mul (csrc/mxu.cuh) over all six
+fields, the latter also at the worst cases of its admission proof.  On a CUDA machine (marker ``cuda``; skipped elsewhere): the
 kernels themselves, built with nvcc.  Both are held to the plain versions
 bit for bit."""
 
@@ -26,7 +28,10 @@ from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, 
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
+from dkg_tpu_torch.fields import device as tfd
+from dkg_tpu_torch.fields.spec import LIMB_BITS, int_to_limbs
 from dkg_tpu_torch.ops import field_kernels as fk
+from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
 
 CS, ED, BLS = tgd.SECP256K1, tgd.RISTRETTO255, tgd.BLS12_381_G1
@@ -193,6 +198,78 @@ def test_host_compiled_barrett_worst_cases(host_lib, name):
     assert torch.equal(out, fk.mod_madd_plain(fs, *ops))
 
 
+MUL_FIELDS = {name.removeprefix("mod_madd_"): case for name, case in FIELD_CASES.items()}
+
+
+def _host_mxu(host_lib, fs, mode, a, b, n):
+    """host_mxu_mod_mul over n lanes: mode 0 multiplies a and b, mode 1
+    reduces 2L columns at a, mode 2 reduces L + 1 limbs at a."""
+    mr = fs.mulred
+    consts = [np.ascontiguousarray(x) for x in (mk.packed_foldm(fs), mr.qtable.astype(np.uint32),
+                                                mr.c_limbs.astype(np.uint32), mr.np_limbs.astype(np.uint32))]
+    out = torch.empty((n, fs.limbs), dtype=torch.int32)
+    fn = host_lib.host_mxu_mod_mul
+    fn.argtypes = [INT, PTR, PTR, PTR, I64, INT, PTR, PTR, PTR, PTR, INT, INT]
+    fn.restype = INT
+    rc = fn(mode, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, fs.limbs, *(c.ctypes.data for c in consts),
+            mr.n_split, mr.shift_e)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("name", list(MUL_FIELDS))
+def test_host_compiled_mod_mul_and_mxu_match_plain(host_lib, name):
+    """mod_mul's lane body (field.cuh's fmul) and mxu_mod_mul's (mxu.cuh)
+    at every pair of field edges and random elements: equal to their
+    plain versions (fd.mul, fd._mul_gemm) and to big ints."""
+    fs, fid = MUL_FIELDS[name]
+    a, b = edge_operands(fs, 5, 2)
+    ta, tb = (_t(jfh.encode(fs, col)) for col in (a, b))
+    want = [x * y % fs.modulus for x, y in zip(a, b)]
+    out = torch.empty_like(ta)
+    fn = host_lib.host_mod_mul
+    fn.argtypes = [PTR, PTR, PTR, I64, INT]
+    fn.restype = INT
+    assert fn(ta.data_ptr(), tb.data_ptr(), out.data_ptr(), len(a), fid) == 0
+    assert torch.equal(out, tfd.mul(fs, ta, tb))
+    mxu = _host_mxu(host_lib, fs, 0, ta, tb, len(a))
+    assert torch.equal(mxu, tfd._mul_gemm(fs, ta, tb)) and torch.equal(mxu, out)
+    assert [int(v) for v in jfh.decode(fs, out.numpy().astype(np.uint32))] == want
+
+
+def _col_caps(L):
+    """The admission proof's column caps of an unnormalized L-limb product."""
+    def n_lo(c):
+        return 0 if c < 0 or c > 2 * L - 2 else L - abs(c - (L - 1))
+    return [(n_lo(c) + n_lo(c - 1)) * 0xFFFF for c in range(2 * L)]
+
+
+@pytest.mark.parametrize("name", list(MUL_FIELDS))
+def test_host_compiled_mxu_worst_cases(host_lib, name):
+    """The fused multiply-reduce at its admission proof's worst cases, where
+    uint32 overflow would show: columns whose every digit is at its cap
+    (bytes 0 and 1 at 0xFF, byte 2 and the spill at the cap's top bits, the
+    kept columns at theirs), and normalized values whose quotient index is
+    the table's last entry; each against big ints."""
+    fs, _ = MUL_FIELDS[name]
+    L, p = fs.limbs, fs.modulus
+    caps = _col_caps(L)
+    full = [(caps[c] >> 16 << 16) | 0xFFFF if c >= L - 1 else caps[c] for c in range(2 * L)]
+    rows = [full, caps, [min(v, 0xFFFF) for v in caps], [0] * (2 * L - 1) + [caps[-1]]]
+    cols = torch.tensor(rows, dtype=torch.int64).to(torch.int32)
+    out = _host_mxu(host_lib, fs, 1, cols, cols, len(rows))
+    want = [sum(v << (LIMB_BITS * c) for c, v in enumerate(row)) % p for row in rows]
+    assert [int(v) for v in jfh.decode(fs, out.numpy().astype(np.uint32))] == want
+    mr = fs.mulred
+    s = LIMB_BITS * (L - 1) + mr.shift_e
+    u_max = len(mr.qtable) - 1
+    vals = [u_max << s, (u_max << s) + (1 << s) - 1, (u_max << s) + p // 3, p - 1, p, 2 * p - 1, 0]
+    vals = [v for v in vals if v < 1 << (LIMB_BITS * (L + 1)) and v >> s <= u_max]
+    v = torch.from_numpy(np.stack([int_to_limbs(x, L + 1) for x in vals]).astype(np.int32))
+    out = _host_mxu(host_lib, fs, 2, v, v, len(vals))
+    assert [int(x) for x in jfh.decode(fs, out.numpy().astype(np.uint32))] == [x % p for x in vals]
+
+
 def test_edge_operands_cover_the_field_edges():
     """The field cases see 0, 1, m - 1 and the values near 2**255 and
     2**256 - 1 reduced, in every pair of the first two operands."""
@@ -277,3 +354,17 @@ def test_cuda_bucket_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert torch.equal(got.cpu(), bk.bucket_accumulate_plain(cs, pts, digs, 1 << window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MUL_FIELDS))
+def test_cuda_mod_mul_and_mxu_match_plain(cuda, name):
+    fs, _ = MUL_FIELDS[name]
+    ta, tb = (_t(jfh.encode(fs, col)) for col in edge_operands(fs, 5, 2))
+    want = tfd.mul(fs, ta, tb)
+    for wrapper, kernel in ((fk.mod_mul, fk.mul_kernel_for(fs)), (mk.mxu_mod_mul, mk.kernel_for(fs))):
+        before = kernel.launches
+        got = wrapper(fs, ta.to(cuda), tb.to(cuda))
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(got.cpu(), want)
