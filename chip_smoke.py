@@ -18,9 +18,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    where both are also timed (CUDA events over repeated wrapper
    calls, the operands' broadcast copies included; the bucket kernels'
    plain versions, m sequential steps, once, and BLS12-381's on the first
-   32 of its 342 columns only, which its row's plain_rows says).  The
-   Pippenger combine's k = 8 window steps are held and timed beside the
-   k = 4 rows; each curve's pt_double at its Straus window step's shape.
+   32 of its 342 columns only, which its row's plain_rows says).  Every
+   curve's window step (the Edwards one a single launch too) is held and
+   timed at the Straus RLC's k = 4, the Pippenger combine's k = 8 and the
+   KEM's n * n lanes at k = 4; each curve's pt_double, on no path, at its
+   Straus window step's shape.
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
    be > 0:
@@ -43,17 +45,28 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    of the fiat_shamir phase step by step and runs the Straus path once
    more under torch.profiler for device time by kernel and the busy
    share.
-5. On each Straus path's tensors: the point RLC D of verify_batch under
+5. The dealing round's share encryption on each Straus run's shares and
+   hidings (hybrid_batch: the KEM c1 = g·r and kem = r·pk on the card,
+   the DEM on the host): recipient keys and randomness from the path's
+   seeded random.Random; the KEM's pieces timed by CUDA events;
+   seal_shares_pipeline at its default chunk and unchunked, each timed,
+   the two outputs equal, the unchunked run launching each seal kernel
+   (counts set to 0 just before, read just after); 64 sampled KEM points
+   against the host ladder, the batch DEM against the per-pair leg on
+   min(n, 4096 // n) dealers, recipients 1, n and two others opening
+   every dealer's share and hiding, a tampered ciphertext not opening to
+   its share, and no plain multiply on the card.
+6. On each Straus path's tensors: the point RLC D of verify_batch under
    the three schedules (straus, bits, pippenger), equal in canonical
    affine form and timed; and the verify phase under Straus and under
    Pippenger, profiled for device time by kernel and the busy share.
-6. Runs a tampered (n=16, t=5) ceremony on each curve under each of the
+7. Runs a tampered (n=16, t=5) ceremony on each curve under each of the
    Straus and Pippenger schedules: one corrupted share must fail its
    recipient's batch check, blame its dealer, and leave the master key of
    the qualified set.
-7. Prints one JSON line of per-kernel numbers (launches: the count the
-   first main path that launched the kernel read, Straus before
-   Pippenger before gemm, or the 0 every path read; device_ms: a wrapper
+8. Prints one JSON line of per-kernel numbers (launches: the count the
+   first main path that launched the kernel read, Straus before the seal
+   before Pippenger before gemm, or the 0 every path read; device_ms: a wrapper
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
    for all of them),
@@ -79,6 +92,7 @@ import torch
 from dkg_tpu_torch.crypto import device_hash as dh
 from dkg_tpu_torch.crypto.blake2s import row_digests_np
 from dkg_tpu_torch.dkg import ceremony as cer
+from dkg_tpu_torch.dkg import hybrid_batch as hb
 from dkg_tpu_torch.fields import device as fd
 from dkg_tpu_torch.fields import host as fh
 from dkg_tpu_torch.groups import device as gd
@@ -132,7 +146,8 @@ class Path:
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
             (fk.MOD_MADD, fk.MOD_MUL, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP, pk.PT_LADDER_MUL_ADD))
 R255 = Path("ristretto255", 256, 85, b"chip-smoke-r255",  # BASELINE.md config 2
-            (fk.MOD_MADD_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_MADD, pk.ED_PT_DOUBLE, pk.ED_PT_LADDER_MUL_ADD))
+            (fk.MOD_MADD_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_MADD, pk.ED_PT_WINDOW_STEP,
+             pk.ED_PT_LADDER_MUL_ADD))
 BLS = Path("bls12_381_g1", 1024, 341, b"chip-smoke-bls",  # BASELINE.md config 5 at config 3's n, t
            (fk.MOD_MADD_BLS, fk.MOD_MUL_BLS, pk.BLS_PT_ADD, pk.BLS_PT_MADD, pk.BLS_PT_WINDOW_STEP,
             pk.BLS_PT_LADDER_MUL_ADD))
@@ -189,6 +204,7 @@ SOURCES = {
     "pt_ladder_mul_add": ("point_kernels.cu", PDIR + ":356"),
     "pt_add[edwards]": ("edwards_kernels.cu", PDIR + ":258"),
     "pt_madd[edwards]": ("edwards_kernels.cu", PDIR + ":281"),
+    "pt_window_step[edwards]": ("edwards_kernels.cu", PDIR + ":328"),
     "pt_ladder_mul_add[edwards]": ("edwards_kernels.cu", PDIR + ":356"),
     "pt_double": ("double_kernels.cu", PDIR + ":304"),
     "pt_double[edwards]": ("double_kernels.cu", PDIR + ":304"),
@@ -449,21 +465,20 @@ def kernel_cases(rng) -> dict:
             [(lanes, *ladder, [points(R), points(R), x_rand])],
             [points((n,)), points(()), x_main],
             ladder_muladds(range(1, n + 1), dbl_c, add_c))
-        if cs.kind != "edwards":
-            # one window step over the t+1 columns: the Straus RLC's (k = 4)
-            # and, in its own row, the Pippenger combine's (k = 8)
-            for k, suffix in ((gd.WINDOW, ""), (8, " k=8")):
-                step = point_fns(cs, "pt_window_step", k)
-                cases[name("pt_window_step") + suffix] = Case(
-                    path, *step,
-                    [(f"{lanes}, k={k}", *step, [points(R), points(R)])],
-                    [points((t + 1,)), points((t + 1,))],
-                    (k * dbl_c + add_c) * (t + 1))
-        # pt_double at k = 1 and 4; at the path's shape, the Straus window
-        # step's 4 doublings over t+1 columns: on the ristretto255 path the
-        # Edwards window step is pt_double(acc, 4) then pt_add, while the
-        # Weierstrass curves' step is one pt_window_step launch, so theirs
-        # is off the path and timed at the shape it would have there
+        # one window step over the t+1 columns, the Straus RLC's (k = 4)
+        # and, in its own row, the Pippenger combine's at k = 8 (c = 8 at
+        # n = 1024; ristretto255's n = 256 combine runs c = 4, the Straus
+        # row's shape); and in a third row the KEM's scalar_mul step over
+        # all n * n pairs (k = 4), its plain version timed once
+        for k, suffix, m in ((gd.WINDOW, "", t + 1), (8, " k=8", t + 1), (gd.WINDOW, " KEM", n * n)):
+            step = point_fns(cs, "pt_window_step", k)
+            rand = [] if suffix == " KEM" else [(f"{lanes}, k={k}", *step, [points(R), points(R)])]
+            cases[name("pt_window_step") + suffix] = Case(
+                path, *step, rand, [points((m,)), points((m,))], (k * dbl_c + add_c) * m,
+                plain_reps=1 if suffix == " KEM" else 2)
+        # pt_double at k = 1 and 4, off every path (each window step is one
+        # pt_window_step launch), timed at the Straus window step's shape:
+        # 4 doublings over t+1 columns
         dbl_rand = [(f"{lanes}, k={k}", *point_fns(cs, "pt_double", k), [points(R)]) for k in (1, 4)]
         cases[name("pt_double")] = Case(
             path, *point_fns(cs, "pt_double", gd.WINDOW), dbl_rand, [points((t + 1,))],
@@ -721,13 +736,15 @@ def digest_legs(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
 # string is in the name wins.  The Weierstrass point and bucket kernels
 # are templates (csrc/point_kernels.cuh, bucket.cuh) whose name carries
 # the curve (Secp256k1, Bls12381) as its template argument, mangled or
-# not; "pt_add_kernel" is also inside "ed_pt_add_kernel", so the Edwards
-# kernels come first, and "mod_mul_kernel" is inside "mxu_mod_mul_kernel".
+# not; "pt_add_kernel" is also inside "ed_pt_add_kernel" (and
+# "pt_window_step_kernel" inside "ed_pt_window_step_kernel"), so the
+# Edwards kernels come first, and "mod_mul_kernel" is inside "mxu_mod_mul_kernel".
 # The field kernels' names carry a field id: "madd", "mul" and "mxu" stand
 # for the path's own family of mod_madd, mod_mul and mxu_mod_mul.
 PROFILE_GROUPS = (
     (("ed_pt_add_kernel",), "pt_add[edwards]"), (("ed_pt_madd_kernel",), "pt_madd[edwards]"),
     (("ed_pt_double_kernel",), "pt_double[edwards]"), (("ed_pt_ladder_kernel",), "pt_ladder_mul_add[edwards]"),
+    (("ed_pt_window_step_kernel",), "pt_window_step[edwards]"),
     (("bucket_kernel", "EdCurve"), "bucket_accumulate[edwards]"),
     *(((f"{fn}_kernel", tag), op + suffix)
       for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"))
@@ -815,6 +832,150 @@ def rlc_schedules(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
         profiled(p, f"{path.curve} n={path.n} verify phase rlc={p.rlc}", verify)
 
 
+# ---------------------------------------------------------------------------
+# the dealing round's share encryption
+# ---------------------------------------------------------------------------
+
+SEAL_SAMPLES = 64  # pairs whose KEM point is held to the host big-int ladder
+SEAL_OPENERS = 4  # recipients who open their column: 1, n and two seeded others
+
+
+class HostSeconds:
+    """Host seconds spent in some module functions while the block runs,
+    by name: the DEM's steps inside ``seal_shares_batch``."""
+
+    def __init__(self, *targets):
+        self.targets = targets  # (module, function name) pairs
+
+    def __enter__(self):
+        self.seconds = {name: 0.0 for _, name in self.targets}
+        self._orig = [(mod, name, getattr(mod, name)) for mod, name in self.targets]
+
+        def timed(name, fn):
+            def wrapped(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.seconds[name] += time.perf_counter() - t0
+            return wrapped
+
+        for mod, name, fn in self._orig:
+            setattr(mod, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+
+def seal_kernels(cs) -> tuple:
+    """The kernels one seal launches: c1's mixed adds, scalar_mul's table
+    adds and window steps, and the KEM encoding's canonical affine form."""
+    return (pk.kernel_for("pt_madd", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_window_step", cs),
+            fk.mul_kernel_for(cs.field))
+
+
+def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict:
+    """The dealing round's share encryption on the Straus run's shares and
+    hidings: recipient keys and KEM randomness from the path's seeded
+    random.Random, as bench.py's seal leg draws them; the KEM's pieces
+    timed by CUDA events; seal_shares_pipeline at its default chunk and
+    unchunked (equal outputs; the unchunked run, with every launch count
+    set to 0 just before and read just after, is the path's seal and must
+    launch each of its kernels); then the checks: 64 sampled KEM points
+    against the host ladder, the batch DEM's pairs against the per-pair
+    leg's on a dealer subset, four recipients' opens against the dealt
+    values, a tampered ciphertext, and no plain multiply on the card.
+    Returns the seal's launch counts."""
+    cs, n, cfg = path.cs, path.n, c.cfg
+    fs, group = cs.scalar, gh.ALL_GROUPS[path.curve]
+    tag = f"seal {path.curve} n={n}"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = random.Random(f"{seed}-seal-{path.curve}")
+    sks = [fs.rand_int(rng) for _ in range(n)]
+    r_ints = [[fs.rand_int(rng) for _ in range(n)] for _ in range(n)]
+    with PlainMuls() as plain:
+        pks = gd.fixed_base_mul(cs, c.g_table, fh.to_tensor(fh.encode(fs, sks), DEV))
+        r_enc = fh.to_tensor(fh.encode(fs, r_ints), DEV)
+        shares, hidings = out["shares"], out["hidings"]
+        sync()
+        # the KEM's pieces, each one pass between CUDA events after a warm-up
+        # pass (the first pass at these sizes also grows the allocator)
+        c1_ms, c1 = cuda_ms(lambda: gd.fixed_base_mul(cs, c.g_table, r_enc), reps=1)
+        kem_ms, kem = cuda_ms(lambda: gd.scalar_mul(cs, r_enc, pks), reps=1)
+        canon_ms, _ = cuda_ms(lambda: gd.affine_canon(cs, kem), reps=1)
+        kem_dev = device_ms(lambda: gd.scalar_mul(cs, r_enc, pks), reps=2)
+        print(f"{tag}: KEM of {n * n} pairs, CUDA events (ms): c1 = fixed_base_mul {c1_ms:.3f}, "
+              f"scalar_mul {kem_ms:.3f} (device {kem_dev:.3f}), encode_batch's affine_canon {canon_ms:.3f}",
+              flush=True)
+        sealed, wall = {}, {}
+        for chunk in (None, 0):
+            for k in KERNELS:
+                k.launches = 0
+            with HostSeconds((hb, "seal_shares_batch"), (gd, "encode_batch"), (hb, "kdf_batch"),
+                             (hb, "chacha20_xor_batch"), (hb, "_host_points")) as host:
+                t0 = time.perf_counter()
+                sealed[chunk] = hb.seal_shares_pipeline(group, cfg, shares, hidings, pks, r_enc, c.g_table,
+                                                        chunk=chunk)
+                sync()
+                wall[chunk] = time.perf_counter() - t0
+            seconds = dict(host.seconds)
+            # the rest of seal_shares_batch: the HybridCiphertext objects and byte rows
+            seconds["packing"] = seconds.pop("seal_shares_batch") - sum(seconds.values())
+            launches = {k.name: k.launches for k in KERNELS if k.launches}
+            label = "unchunked" if chunk == 0 else f"chunk={max(1, 4096 // n)} dealers"
+            print(f"{tag}: seal_shares_pipeline {label}: wall {wall[chunk]:.6f} s, "
+                  f"{n * n / wall[chunk]:.1f} pairs sealed per s; host s " + json.dumps(
+                      {k: round(v, 6) for k, v in seconds.items()})
+                  + "; launches " + json.dumps(launches), flush=True)
+        for k in seal_kernels(cs):
+            check(launches.get(k.name, 0) > 0, f"kernel {k.name} was not launched in the {tag} seal")
+        check(len(sealed[0]) == n and all(len(row) == n for row in sealed[0]), f"{tag}: sealed matrix shape")
+        check(sealed[None] == sealed[0], f"{tag}: the chunked pipeline's pairs differ from the unchunked one's")
+
+        # 64 sampled KEM points against the host ladder
+        pairs = [(rng.randrange(n), rng.randrange(n)) for _ in range(SEAL_SAMPLES)]
+        idx = torch.tensor([d * n + i for d, i in pairs], device=DEV)
+        got = gd.encode_batch(cs, kem.reshape(n * n, cs.ncoords, -1)[idx])
+        gen = group.generator()
+        for (d, i), enc in zip(pairs, got):
+            want = group.encode(group.scalar_mul(r_ints[d][i], group.scalar_mul(sks[i], gen)))
+            check(enc.tobytes() == want, f"{tag}: the KEM point of pair ({d}, {i}) != r·pk")
+        # the batch DEM against the per-pair leg on a dealer subset
+        m_sc = min(n, max(1, 4096 // n))
+        t0 = time.perf_counter()
+        scalar = hb.seal_shares(group, cfg, shares[:m_sc], hidings[:m_sc], c1[:m_sc], kem[:m_sc])
+        scalar_s = time.perf_counter() - t0
+        check(scalar == sealed[0][:m_sc], f"{tag}: the batch DEM's pairs differ from seal_shares' on {m_sc} dealers")
+        # four recipients open their columns
+        openers = [0, n - 1, *rng.sample(range(1, n - 1), SEAL_OPENERS - 2)]
+        dealt_s = fh.decode(fs, fh.from_tensor(shares[:, openers]))
+        dealt_h = fh.decode(fs, fh.from_tensor(hidings[:, openers]))
+        t0 = time.perf_counter()
+        for col, i in enumerate(openers):
+            opened = hb.open_shares_batch(group, cfg, sks[i], [sealed[0][d][i] for d in range(n)], device=DEV)
+            want = [(int(dealt_s[d, col]), int(dealt_h[d, col])) for d in range(n)]
+            check(opened == want, f"{tag}: recipient {i + 1} did not open the dealt shares")
+        open_s = time.perf_counter() - t0
+        # a tampered ciphertext does not open to the dealt share
+        d, i = rng.randrange(n), openers[2]
+        share_ct, hiding_ct = sealed[0][d][i]
+        bad = hb.HybridCiphertext(share_ct.e1, bytes([share_ct.ciphertext[0] ^ 1]) + share_ct.ciphertext[1:])
+        got_s, _ = hb.open_share(group, sks[i], (bad, hiding_ct))
+        check(got_s is None or got_s != int(dealt_s[d, 2]), f"{tag}: a tampered ciphertext opened to the share")
+        sync()
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    print(f"{tag}: {SEAL_SAMPLES} sampled KEM points equal r·pk on the host; the batch DEM equals seal_shares "
+          f"on {m_sc} dealers ({scalar_s:.6f} s, {m_sc * n / scalar_s:.1f} pairs per s); recipients "
+          f"{[i + 1 for i in openers]} opened every dealer's share and hiding ({open_s:.6f} s); a tampered "
+          f"ciphertext did not; no plain multiply on the card; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def tampered(curve: str, seed: int, rlc: str) -> None:
     n, t, dealer, recipient = TAMPER_N, TAMPER_T, 3, 7
     cs = gd.ALL_CURVES[curve]
@@ -873,6 +1034,7 @@ def main() -> None:
         c, out, path_launches = main_path(path, args.seed)
         keep(path_launches)
         digest_legs(path, c, out)
+        keep(seal_phase(path, c, out, args.seed))
         if path in REPEATED_PASSES:
             profile_main_path(path, args.seed)
         pip = path.pippenger()

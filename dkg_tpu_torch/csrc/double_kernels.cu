@@ -3,13 +3,10 @@
 // (extended, dbl-2008-hwcd, edwards.cuh).
 //
 // Replaces: dkg_tpu/ops/pallas_point.py _double_call (the Pallas kernel
-// behind pt_double) for both curve kinds at 16 limbs.  The ceremony
-// launches it on ristretto255 only: the Edwards Straus window step is
-// pt_double(acc, 4) then pt_add, the JAX package's split route
-// (groups/device.py window_step, DKG_TPU_ED_FUSED_DOUBLES).  On secp256k1
-// the window step is one pt_window_step launch, so the Weierstrass
-// variant serves groups/device.double, which nothing on the ceremony path
-// calls.
+// behind pt_double) for both curve kinds at 16 limbs.  No ceremony path
+// launches it: every window step, Edwards included, is one
+// pt_window_step launch (groups/device.py window_step), so it serves
+// groups/device.double, which the point RLC's "bits" schedule calls.
 //
 // What bounds it on the H100: a lane reads one point and writes one (384
 // bytes on secp256k1, 512 on edwards25519) and does n_doubles x 700 or
@@ -18,8 +15,8 @@
 // 115 or 153 ps of bytes a lane: bound by the multiplier.  The design
 // keeps the point in registers across all n_doubles doublings (as the
 // Pallas kernel keeps it in VMEM), one lane per thread, no shared memory.
-// The window step gives it t + 1 = 86 lanes at the ristretto255 n = 256
-// path's shape: one block of the card's 132 SMs, a latency figure.
+// The Straus window step's shape is t + 1 = 86 lanes at ristretto255
+// n = 256: one block of the card's 132 SMs, a latency figure.
 //
 // Each curve has its own C entry: dkg_pt_double runs point_kernels.cuh's
 // doubling kernel instantiated for secp256k1, dkg_ed_pt_double the

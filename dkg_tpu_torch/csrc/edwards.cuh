@@ -189,6 +189,20 @@ __device__ __forceinline__ void ed_double_lane(const int32_t* p, int n_doubles, 
   store_ed(out, a);
 }
 
+// out = 2^n_doubles * acc + entry: the doublings, then the unified add,
+// with acc in registers throughout.  The loop stays rolled: unrolled
+// doublings gain nothing at a runtime count and cost registers.
+__device__ __forceinline__ void ed_window_step_lane(const int32_t* acc, const int32_t* entry,
+                                                    int n_doubles, int32_t* out) {
+  EdPoint a, e;
+  load_ed(acc, a);
+#pragma unroll 1
+  for (int i = 0; i < n_doubles; ++i) ed_double(a);
+  load_ed(entry, e);
+  ed_add(a, a, e);
+  store_ed(out, a);
+}
+
 // out = x * P + A, MSB-first over the low nbits bits of x: each step a
 // doubling and a unified add, the sum kept where the bit is set (both
 // are computed, as in the Pallas kernel's select).

@@ -1,14 +1,13 @@
 // Extended twisted Edwards point kernels on edwards25519 (ristretto255),
-// one point per thread: pt_add, pt_madd and pt_ladder_mul_add.
+// one point per thread: pt_add, pt_madd, pt_window_step and
+// pt_ladder_mul_add.
 //
-// Replaces: dkg_tpu/ops/pallas_point.py _add_call, _madd_call and
-// _ladder_call (the Pallas kernels behind pt_add, pt_madd and
-// pt_ladder_mul_add) for cs.kind == "edwards" at 16 limbs.  Outputs equal
-// the JAX package's limb for limb: the same HWCD formulas (edwards.cuh)
-// over exact, canonical field ops.  The Edwards doubling kernel is in
-// double_kernels.cu; the one-launch Edwards window step is not ported
-// (the ceremony takes the JAX package's split route, pt_double then
-// pt_add, groups/device.py window_step).
+// Replaces: dkg_tpu/ops/pallas_point.py _add_call, _madd_call,
+// _window_call and _ladder_call (the Pallas kernels behind pt_add,
+// pt_madd, pt_window_step and pt_ladder_mul_add) for cs.kind == "edwards"
+// at 16 limbs.  Outputs equal the JAX package's limb for limb: the same
+// HWCD formulas (edwards.cuh) over exact, canonical field ops.  The
+// Edwards doubling kernel is in double_kernels.cu.
 //
 // What bounds them on the H100: a point is 256 bytes in memory (4 x 16
 // int32 limbs).  Per lane, in 32x32->64-bit multiply-adds (edwards.cuh):
@@ -19,7 +18,13 @@
 // needs only (bit_length(x) - 1) x 584 + popcount(x) x 657 for 772 bytes:
 // 6157 on average over the ceremony's x = 1..256, bound by the
 // multiplier.  The kernel runs a fixed nbits doublings and adds a lane,
-// nbits x (584 + 657) + 657 = 11826 at nbits = 9.
+// nbits x (584 + 657) + 657 = 11826 at nbits = 9.  pt_window_step is
+// n_doubles x 584 + 657 for 768 bytes: 2993 at n_doubles = 4 (the KEM's
+// scalar_mul and the Straus RLC), 5329 at 8 (the Pippenger combine), 361
+// and 643 ps of multiplies to 229 ps of bytes a lane: bound by the
+// multiplier.  It keeps the accumulator in registers across the doublings
+// and the add, where the split route (pt_double, then pt_add) writes it
+// out and reads it back between two launches.
 //
 // The design is point_kernels.cu's: every coordinate and temporary in
 // registers for the whole sequence, constants (the modulus, 2d) from
@@ -55,6 +60,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
+    ed_pt_window_step_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ entry,
+                             int32_t* __restrict__ out, int64_t n, int n_doubles) {
+  DKG_LANES(lane, n) {
+    ed_window_step_lane(acc + lane * kPointWords, entry + lane * kPointWords, n_doubles,
+                        out + lane * kPointWords);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
     ed_pt_ladder_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ addend,
                         const int32_t* __restrict__ x, int32_t* __restrict__ out, int64_t n,
                         int nbits) {
@@ -77,6 +91,15 @@ int dkg_ed_pt_add(const int32_t* p, const int32_t* q, int32_t* out, int64_t n, v
 int dkg_ed_pt_madd(const int32_t* p, const int32_t* q, int32_t* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
   ed_pt_madd_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(p, q, out, n);
+  return (int)cudaGetLastError();
+}
+
+int dkg_ed_pt_window_step(const int32_t* acc, const int32_t* entry, int32_t* out, int64_t n,
+                          int n_doubles, void* stream) {
+  if (n <= 0) return 0;
+  if (n_doubles < 0) return (int)cudaErrorInvalidValue;
+  ed_pt_window_step_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(acc, entry, out,
+                                                                                 n, n_doubles);
   return (int)cudaGetLastError();
 }
 

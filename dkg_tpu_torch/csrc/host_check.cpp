@@ -220,6 +220,13 @@ void host_ed_pt_double(const int32_t* p, int32_t* out, int64_t n, int n_doubles)
     ed_double_lane(p + lane * kEdPointWords, n_doubles, out + lane * kEdPointWords);
 }
 
+void host_ed_pt_window_step(const int32_t* acc, const int32_t* entry, int32_t* out, int64_t n,
+                            int n_doubles) {
+  for (int64_t lane = 0; lane < n; ++lane)
+    ed_window_step_lane(acc + lane * kEdPointWords, entry + lane * kEdPointWords, n_doubles,
+                        out + lane * kEdPointWords);
+}
+
 void host_ed_pt_ladder_mul_add(const int32_t* p, const int32_t* addend, const int32_t* x,
                                int32_t* out, int64_t n, int nbits) {
   for (int64_t lane = 0; lane < n; ++lane)

@@ -20,6 +20,9 @@ path passes a kernel wrapper, so each step is one launch.
 
 from __future__ import annotations
 
+import functools
+import operator
+
 import numpy as np
 import torch
 
@@ -32,43 +35,98 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64)
 
 
-def _limb_const(limbs: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(limbs.astype(np.int64), device=like.device)
+@functools.lru_cache(maxsize=None)
+def _const(fs: FieldSpec, name: str, device: torch.device) -> torch.Tensor:
+    """One of ``fs``'s constant arrays as int64 on ``device``, made once:
+    an attribute path (``p_limbs``, ``barrett_mu``, ``mulred.foldm``, ...),
+    or ``kp_limbs_ext``, the rows 0, p and 2p of ``p_limbs_ext``."""
+    if name == "kp_limbs_ext":
+        return torch.as_tensor(np.outer([0, 1, 2], fs.p_limbs_ext.astype(np.int64)), device=device)
+    return torch.as_tensor(operator.attrgetter(name)(fs).astype(np.int64), device=device)
 
 
 # ---------------------------------------------------------------------------
 # carry / borrow primitives (int64 in, int64 out)
 # ---------------------------------------------------------------------------
 
-
-def _carry(cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Propagate signed column carries: (..., K) int64 columns ->
-    (16-bit limbs, the carry out of the top limb).
-
-    Each round moves every column's carry (an arithmetic shift, so a
-    borrow is -1) one limb up, all columns at once, until none is left:
-    a few rounds for random values, at most K when a carry ripples
-    through a run of 0xFFFF (or a borrow through a run of 0) limbs."""
-    out = torch.zeros_like(cols[..., -1])
-    while True:
-        carry = cols >> 16
-        out = out + carry[..., -1]
-        if not bool(carry[..., :-1].any()):
-            return cols & MASK16, out
-        cols = (cols & MASK16) + torch.nn.functional.pad(carry[..., :-1], (1, 0))
+MAX_CARRY_LIMBS = 62  # the lookahead packs one carry bit a limb, and the carry out, into an int64
 
 
-def normalize(cols: torch.Tensor, out_len: int) -> torch.Tensor:
-    """Carry-propagate non-negative columns into ``out_len`` 16-bit limbs,
-    taken mod ``2**(16*out_len)``."""
+def _local_rounds(hi: int) -> int:
+    """Rounds of x <- (x & 0xFFFF) + (x >> 16 shifted up a limb) that bring
+    non-negative columns of at most ``hi`` into [0, 2**16]."""
+    rounds = 0
+    while hi > 1 << 16:
+        hi, rounds = MASK16 + (hi >> 16), rounds + 1
+    return rounds
+
+
+@functools.lru_cache(maxsize=None)
+def _carry_consts(k: int, bits: int, signed: bool, device: torch.device) -> tuple:
+    """For k columns of magnitude < 2**bits: the local rounds, the powers
+    of two that pack one bit a limb, the limb indices 0..k, and for signed
+    columns the offset that makes them non-negative with its worth in
+    units of 2**(16k).  The offset is 2**B, then 2**B - 2**(B-16) a column
+    (B = max(bits + 1, 16)), a telescoping sum of 2**(16k) · 2**(B-16)."""
+    b = max(bits + 1, 16)
+    pow2 = torch.tensor([1 << j for j in range(k)], dtype=torch.int64, device=device)
+    idx = torch.arange(k + 1, device=device)
+    if not signed:
+        return _local_rounds((1 << bits) - 1), pow2, idx, None, 0
+    off = torch.full((k,), (1 << b) - (1 << (b - 16)), dtype=torch.int64, device=device)
+    off[0] = 1 << b
+    return _local_rounds((1 << bits) - 1 + (1 << b)), pow2, idx, off, 1 << (b - 16)
+
+
+def _carry(cols: torch.Tensor, bits: int = 61, *, signed: bool = True, top: bool = True):
+    """Propagate column carries: (..., K) int64 columns, each of magnitude
+    < 2**bits (bits <= 61, K <= 62; ``signed=False`` promises them
+    non-negative) -> (16-bit limbs, the carry out of the top limb), or the
+    limbs alone with ``top=False``; no loop whose length depends on the
+    data.
+
+    An offset worth a whole multiple of 2**(16K) makes signed columns
+    non-negative.  A fixed number of local rounds, each moving every
+    column's carry one limb up at once, brings every limb into [0, 2**16].
+    What is left is a carry of 1 out of each 2**16 limb that ripples on
+    through runs of 0xFFFF limbs, settled in one lookahead pass: with one
+    bit a limb, G the limbs that send a carry (2**16) and P those that pass
+    one on (0xFFFF), the carries into the limbs are the carry bits of the
+    binary sum G + (G | P), ((G << 1) + P) ^ P."""
+    k = cols.shape[-1]
+    if k > MAX_CARRY_LIMBS or bits > 61:
+        raise ValueError(f"_carry takes at most {MAX_CARRY_LIMBS} columns below 2**61, got {k} below 2**{bits}")
+    rounds, pow2, idx, off, off_top = _carry_consts(k, bits, signed, cols.device)
+    x = cols if off is None else cols + off
+    out = None
+    for _ in range(rounds):
+        c = x >> 16
+        if top:
+            out = c[..., -1] if out is None else out + c[..., -1]
+        x = (x & MASK16) + torch.nn.functional.pad(c[..., :-1], (1, 0))
+    g = ((x >> 16) * pow2).sum(-1)  # limbs at 2**16
+    e = (((x + 1) >> 16) * pow2).sum(-1)  # limbs at 0xFFFF or 2**16
+    cin = (e + g) ^ (e - g)  # ((G << 1) + P) ^ P with P = E - G
+    cbits = (cin[..., None] >> idx) & 1  # the carry into limb j, j = 0..K
+    limbs = (x + cbits[..., :k]) & MASK16
+    if not top:
+        return limbs
+    out = cbits[..., k] if out is None else out + cbits[..., k]
+    return limbs, out - off_top
+
+
+def normalize(cols: torch.Tensor, out_len: int, bits: int = 61) -> torch.Tensor:
+    """Carry-propagate non-negative columns below 2**bits into ``out_len``
+    16-bit limbs, taken mod ``2**(16*out_len)``."""
     k = cols.shape[-1]
     cols = torch.nn.functional.pad(cols, (0, out_len - k)) if k < out_len else cols[..., :out_len]
-    return _carry(cols)[0]
+    return _carry(cols, bits, signed=False, top=False)
 
 
 def sub_with_borrow(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(a - b) mod 2**(16K) and the final borrow (1 iff a < b)."""
-    limbs, top = _carry(a - b)
+    """(a - b) mod 2**(16K) of equal-length limbs, and the final borrow (1
+    iff a < b)."""
+    limbs, top = _carry(a - b, 16)
     return limbs, (top < 0).to(torch.int64)
 
 
@@ -83,6 +141,13 @@ def cond_sub(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _column_index(la: int, lb: int, device: torch.device) -> torch.Tensor:
+    """Column i+j of each product a_i·b_j (low halves), then i+j+1 (high)."""
+    col = (torch.arange(la, device=device)[:, None] + torch.arange(lb, device=device)).flatten()
+    return torch.cat([col, col + 1])
+
+
 def _mul_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Unnormalized schoolbook product columns of int64 limb tensors:
     (..., La) x (..., Lb) -> (..., La+Lb), column i+j taking the low 16
@@ -90,36 +155,30 @@ def _mul_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for L <= 24)."""
     la, lb = a.shape[-1], b.shape[-1]
     prod = (a[..., :, None] * b[..., None, :]).flatten(-2)  # 16x16 -> 32 bits, exact
-    col = (torch.arange(la, device=a.device)[:, None] + torch.arange(lb, device=a.device)).flatten()
     cols = torch.zeros(prod.shape[:-1] + (la + lb,), dtype=torch.int64, device=prod.device)
-    cols.index_add_(-1, col, prod & MASK16)
-    cols.index_add_(-1, col + 1, prod >> 16)
-    return cols
+    return cols.index_add_(-1, _column_index(la, lb, prod.device), torch.cat([prod & MASK16, prod >> 16], -1))
 
 
 def mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Full product of int64 limb tensors: (..., La) x (..., Lb) -> (..., La+Lb)."""
-    return normalize(_mul_columns(a, b), a.shape[-1] + b.shape[-1])
+    return normalize(_mul_columns(a, b), a.shape[-1] + b.shape[-1], bits=22)
 
 
 def barrett_reduce(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """Reduce a normalized 2L-limb int64 value mod p (HAC 14.42, b = 2**16):
-    the quotient estimate is short by at most 2, fixed by two conditional
-    subtractions."""
+    """Reduce a normalized 2L-limb int64 value mod p (HAC 14.42, b = 2**16).
+
+    The quotient estimate q3 is short by at most 2, so r = x - q3·p mod
+    b**(L+1) lies in [0, 3p).  One carry pass settles r, r - p and r - 2p
+    together from the product's columns: with R = x - (q3·p's low L+1
+    columns), each candidate R - kp normalizes to its limbs and a carry
+    out, and r >= kp exactly when R - kp's carry out is at least R's."""
     L = fs.limbs
-    mu = _limb_const(fs.barrett_mu, x)
-    p_ext = _limb_const(fs.p_limbs_ext, x)
-    q3 = mul_wide(x[..., L - 1 :], mu)[..., L + 1 :]
-    r2 = mul_wide(q3, p_ext)[..., : L + 1]
-    r, _ = sub_with_borrow(x[..., : L + 1], r2)  # mod b**(L+1): r in [0, 3p)
-    r = cond_sub(r, p_ext)
-    r = cond_sub(r, p_ext)
-    return r[..., :L]
-
-
-# ---------------------------------------------------------------------------
-# the modular ops (int32 limbs in, canonical int32 limbs out)
-# ---------------------------------------------------------------------------
+    q3 = mul_wide(x[..., L - 1 :], _const(fs, "barrett_mu", x.device))[..., L + 1 :]
+    r = x[..., : L + 1] - _mul_columns(q3, _const(fs, "p_limbs_ext", x.device))[..., : L + 1]
+    kp = _const(fs, "kp_limbs_ext", x.device)  # 0, p, 2p as (3, L+1) columns
+    limbs, top = _carry(r - kp.reshape((3,) + (1,) * (r.dim() - 1) + (L + 1,)), 23)
+    ge1, ge2 = (top[1] >= top[0])[..., None], (top[2] >= top[0])[..., None]
+    return torch.where(ge2, limbs[2], torch.where(ge1, limbs[1], limbs[0]))[..., :L]
 
 
 def zeros(fs: FieldSpec, batch: tuple = (), *, device) -> torch.Tensor:
@@ -138,16 +197,19 @@ def constant(fs: FieldSpec, value: int, *, device) -> torch.Tensor:
 
 
 def add(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    s = normalize(_wide(a) + _wide(b), fs.limbs + 1)  # limb sums < 2**17
-    return cond_sub(s, _limb_const(fs.p_limbs_ext, s))[..., : fs.limbs].to(torch.int32)
+    """(a + b) mod p: a + b and a + b - p in one carry pass, the second
+    kept unless it borrowed."""
+    s = _wide(a) + _wide(b)
+    limbs, top = _carry(torch.stack([s, s - _const(fs, "p_limbs", s.device)]), 18)
+    return torch.where((top[1] < 0)[..., None], limbs[0], limbs[1]).to(torch.int32)
 
 
 def sub(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    # (a + p) - b stays non-negative: [0, 2p), then one conditional subtract
-    ap = normalize(_wide(a) + _limb_const(fs.p_limbs, a), fs.limbs + 1)
-    b_ext = torch.nn.functional.pad(_wide(b), (0, 1))
-    d, _ = sub_with_borrow(ap, b_ext)
-    return cond_sub(d, _limb_const(fs.p_limbs_ext, d))[..., : fs.limbs].to(torch.int32)
+    """(a - b) mod p: a - b and a - b + p in one carry pass, the first kept
+    unless it borrowed."""
+    d = _wide(a) - _wide(b)
+    limbs, top = _carry(torch.stack([d, d + _const(fs, "p_limbs", d.device)]), 18)
+    return torch.where((top[0] < 0)[..., None], limbs[1], limbs[0]).to(torch.int32)
 
 
 def neg(fs: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -181,21 +243,21 @@ def _mul_gemm(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cols = _mul_columns(_wide(a), _wide(b))
     plo, phi = cols[..., :L], cols[..., L:]
     digits = torch.cat([phi & 0xFF, (phi >> 8) & 0xFF, phi >> 16, plo[..., L - 1 :] >> 16], dim=-1)
-    foldm = _limb_const(mr.foldm, cols)  # (3L+1, 2L) bytes
+    foldm = _const(fs, "mulred.foldm", cols.device)  # (3L+1, 2L) bytes
     cols8 = torch.zeros_like(cols)
     for i in range(3 * L + 1):
         cols8 += digits[..., i : i + 1] * foldm[i]
     keep = torch.cat([plo[..., : L - 1], plo[..., L - 1 :] & MASK16], dim=-1)
     cols = keep + cols8[..., 0::2] + (cols8[..., 1::2] << 8)
-    c = _limb_const(mr.c_limbs, cols)
+    c = _const(fs, "mulred.c_limbs", cols.device)
     for _ in range(mr.n_split):
         hi16 = cols >> 16
         cols = (cols & MASK16) + torch.nn.functional.pad(hi16[..., :-1], (1, 0)) + hi16[..., L - 1 :] * c
     v = normalize(cols, L + 1)
     u = (v[..., L - 1] >> mr.shift_e) | (v[..., L] << (16 - mr.shift_e))
-    q = _limb_const(mr.qtable, v)[u]
-    w = normalize(v + q[..., None] * _limb_const(mr.np_limbs, v), L + 1)
-    return cond_sub(w, _limb_const(fs.p_limbs_ext, w))[..., :L].to(torch.int32)
+    q = _const(fs, "mulred.qtable", v.device)[u]
+    w = normalize(v + q[..., None] * _const(fs, "mulred.np_limbs", v.device), L + 1)
+    return cond_sub(w, _const(fs, "p_limbs_ext", w.device))[..., :L].to(torch.int32)
 
 
 def square(fs: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -194,22 +194,38 @@ def _tree_reduce(cs: CurveSpec, pts: torch.Tensor, axis_len: int) -> torch.Tenso
 
 
 def window_step(cs: CurveSpec, acc: torch.Tensor, entry: torch.Tensor, window: int) -> torch.Tensor:
-    """One Straus window: ``window`` doublings of acc, then + entry.
-
-    Weierstrass: one ``pt_window_step`` launch.  Edwards: the JAX
-    package's split route (its ``DKG_TPU_ED_FUSED_DOUBLES`` mode), one
-    ``pt_double`` launch of all ``window`` doublings, then one ``pt_add``;
-    the one-launch Edwards window step is not ported."""
-    if cs.kind != "edwards":
-        return pk.pt_window_step(cs, acc, entry, window)
-    if window:
-        acc = pk.pt_double(cs, acc, window)
-    return pk.pt_add(cs, acc, entry)
+    """One Straus window: ``window`` doublings of acc, then + entry, in one
+    ``pt_window_step`` launch on every curve (its plain version on CPU
+    tensors)."""
+    return pk.pt_window_step(cs, acc, entry, window)
 
 
 # ---------------------------------------------------------------------------
-# fixed-base and small-scalar multiplication
+# variable-base, fixed-base and small-scalar multiplication
 # ---------------------------------------------------------------------------
+
+
+def scalar_mul(cs: CurveSpec, k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Batched k·P: k (..., L) scalar limbs, p (..., C, L) points broadcast
+    to k's batch -> (..., C, L); the JAX package's ``scalar_mul`` and
+    ``_scalar_mul_core`` in one (its power-of-two padding of eager batches
+    bounds its compiles, and the padded lanes are dropped).
+
+    A fixed-window MSB-first double-and-add: per-lane 16-entry tables, then
+    one window step per 4-bit digit from the top (a digit 0 adds the
+    identity through the complete formulas).  The tables are built over
+    p's own batch and broadcast to k's, so a point shared by many scalars
+    (a recipient's key under every dealer's randomness) builds its table
+    once; the entries are the same values either way."""
+    table = _build_table(cs, p)  # (..., 16, C, L)
+    batch = k.shape[:-1]
+    if p.dim() > 2:
+        table = table.expand(batch + table.shape[-3:])
+    digits = scalar_windows(k, WINDOW)  # (..., NW)
+    acc = identity(cs, batch, device=p.device)
+    for d in reversed(range(digits.shape[-1])):
+        acc = window_step(cs, acc, _gather_table(table, digits[..., d]), WINDOW)
+    return acc
 
 
 def fixed_base_mul(cs: CurveSpec, table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -444,3 +460,44 @@ def affine_canon_host(cs: CurveSpec, pts) -> np.ndarray:
         rows.append(b"".join(v.to_bytes(nb, "little") for v in row))
     out = np.frombuffer(b"".join(rows), dtype="<u2").astype(np.uint32)
     return out.reshape(shape)
+
+
+def encode_batch(cs: CurveSpec, pts) -> np.ndarray:
+    """Canonical compressed encodings of a point batch: (..., C, L) ->
+    (..., enc_len) uint8, each row bit-identical to ``HostGroup.encode``
+    (SEC bytes for Weierstrass, all zero for the identity; ristretto255's
+    32 bytes for Edwards).
+
+    Where the inversion runs follows where the points are, as the JAX
+    package's follows its backend: a tensor on the card takes the device
+    leg (:func:`affine_canon`, each multiply one ``mod_mul`` launch, then
+    one transfer); a CPU tensor or a numpy array the host leg
+    (:func:`affine_canon_host`, one Montgomery-trick inversion over big
+    ints).  Both give the same canonical affine limbs, so the same bytes."""
+    if isinstance(pts, torch.Tensor) and pts.device.type != "cpu":
+        return encode_affine(cs, fh.from_tensor(affine_canon(cs, pts)))
+    return encode_affine(cs, affine_canon_host(cs, pts))
+
+
+def encode_affine(cs: CurveSpec, aff: np.ndarray) -> np.ndarray:
+    """The encodings of canonical affine limbs (..., C, L), the identity
+    as :func:`affine_canon` gives it (Z = 0 on Weierstrass, (0, 1, 1, 0) on
+    Edwards).  Weierstrass: the parity of y and big-endian x, all lanes at
+    once.  Edwards: one ristretto255 encoding a point on the host, whose
+    inverse square root does not batch."""
+    batch = aff.shape[:-2]
+    flat = aff.reshape((-1,) + aff.shape[-2:])
+    if cs.kind != "edwards":
+        nb = cs.field.nbytes
+        x_le = np.ascontiguousarray(flat[:, 0, :].astype("<u2")).view(np.uint8)
+        out = np.empty((flat.shape[0], 1 + nb), dtype=np.uint8)
+        out[:, 0] = 2 + (flat[:, 1, 0] & 1).astype(np.uint8)
+        out[:, 1:] = x_le[:, nb - 1 :: -1]
+        out[(flat[:, 2, :] == 0).all(axis=1)] = 0  # the identity's all-zero SEC encoding
+        return out.reshape(batch + (1 + nb,))
+    le = np.ascontiguousarray(flat.astype("<u2")).view(np.uint8)
+    out = np.empty((flat.shape[0], 32), dtype=np.uint8)
+    for i in range(flat.shape[0]):
+        pt = tuple(int.from_bytes(le[i, c].tobytes(), "little") for c in range(cs.ncoords))
+        out[i] = np.frombuffer(gh.ristretto_encode(pt), dtype=np.uint8)
+    return out.reshape(batch + (32,))

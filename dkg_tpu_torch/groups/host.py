@@ -9,8 +9,11 @@ edwards25519 (unified extended addition, the RFC 9496 encode, decode,
 equality and one-way map, hash-to-group for ``h``).  Scalar
 multiplication is the pure-Python fixed-length Montgomery ladder (the
 JAX package's ``_scalar_mul_ladder``; its native constant-time runtime
-is not ported); only public data (table bases, test oracles) goes
-through it on this path.
+is not ported).  Python ints are not constant-time: table bases and test
+oracles are public, but a recipient's secret key goes through it in
+``dkg/hybrid_batch.open_share`` and ``crypto/elgamal.py``'s opens, so
+those are for tests and public replays until a constant-time ladder is
+ported.  ``random_scalar`` draws a scalar from the caller's ``rng``.
 """
 
 from __future__ import annotations
@@ -277,6 +280,9 @@ class WeierstrassGroup:
     def scalar_mul(self, k: int, p):
         return _ladder(self, k, p)
 
+    def random_scalar(self, rng) -> int:
+        return self.scalar_field.rand_int(rng)
+
     def to_affine(self, p) -> Optional[tuple[int, int]]:
         x, y, z = p
         if z % self.prime == 0:
@@ -387,6 +393,9 @@ class Ristretto255:
 
     def scalar_mul(self, k: int, p):
         return _ladder(self, k, p)
+
+    def random_scalar(self, rng) -> int:
+        return self.scalar_field.rand_int(rng)
 
     def encode(self, p) -> bytes:
         return ristretto_encode(p)

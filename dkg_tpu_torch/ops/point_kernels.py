@@ -40,6 +40,8 @@ PT_WINDOW_STEP = build.Kernel("pt_window_step", _WS, "dkg_pt_window_step", [_P, 
 PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add", _WS, "dkg_pt_ladder_mul_add", _LADDER)
 ED_PT_ADD = build.Kernel("pt_add[edwards]", _ED, "dkg_ed_pt_add", _BINARY)
 ED_PT_MADD = build.Kernel("pt_madd[edwards]", _ED, "dkg_ed_pt_madd", _BINARY)
+ED_PT_WINDOW_STEP = build.Kernel("pt_window_step[edwards]", _ED, "dkg_ed_pt_window_step",
+                                 [_P, _P, _P, _I, _INT, _P])
 ED_PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add[edwards]", _ED, "dkg_ed_pt_ladder_mul_add", _LADDER)
 _DOUBLE = [_P, _P, _I, _INT, _P]
 PT_DOUBLE = build.Kernel("pt_double", _DBL, "dkg_pt_double", _DOUBLE)
@@ -52,7 +54,7 @@ BLS_PT_WINDOW_STEP = build.Kernel("pt_window_step[bls12_381]", _BLS, "dkg_bls_pt
 BLS_PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add[bls12_381]", _BLS, "dkg_bls_pt_ladder_mul_add",
                                      _LADDER)
 KERNELS = (PT_ADD, PT_MADD, PT_WINDOW_STEP, PT_LADDER_MUL_ADD,
-           ED_PT_ADD, ED_PT_MADD, ED_PT_LADDER_MUL_ADD, PT_DOUBLE, ED_PT_DOUBLE,
+           ED_PT_ADD, ED_PT_MADD, ED_PT_WINDOW_STEP, ED_PT_LADDER_MUL_ADD, PT_DOUBLE, ED_PT_DOUBLE,
            BLS_PT_ADD, BLS_PT_MADD, BLS_PT_DOUBLE, BLS_PT_WINDOW_STEP, BLS_PT_LADDER_MUL_ADD)
 
 # The curves the kernels cover, by (kind, base field, curve constant): the
@@ -64,7 +66,7 @@ _BLS_KEY = ("weierstrass_a0", "bls12_381_base", 12)
 _VARIANTS = {
     "pt_add": {_WS_KEY: PT_ADD, _ED_KEY: ED_PT_ADD, _BLS_KEY: BLS_PT_ADD},
     "pt_madd": {_WS_KEY: PT_MADD, _ED_KEY: ED_PT_MADD, _BLS_KEY: BLS_PT_MADD},
-    "pt_window_step": {_WS_KEY: PT_WINDOW_STEP, _BLS_KEY: BLS_PT_WINDOW_STEP},
+    "pt_window_step": {_WS_KEY: PT_WINDOW_STEP, _ED_KEY: ED_PT_WINDOW_STEP, _BLS_KEY: BLS_PT_WINDOW_STEP},
     "pt_ladder_mul_add": {_WS_KEY: PT_LADDER_MUL_ADD, _ED_KEY: ED_PT_LADDER_MUL_ADD,
                           _BLS_KEY: BLS_PT_LADDER_MUL_ADD},
     "pt_double": {_WS_KEY: PT_DOUBLE, _ED_KEY: ED_PT_DOUBLE, _BLS_KEY: BLS_PT_DOUBLE},

@@ -8,8 +8,8 @@ matrices, batch checks, final shares, master key), on the honest path and
 through the blame path, under both of the port's point RLC schedules,
 Straus and Pippenger.  The JAX side runs Straus (``DKG_TPU_RLC=straus``;
 its Edwards window step there is four XLA doublings and an add, the
-port's ``pt_double`` and ``pt_add``); no output but the timings depends
-on the schedule."""
+port's one ``pt_window_step``); no output but the timings depends on the
+schedule."""
 
 import os
 import random

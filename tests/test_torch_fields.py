@@ -108,6 +108,48 @@ def test_normalize_and_cond_sub_match(name):
     assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(jfd.cond_sub(jnp.asarray(x), t.p_limbs_ext)))
 
 
+def _carry_loop(cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The carry that fields.device._carry replaced: rounds that move every
+    column's carry one limb up until none is left, a number of rounds that
+    depends on the data."""
+    out = torch.zeros_like(cols[..., -1])
+    while True:
+        carry = cols >> 16
+        out = out + carry[..., -1]
+        if not bool(carry[..., :-1].any()):
+            return cols & 0xFFFF, out
+        cols = (cols & 0xFFFF) + torch.nn.functional.pad(carry[..., :-1], (1, 0))
+
+
+@pytest.mark.parametrize("bits", [1, 16, 17, 23, 40, 61])
+def test_carry_matches_the_round_loop(bits):
+    """_carry (fixed rounds, one lookahead pass) gives the round loop's
+    limbs and carry out, over random signed columns below 2**bits and runs
+    of 0xFFFF and 0 limbs, where a carry (from a 2**16 limb) or a borrow
+    (from a -1 limb) ripples through the whole run; the non-negative ones
+    also through its unsigned form."""
+    rng = np.random.default_rng(bits)
+    hi = (1 << bits) - 1
+    for k in (1, 2, 17, 25, 33, 50, 62):
+        cols = rng.integers(-hi, hi + 1, size=(96, k), dtype=np.int64)
+        runs = rng.random((96, k)) < 0.7
+        cols[runs] = rng.choice([0, 0xFFFF], size=int(runs.sum()))
+        cols[0], cols[1], cols[2], cols[3] = 0xFFFF, 0, 0xFFFF, 0
+        cols[0, 0], cols[1, 0] = 1 << 16, -1  # a carry through 0xFFFF..., a borrow through 0...
+        cols[2, k // 2], cols[3, k // 2] = -1, 1 << 16  # a borrow and a carry meeting mid-run
+        t = torch.from_numpy(np.clip(cols, -hi, hi))
+        limbs, top = tfd._carry(t, bits)
+        want = _carry_loop(t)
+        assert torch.equal(limbs, want[0]) and torch.equal(top, want[1]), k
+        pos = t.clamp(min=0)
+        limbs, top = tfd._carry(pos, bits, signed=False)
+        want = _carry_loop(pos)
+        assert torch.equal(limbs, want[0]) and torch.equal(top, want[1]), k
+        assert torch.equal(tfd._carry(pos, bits, signed=False, top=False), want[0])
+    with pytest.raises(ValueError, match="columns"):
+        tfd._carry(torch.zeros((1, 63), dtype=torch.int64))
+
+
 @pytest.mark.parametrize("name", FIELDS)
 def test_mod_madd_plain_matches_jax(name):
     """mod_madd's plain version is what the CUDA kernel is held against on

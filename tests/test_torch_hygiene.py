@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from dkg_tpu_torch.dkg import ceremony as tce
+from dkg_tpu_torch.dkg import hybrid_batch as hb
 from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import bucket_kernels as bk
@@ -33,6 +34,8 @@ def _modules():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    assert {"dkg_tpu_torch.dkg.hybrid_batch", "dkg_tpu_torch.crypto.chacha", "dkg_tpu_torch.crypto.blake2",
+            "dkg_tpu_torch.crypto.elgamal"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -99,13 +102,24 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: mk.mxu_mod_mul(BLS12_381_P, _meta((4, 24)), _meta((4, 24))),
     lambda: tgd.affine_canon(BLS, _meta((2, 3, 24))),
     lambda: tgd.affine_canon(ED, _meta((2, 4, 16)), mul="gemm"),
+    lambda: pk.pt_window_step(ED, _meta((4, 4, 16)), _meta((4, 4, 16)), 8),
+    lambda: tgd.scalar_mul(ED, _meta((3, 16)), _meta((3, 4, 16))),
+    lambda: tgd.scalar_mul(tgd.SECP256K1, _meta((2, 3, 16)), _meta((3, 3, 16))),
+    lambda: tgd.scalar_mul(BLS, _meta((3, 16)), _meta((3, 24))),
+    lambda: hb.kem_batch(tce.CeremonyConfig("ristretto255", 3, 1), _meta((3, 4, 16)), _meta((2, 3, 16)),
+                         _meta((32, 256, 4, 16))),
+    lambda: hb.kem_batch(tce.CeremonyConfig("secp256k1", 3, 1), _meta((3, 3, 16)), _meta((2, 3, 16)),
+                         _meta((32, 256, 3, 16))),
+    lambda: tgd.encode_batch(ED, _meta((2, 4, 16))),
+    lambda: tgd.encode_batch(BLS, _meta((2, 3, 24))),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
         "mod_madd_bls_base", "mod_madd_bls_scalar", "bls_pt_add", "bls_pt_madd", "bls_pt_double",
         "bls_pt_window_step", "bls_pt_ladder_mul_add", "bls_bucket_accumulate", "bls_msm_pippenger",
         "mod_mul", "mod_mul_ed", "mod_mul_bls", "mxu_mod_mul", "mxu_mod_mul_ed", "mxu_mod_mul_bls",
-        "bls_affine_canon", "ed_affine_canon_gemm"])
+        "bls_affine_canon", "ed_affine_canon_gemm", "ed_pt_window_step", "ed_scalar_mul", "scalar_mul",
+        "bls_scalar_mul", "ed_kem_batch", "kem_batch", "ed_encode_batch", "bls_encode_batch"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -128,15 +142,18 @@ def test_wrappers_reject_operands_of_the_wrong_shape(call):
 
 
 def test_unported_variants_raise():
-    """A curve or field with no kernel raises before any launch: the
-    one-launch Edwards window step, an Edwards curve with another d, a
-    24-limb curve with another b3 or another base field, a field other
-    than the six of csrc/field.cuh (24 limbs included), a bucket width
-    the kernel does not take."""
+    """A curve or field with no kernel raises before any launch: an
+    Edwards curve with another d, a 24-limb curve with another b3 or
+    another base field, a field other than the six of csrc/field.cuh (24
+    limbs included), a bucket width the kernel does not take.  Every op of
+    the three curves has its kernel, the one-launch Edwards window step
+    included."""
     other = dataclasses.replace(ED, name="other", const=ED.const + 1)
+    assert pk.kernel_for("pt_window_step", ED) is pk.ED_PT_WINDOW_STEP
+    assert pk.kernel_for("pt_window_step", ED).source == "edwards_kernels.cu"
     with pytest.raises(NotImplementedError, match="pt_window_step"):
-        pk.pt_window_step(ED, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
-    for op in ("pt_add", "pt_madd", "pt_double", "pt_ladder_mul_add"):
+        pk.pt_window_step(other, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
+    for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add"):
         with pytest.raises(NotImplementedError, match=op):
             pk.kernel_for(op, other)
     with pytest.raises(NotImplementedError):
@@ -169,6 +186,8 @@ def test_unported_variants_raise():
     assert bk.kernel_for(BLS) is bk.BLS_BUCKET_ACCUMULATE
     assert pk.kernel_for("pt_double", BLS) is pk.BLS_PT_DOUBLE
     assert {pk.kernel_for(op, BLS).source for op in pk._VARIANTS} == {"bls_kernels.cu"}
+    for cs in (ED, tgd.SECP256K1, BLS):
+        assert all(pk.kernel_for(op, cs) in pk.KERNELS for op in pk._VARIANTS)
 
 
 @pytest.mark.parametrize("variants", [*pk._VARIANTS.values(), bk._VARIANTS],

@@ -6,7 +6,8 @@ with the host compiler and called lane by lane, at the field edge values
 (0, 1, m - 1, near 2**255 and 2**256 - 1, near 2**383 and 2**384 - 1 at
 24 limbs) of all six fields, the Barrett fields' worst cases, the
 bucket kernels' per-bucket fold over every bucket of small scatter
-passes, for secp256k1, ristretto255 and BLS12-381 G1, and mod_mul and
+passes, for secp256k1, ristretto255 and BLS12-381 G1 (the Edwards
+window step at k = 0, 1, 4 and 8), and mod_mul and
 the fused multiply-reduce of mxu_mod_mul (csrc/mxu.cuh) over all six
 fields, the latter also at the worst cases of its admission proof.  On a CUDA machine (marker ``cuda``; skipped elsewhere): the
 kernels themselves, built with nvcc.  Both are held to the plain versions
@@ -169,6 +170,24 @@ def test_host_compiled_lane_bodies_match_plain(host_lib, name):
     fn.restype = INT if host == "host_mod_madd" else None
     rc = fn(*(o.data_ptr() for o in ops), out.data_ptr(), len(ops[0]), *extra)
     assert rc in (0, None)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("k", [0, 1, 4, 8])
+def test_host_compiled_ed_window_step_matches_plain(host_lib, k):
+    """The one-launch Edwards window step's lane body (edwards.cuh
+    ed_window_step_lane: k doublings, then the unified add) at k = 0, 1, 4
+    and 8, over identities, Z != 1 scalings by the field's edge values and
+    an entry equal to 2^k·acc (the add as a doubling), against
+    pt_window_step_plain."""
+    acc, entry = _points("ristretto255", 50 + k), _points("ristretto255", 60 + k)
+    entry[4] = pk.pt_double_plain(ED, acc[4], k)
+    want = pk.pt_window_step_plain(ED, acc, entry, k)
+    out = torch.empty_like(want)
+    fn = host_lib.host_ed_pt_window_step
+    fn.argtypes = [PTR, PTR, PTR, I64, INT]
+    fn.restype = None
+    fn(acc.data_ptr(), entry.data_ptr(), out.data_ptr(), len(acc), k)
     assert torch.equal(out, want)
 
 
@@ -368,3 +387,38 @@ def test_cuda_mod_mul_and_mxu_match_plain(cuda, name):
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 4, 8])
+def test_cuda_ed_window_step_matches_plain(cuda, k):
+    acc, entry = _points("ristretto255", 50 + k), _points("ristretto255", 60 + k)
+    before = pk.ED_PT_WINDOW_STEP.launches
+    got = tgd.window_step(ED, acc.to(cuda), entry.to(cuda), k)
+    torch.cuda.synchronize()
+    assert pk.ED_PT_WINDOW_STEP.launches == before + 1
+    assert torch.equal(got.cpu(), pk.pt_window_step_plain(ED, acc, entry, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", ["ristretto255", "secp256k1", "bls12_381_g1"])
+def test_cuda_kem_batch_matches_plain(cuda, curve):
+    """kem_batch on the card (fixed_base_mul's pt_madd, scalar_mul's table
+    adds and 64 window steps) against the same call on CPU tensors."""
+    from dkg_tpu_torch.dkg import ceremony as tce
+    from dkg_tpu_torch.dkg import hybrid_batch as hb
+    from dkg_tpu_torch.groups import precompute as tgp
+
+    cs = tgd.ALL_CURVES[curve]
+    cfg = tce.CeremonyConfig(curve, 3, 1)
+    pks = _points(curve, 70, 3, projective=False)
+    r = _t(jfh.encode(cs.scalar, [random.Random(curve).randrange(cs.scalar.modulus) for _ in range(6)]))
+    r = r.reshape(2, 3, -1)
+    table = tgp.generator_table(cs, device="cpu")
+    window = pk.kernel_for("pt_window_step", cs)
+    before = window.launches
+    got = hb.kem_batch(cfg, pks.to(cuda), r.to(cuda), table.to(cuda))
+    torch.cuda.synchronize()
+    assert window.launches == before + 64
+    for g, w in zip(got, hb.kem_batch(cfg, pks, r, table)):
+        assert torch.equal(g.cpu(), w)
