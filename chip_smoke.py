@@ -22,10 +22,19 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    curve's window step (the Edwards one a single launch too) is held and
    timed at the Straus RLC's k = 4, the Pippenger combine's k = 8 and the
    KEM's n * n lanes at k = 4; each curve's pt_double, on no path, at its
-   Straus window step's shape.
+   Straus window step's shape.  The multi-step kernels of the main path
+   (pt_ladder_horner: eval_point_poly's T Horner steps in one launch;
+   mod_madd_horner and mod_madd_dot: eval_many and _field_dot in one
+   launch each) are held at the path's full shape against their one-step
+   route (T, or m, launches of pt_ladder_mul_add or mod_madd), both routes
+   timed on the card in the same run, and against their plain versions at
+   random lanes and, at the path's shape, on its first rows (the first 2
+   coefficients of the point Horner, 8 dealers of the field Horner).
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
-   be > 0:
+   be > 0, and eval_point_poly, eval_many and _field_dot one launch each
+   (1 pt_ladder_horner, 2 mod_madd_horner, 2 mod_madd_dot; the one-step
+   pt_ladder_mul_add and mod_madd 0):
    - BatchedCeremony("secp256k1", 1024, 341) (BASELINE.md config 3);
    - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2);
    - BatchedCeremony("bls12_381_g1", 1024, 341) (BASELINE.md config 5,
@@ -59,7 +68,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 6. On each Straus path's tensors: the point RLC D of verify_batch under
    the three schedules (straus, bits, pippenger), equal in canonical
    affine form and timed; and the verify phase under Straus and under
-   Pippenger, profiled for device time by kernel and the busy share.
+   Pippenger, profiled for device time by kernel and the busy share (two
+   calls in one session, the numbers a call's mean).
 7. Runs a tampered (n=16, t=5) ceremony on each curve under each of the
    Straus and Pippenger schedules: one corrupted share must fail its
    recipient's batch check, blame its dealer, and leave the master key of
@@ -69,7 +79,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    before Pippenger before gemm, or the 0 every path read; device_ms: a wrapper
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
-   for all of them),
+   for all of them; for the multi-step kernels also the one-step route's
+   device ms and ptxas's registers and spill bytes),
    the card line again, and last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero without the last line;
@@ -136,6 +147,15 @@ class Path:
         curve's bucket kernel to the path."""
         return dataclasses.replace(self, rlc="pippenger", kernels=self.kernels + (bk.kernel_for(self.cs),))
 
+    def exact_launches(self) -> dict:
+        """Launch counts a run of the ceremony must read exactly: the point
+        Horner and the two scalar RLCs one launch each, the deal's two
+        Horners one each, and none of their one-step kernels."""
+        cs = self.cs
+        return {pk.kernel_for("pt_ladder_horner", cs).name: 1, fk.horner_kernel_for(cs.scalar).name: 2,
+                fk.dot_kernel_for(cs.scalar).name: 2, pk.kernel_for("pt_ladder_mul_add", cs).name: 0,
+                fk._FIELDS[cs.scalar][0].name: 0}
+
     def gemm(self) -> Path:
         """The same ceremony with the canonical affine form's multiplies
         through mxu_mod_mul, which adds the base field's mxu kernel (point
@@ -144,13 +164,14 @@ class Path:
 
 
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
-            (fk.MOD_MADD, fk.MOD_MUL, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP, pk.PT_LADDER_MUL_ADD))
+            (fk.MOD_MADD_HORNER, fk.MOD_MADD_DOT, fk.MOD_MUL, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP,
+             pk.PT_LADDER_HORNER))
 R255 = Path("ristretto255", 256, 85, b"chip-smoke-r255",  # BASELINE.md config 2
-            (fk.MOD_MADD_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_MADD, pk.ED_PT_WINDOW_STEP,
-             pk.ED_PT_LADDER_MUL_ADD))
+            (fk.MOD_MADD_HORNER_ED, fk.MOD_MADD_DOT_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_MADD,
+             pk.ED_PT_WINDOW_STEP, pk.ED_PT_LADDER_HORNER))
 BLS = Path("bls12_381_g1", 1024, 341, b"chip-smoke-bls",  # BASELINE.md config 5 at config 3's n, t
-           (fk.MOD_MADD_BLS, fk.MOD_MUL_BLS, pk.BLS_PT_ADD, pk.BLS_PT_MADD, pk.BLS_PT_WINDOW_STEP,
-            pk.BLS_PT_LADDER_MUL_ADD))
+           (fk.MOD_MADD_HORNER_BLS, fk.MOD_MADD_DOT_BLS, fk.MOD_MUL_BLS, pk.BLS_PT_ADD, pk.BLS_PT_MADD,
+            pk.BLS_PT_WINDOW_STEP, pk.BLS_PT_LADDER_HORNER))
 PATHS = (SECP, R255, BLS)
 # paths that also split the fiat_shamir phase's two legs and run once more
 # under the profiler; the earlier paths skip those repeated passes (never
@@ -223,6 +244,30 @@ SOURCES = {
     "mxu_mod_mul": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
     "mxu_mod_mul[ed25519]": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
     "mxu_mod_mul[bls12_381]": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
+    # the multi-step kernels: the TPU kernel's step composed T (or m) times in one launch
+    "pt_ladder_horner": ("ladder_kernels.cu", PDIR + ":356"),
+    "pt_ladder_horner[edwards]": ("ladder_kernels.cu", PDIR + ":356"),
+    "pt_ladder_horner[bls12_381]": ("ladder_kernels.cu", PDIR + ":356"),
+    "mod_madd_horner": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    "mod_madd_horner[ed25519]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    "mod_madd_horner[bls12_381]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    "mod_madd_dot": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    "mod_madd_dot[ed25519]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    "mod_madd_dot[bls12_381]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+}
+# ptxas's entry of each multi-step kernel: every string must be in the
+# mangled name (the field kernels' template argument is the field id of
+# csrc/field.cuh, mangled ILi<id>E)
+PTXAS_ENTRIES = {
+    "pt_ladder_horner": ("pt_ladder_horner_kernel", "Secp256k1"),
+    "pt_ladder_horner[edwards]": ("pt_ladder_horner_kernel", "Edwards25519"),
+    "pt_ladder_horner[bls12_381]": ("pt_ladder_horner_kernel", "Bls12381"),
+    "mod_madd_horner": ("mod_madd_horner_kernel", "ILi1E"),
+    "mod_madd_horner[ed25519]": ("mod_madd_horner_kernel", "ILi3E"),
+    "mod_madd_horner[bls12_381]": ("mod_madd_horner_kernel", "ILi5E"),
+    "mod_madd_dot": ("mod_madd_dot_kernel", "ILi1E"),
+    "mod_madd_dot[ed25519]": ("mod_madd_dot_kernel", "ILi3E"),
+    "mod_madd_dot[bls12_381]": ("mod_madd_dot_kernel", "ILi5E"),
 }
 KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS, *mk.KERNELS)
 
@@ -230,6 +275,32 @@ KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS, *mk.KERNELS)
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def ptxas_entries(log: str) -> dict:
+    """ptxas -v's lines per kernel entry: mangled name -> (registers, spill
+    store bytes)."""
+    out, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry, spill = line.split("'")[1], 0
+        elif entry and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif entry and "Used" in line and "registers" in line:
+            out[entry] = (int(line.split("Used")[1].split("registers")[0]), spill)
+            entry = None
+    return out
+
+
+def ptxas_of(name: str) -> dict | None:
+    """Registers and spill stores of a multi-step kernel's entry."""
+    keys = PTXAS_ENTRIES.get(name)
+    if keys is None:
+        return None
+    found = [v for e, v in ptxas_entries(build.BUILD_LOGS.get(SOURCES[name][0], "")).items()
+             if all(k in e for k in keys)]
+    check(len(found) == 1, f"ptxas: {len(found)} entries of {name} in the build log")
+    return {"registers": found[0][0], "spill_store_bytes": found[0][1]}
 
 
 def card_line() -> str:
@@ -348,6 +419,8 @@ class Case:
     int8_products: int = 0  # byte product-adds (the fused multiply-reduce's fold)
     plain_reps: int = 2  # timed calls of the plain version at main_args (1: no warm-up either)
     plain_rows: int | None = None  # hold and time the plain version on main_args' first rows only
+    rows_rerun: bool = False  # the output's rows are not the input's: rerun the wrapper on the rows
+    route: object = None  # the one-step route at main_args (T or m launches), held and timed beside
 
 
 def ladder_muladds(xs, double: int, add: int) -> int:
@@ -355,6 +428,37 @@ def ladder_muladds(xs, double: int, add: int) -> int:
     doublings and popcount(x) adds (popcount(x) - 1 inside x·P, one for
     A); the kernel itself runs a fixed index_bits double-and-adds a lane."""
     return sum(max(x.bit_length() - 1, 0) * double + bin(x).count("1") * add for x in xs)
+
+
+def one_step_ladder(cs, nbits: int):
+    """eval_point_poly's one-step route: T pt_ladder_mul_add launches."""
+    def route(coeffs, x):
+        acc = gd.identity(cs, x.shape, device=x.device)
+        for l in reversed(range(coeffs.shape[-3])):
+            acc = pk.pt_ladder_mul_add(cs, acc, coeffs[..., l, :, :], x, nbits)
+        return acc
+    return route
+
+
+def one_step_horner(fs):
+    """eval_many's one-step route: T mod_madd launches."""
+    def route(coeffs, xs):
+        acc = fd.zeros(fs, torch.broadcast_shapes(coeffs.shape[:-2], xs.shape[:-2]) + xs.shape[-2:-1],
+                       device=xs.device)
+        for l in reversed(range(coeffs.shape[-2])):
+            acc = fk.mod_madd(fs, acc, xs, coeffs[..., l, None, :])
+        return acc
+    return route
+
+
+def one_step_dot(fs):
+    """_field_dot's one-step route: m mod_madd launches."""
+    def route(w, v):
+        acc = fd.zeros(fs, v.shape[1:-1], device=v.device)
+        for j in range(v.shape[0]):
+            acc = fk.mod_madd(fs, w[j], v[j], acc)
+        return acc
+    return route
 
 
 def field_fns(fs):
@@ -367,6 +471,16 @@ def mul_fns(fs, gemm: bool):
     if gemm:
         return (lambda a, b: mk.mxu_mod_mul(fs, a, b), lambda a, b: fd._mul_gemm(fs, a, b))
     return (lambda a, b: fk.mod_mul(fs, a, b), lambda a, b: fd.mul(fs, a, b))
+
+
+def horner_fns(fs):
+    """(wrapper, plain) of mod_madd_horner over ``fs``."""
+    return (lambda c, x: fk.mod_madd_horner(fs, c, x), lambda c, x: fk.mod_madd_horner_plain(fs, c, x))
+
+
+def dot_fns(fs):
+    """(wrapper, plain) of mod_madd_dot over ``fs``."""
+    return (lambda w, v: fk.mod_madd_dot(fs, w, v), lambda w, v: fk.mod_madd_dot_plain(fs, w, v))
 
 
 def point_fns(cs, op: str, *extra):
@@ -427,6 +541,35 @@ def kernel_cases(rng) -> dict:
              for fs in (S, cs.field)],
             [rand_field(rng, S, (n, n)), rand_field(rng, S, (n,)), rand_field(rng, S, (n, 1))],
             MADD_FIELD[S.name] * n * n)
+        # _field_dot's step on the one-step route: w_j (L,), v_j (n, L), acc (n, L)
+        cases[fk._FIELDS[S][0].name + " field_dot step"] = Case(
+            path, *field_fns(S), [],
+            [rand_field(rng, S, (1,)).reshape(S.limbs), rand_field(rng, S, (n,)), rand_field(rng, S, (n,))],
+            MADD_FIELD[S.name] * n)
+        # eval_many at the deal's shape in one launch: coefficients (n, t+1, L),
+        # x = 1..n shared; at random lanes over both fields of the family
+        # (per-row coefficients with shared xs, and the other way round)
+        xs_main = fd.zeros(S, (n,), device=DEV)
+        xs_main[:, 0] = torch.arange(1, n + 1, dtype=torch.int32, device=DEV)
+        horner_rand = []
+        for fs in (S, cs.field):
+            horner_rand.append((f"{lanes} of {fs.name}, per-row coefficients", *horner_fns(fs),
+                                [rand_field(rng, fs, (256, 3), 0), rand_field(rng, fs, (256,), 1)]))
+            horner_rand.append((f"{lanes} of {fs.name}, per-row points", *horner_fns(fs),
+                                [rand_field(rng, fs, (4,), 1), rand_field(rng, fs, (256, 256), 0)]))
+        cases[fk.horner_kernel_for(S).name] = Case(
+            path, *horner_fns(S), horner_rand, [rand_field(rng, S, (n, t + 1)), xs_main],
+            MADD_FIELD[S.name] * n * n * (t + 1), plain_reps=1, plain_rows=8, route=one_step_horner(S))
+        # the scalar RLC Σ_j rho_j s_ji in one launch: weights (n, L) with
+        # RHO_BITS bits, values (n, n, L); at random lanes over both fields
+        rho_main = rand_field(rng, S, (n,), operand=None)
+        rho_main[:, RHO_BITS // 16:] = 0
+        cases[fk.dot_kernel_for(S).name] = Case(
+            path, *dot_fns(S),
+            [(f"{lanes} of {fs.name}", *dot_fns(fs), [rand_field(rng, fs, (5,), 0), rand_field(rng, fs, (5, R[0]), 1)])
+             for fs in (S, cs.field)],
+            [rho_main, rand_field(rng, S, (n, n))],
+            MADD_FIELD[S.name] * n * n, plain_reps=1, route=one_step_dot(S))
         # E = A + h·b over every dealer's t+1 coefficients
         cases[name("pt_add")] = Case(
             path, *point_fns(cs, "pt_add"),
@@ -465,6 +608,20 @@ def kernel_cases(rng) -> dict:
             [(lanes, *ladder, [points(R), points(R), x_rand])],
             [points((n,)), points(()), x_main],
             ladder_muladds(range(1, n + 1), dbl_c, add_c))
+        # eval_point_poly at the batch verifier's shape in one launch: D
+        # (t+1 shared points), x = 1..n; at random lanes with per-lane
+        # coefficients (T = 2) and shared ones (T = 3), x = 0 and 2^nbits - 1
+        # in the first lanes
+        x_edge = x_rand.clone()
+        x_edge[:2] = torch.tensor([0, (1 << path.index_bits) - 1], dtype=torch.int32)
+        horner = point_fns(cs, "pt_ladder_horner", path.index_bits)
+        cases[name("pt_ladder_horner")] = Case(
+            path, *horner,
+            [(f"{lanes}, per-lane T=2", *horner, [points(R + (2,)), x_edge]),
+             (f"{lanes}, shared T=3", *horner, [points((3,)), x_edge])],
+            [points((t + 1,)), x_main],
+            (t + 1) * ladder_muladds(range(1, n + 1), dbl_c, add_c), plain_reps=1, plain_rows=2,
+            rows_rerun=True, route=one_step_ladder(cs, path.index_bits))
         # one window step over the t+1 columns, the Straus RLC's (k = 4)
         # and, in its own row, the Pippenger combine's at k = 8 (c = 8 at
         # n = 1024; ristretto255's n = 256 combine runs c = 4, the Straus
@@ -521,7 +678,16 @@ def check_kernels(rng) -> dict:
         plain_args = case.main_args if rows is None else [case.main_args[0][:rows], *case.main_args[1:]]
         plain_ms, want = cuda_ms(lambda: case.plain(*plain_args), reps=case.plain_reps,
                                  warm_up=case.plain_reps > 1)
-        err = max(err, held(name, res if rows is None else res[:rows], want))
+        got = res if rows is None else case.wrapper(*plain_args) if case.rows_rerun else res[:rows]
+        err = max(err, held(name, got, want))
+        route = {}
+        if case.route is not None:
+            err = max(err, held(f"{name} against its one-step route", res, case.route(*case.main_args)))
+            # T or m launches with their broadcast copies: a longer spin (about
+            # 0.4 s) covers their enqueue
+            route = {"one_step_device_ms": device_ms(lambda: case.route(*case.main_args), reps=1,
+                                                     spin=800_000_000),
+                     "ptxas": ptxas_of(name)}
         nbytes = sum(a.numel() * a.element_size() for a in case.main_args) + res.numel() * 4
         bytes_ms = 1e3 * nbytes / BYTES_PER_S
         ops_ms = (1e3 * (2 * case.muladds + case.int32_muls) / INT32_MUL_PER_S
@@ -529,7 +695,7 @@ def check_kernels(rng) -> dict:
         out[name] = {
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "plain_rows": rows,
+            "library_ms": None, "plain_rows": rows, **route,
         }
         rand = f"at random inputs ({'; '.join(lbl for lbl, *_ in case.rand_args)}) and " if case.rand_args else ""
         print(f"kernel {name}: exact {rand}at "
@@ -537,7 +703,9 @@ def check_kernels(rng) -> dict:
               f"{'' if rows is None else f' (plain on the first {rows} rows)'}; {ms:.4f} ms "
               f"(device {dev_ms:.4f} ms), "
               f"plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.6f} ms "
-              f"({out[name]['bound_by']})", flush=True)
+              f"({out[name]['bound_by']})"
+              + (f"; equal to its one-step route, device {route['one_step_device_ms']:.4f} ms; ptxas "
+                 + json.dumps(route["ptxas"]) if route else ""), flush=True)
     return out
 
 
@@ -604,6 +772,12 @@ def main_path(path: Path, seed: int) -> tuple[cer.BatchedCeremony, dict, dict]:
     print(f"main path {tag}: launches " + json.dumps(launches), flush=True)
     for k in path.kernels:
         check(launches[k.name] > 0, f"kernel {k.name} was not launched on the {tag} path")
+    exact = path.exact_launches()
+    check(all(launches[k] == v for k, v in exact.items()),
+          f"{tag}: launch counts {({k: launches[k] for k in exact})}, want {exact}")
+    print(f"main path {tag}: eval_point_poly, eval_many and _field_dot one launch each "
+          + json.dumps({k: launches[k] for k in exact}) + f"; {plain.count} plain multiplies on the card",
+          flush=True)
 
     q = cs.scalar.modulus
     gen = gp.base_key_to_point(cs, cs.gen_affine)
@@ -750,21 +924,24 @@ PROFILE_GROUPS = (
       for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"))
       for fn, op in (("pt_add", "pt_add"), ("pt_madd", "pt_madd"), ("pt_double", "pt_double"),
                      ("pt_window_step", "pt_window_step"), ("pt_ladder", "pt_ladder_mul_add"),
-                     ("bucket", "bucket_accumulate"))),
+                     ("pt_ladder_horner", "pt_ladder_horner"), ("bucket", "bucket_accumulate"))),
+    (("pt_ladder_horner_kernel", "Edwards25519"), "pt_ladder_horner[edwards]"),
     (("mxu_mod_mul_kernel",), "mxu"), (("mod_mul_kernel",), "mul"), (("mod_madd_kernel",), "madd"),
+    (("mod_madd_horner_kernel",), "madd_horner"), (("mod_madd_dot_kernel",), "madd_dot"),
     (("Memcpy DtoH",), "copy to host"),
 )
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, spin: int = 50_000_000) -> float:
     """Mean device ms per call of ``fn`` with the host out of the way: a
-    spin kernel (about 25 ms) holds the stream while the host enqueues all
-    ``reps`` calls, so the CUDA events around them time the calls' kernels
-    back to back (the wrappers' broadcast copies included)."""
+    spin kernel (``spin`` cycles, about 25 ms by default) holds the stream
+    while the host enqueues all ``reps`` calls, so the CUDA events around
+    them time the calls' kernels back to back (the wrappers' broadcast
+    copies included)."""
     fn()
     sync()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(reps):
         fn()
@@ -773,33 +950,37 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(path: Path, label: str, fn) -> None:
-    """``fn()`` under torch.profiler: device time by kernel (everything not
-    ours is PyTorch's own ops: the plain tensor code and the wrappers'
-    broadcast copies) and the device's busy share of the wall time.
-    Every kernel of the path must show device time."""
+def profiled(path: Path, label: str, fn, kernels: tuple | None = None, calls: int = 1) -> None:
+    """``fn()``, ``calls`` times, under torch.profiler: device time by
+    kernel a call (everything not ours is PyTorch's own ops: the plain
+    tensor code and the wrappers' broadcast copies) and the device's busy
+    share of the wall time.  Every kernel of the path (or of ``kernels``)
+    must show device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    F = path.cs.field
-    family = {"madd": fk._FIELDS[path.cs.scalar][0].name, "mul": fk.mul_kernel_for(F).name,
-              "mxu": mk.kernel_for(F).name}
+    F, S = path.cs.field, path.cs.scalar
+    family = {"madd": fk._FIELDS[S][0].name, "mul": fk.mul_kernel_for(F).name, "mxu": mk.kernel_for(F).name,
+              "madd_horner": fk.horner_kernel_for(S).name, "madd_dot": fk.dot_kernel_for(S).name}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         sync()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
     dev: dict[str, float] = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         group = next((family.get(g, g) for keys, g in PROFILE_GROUPS if all(k in e.name for k in keys)),
                      "torch ops")
-        dev[group] = dev.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+        dev[group] = dev.get(group, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     busy = sum(dev.values())
-    check(all(dev.get(k.name, 0) > 0 for k in path.kernels), f"profile saw {dev}")
+    check(all(dev.get(k.name, 0) > 0 for k in (path.kernels if kernels is None else kernels)),
+          f"profile saw {dev}")
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.2f} %), device ms "
-          + json.dumps({k: round(v, 3) for k, v in sorted(dev.items())}), flush=True)
+          + json.dumps({k: round(v, 3) for k, v in sorted(dev.items())})
+          + ("" if calls == 1 else f", each a call's mean over {calls} calls"), flush=True)
 
 
 def profile_main_path(path: Path, seed: int) -> None:
@@ -824,12 +1005,18 @@ def rlc_schedules(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
         check(np.array_equal(affine[mode], affine["straus"]), f"{path.curve}: D under {mode} != D under straus")
     print(f"point RLC {path.curve} n={path.n} t={path.t}: D equal in canonical affine form under "
           f"{', '.join(cer.RLC_MODES)}; ms (CUDA events, one call) " + json.dumps(ms), flush=True)
+    deal = fk.horner_kernel_for(cs.scalar)  # the deal's, not the verify phase's
     for p in (path, path.pippenger()):
         def verify(p=p):
             ok = cer.verify_batch(c.cfg, out["randomized"], out["shares"], out["hidings"], out["rho"], RHO_BITS,
                                   c.g_table, c.h_table, p.rlc)
             check(bool(ok.all()), f"{p.tag}: a batch check failed")
-        profiled(p, f"{path.curve} n={path.n} verify phase rlc={p.rlc}", verify)
+        # twice in one session: late in the process the profiler dropped the
+        # records of a session's first kernels (the phase's two mod_madd_dot
+        # launches), behind a spin, a discarded warm-up step and idle host
+        # time alike
+        profiled(p, f"{path.curve} n={path.n} verify phase rlc={p.rlc}", verify,
+                 tuple(k for k in p.kernels if k is not deal), calls=2)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,9 @@
 // pt_ladder_mul_add's x is public, so x * P + A needs only
 // (bit_length(x) - 1) x 3224 + popcount(x) x 4836; this ladder runs a
 // fixed nbits doublings and adds, nbits x (3224 + 4836) + 4836 = 93496
-// at nbits = 11.  The scatter adds every point into one bucket of each
+// at nbits = 11.  The ceremony runs pt_ladder_horner (ladder_kernels.cu)
+// in its place, which computes only what those x need; this one stays as
+// the TPU kernel's one-step twin.  The scatter adds every point into one bucket of each
 // window: at the ceremony's RLC (B = 342 columns, m = 1024, c = 8,
 // nw = 16) 5,603,328 adds, 3.2 ms of multiplies to 0.15 ms of bytes.
 //
@@ -37,7 +39,9 @@
 // and quotient 25 + 26 words, so the add, the window step, the ladder
 // and the bucket fold do not fit in the 255 registers a thread can have
 // and spill to local memory; ptxas's counts are printed by chip_smoke.py
-// and written down in PERF.md.  Trimming that is left to a later change.
+// and written down in PERF.md.  pt_ladder_horner spreads a lane over a
+// group of threads (group.cuh), a slice of each coordinate a thread in
+// Montgomery form, with no out-of-line multiply and no spill.
 #include "bucket.cuh"
 #include "point_kernels.cuh"
 

@@ -18,7 +18,10 @@
 // needs only (bit_length(x) - 1) x 584 + popcount(x) x 657 for 772 bytes:
 // 6157 on average over the ceremony's x = 1..256, bound by the
 // multiplier.  The kernel runs a fixed nbits doublings and adds a lane,
-// nbits x (584 + 657) + 657 = 11826 at nbits = 9.  pt_window_step is
+// nbits x (584 + 657) + 657 = 11826 at nbits = 9; the ceremony runs
+// pt_ladder_horner (ladder_kernels.cu) in its place, which skips the adds
+// of zero bits (hwcd doubling does not fix the identity, so the leading
+// doublings stay).  pt_window_step is
 // n_doubles x 584 + 657 for 768 bytes: 2993 at n_doubles = 4 (the KEM's
 // scalar_mul and the Straus RLC), 5329 at 8 (the Pippenger combine), 361
 // and 643 ps of multiplies to 229 ps of bytes a lane: bound by the

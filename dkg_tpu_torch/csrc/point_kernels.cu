@@ -21,8 +21,11 @@
 // multiplies to 172 ps of bytes a lane) and the window step (462 ps) and
 // the ladder (1.3 ns) are bound by the multiplier.  This ladder runs a
 // fixed nbits doublings and adds a lane, nbits x (700 + 1056) + 1056 =
-// 20372 at nbits = 11, about 1.9 times what those x need; skipping the
-// leading zero bits and the adds of zero bits is left to a later change.
+// 20372 at nbits = 11, about 1.9 times what those x need.  The ceremony
+// runs pt_ladder_horner (ladder_kernels.cu) in its place: all T Horner
+// steps in one launch, without the adds of zero bits and the doublings
+// before x's top set bit.  This kernel stays as the TPU kernel's one-step
+// twin, the route that one is held against.
 //
 // The design keeps every coordinate and temporary in registers across
 // the whole sequence (the window step's four doublings and the ladder's
@@ -34,11 +37,13 @@
 // prints it) gives pt_add and pt_madd 142 registers, pt_window_step 128
 // with 32 bytes spilled, and the ladder 254 with none: from four
 // (window step) down to two (ladder) 128-thread blocks fit on an SM.
-// Trimming the live set is left to a later change.
+// pt_ladder_horner spreads a lane over a group of threads instead
+// (group.cuh), each holding a slice of every coordinate.
 //
-// The ladder is launched once per Horner step of eval_point_poly, over
-// n = 1024 lanes at the ceremony's shape: 8 blocks of 128 threads on a
-// 132-SM card, so one launch leaves most of the card idle.
+// As the one-step route, the ladder is launched once per Horner step of
+// eval_point_poly, over n = 1024 lanes at the ceremony's shape: 8 blocks
+// of 128 threads on a 132-SM card, so one launch leaves most of the card
+// idle.
 #include "point_kernels.cuh"
 
 using namespace dkg;

@@ -9,7 +9,7 @@ randomizers.  State is struct-of-arrays over all parties at once:
 * ``deal`` — commitments A = g·a and E = A + h·b for every dealer's t+1
   coefficients (``fixed_base_mul`` over the g/h window tables, one
   ``pt_madd`` launch per window), and the n×n share/hiding matrices by
-  Horner (``eval_many``, one ``mod_madd`` launch per coefficient);
+  Horner (``eval_many``, one ``mod_madd_horner`` launch);
 * ``derive_rho`` — per-dealer BLAKE2s Merkle digests of the canonical
   transcript, folded with BLAKE2b, then n BLAKE2b randomizers; on the
   device leg (the default) the commitments are made canonical affine
@@ -19,12 +19,12 @@ randomizers.  State is struct-of-arrays over all parties at once:
   digests crossing to the host; the host leg does both on the host;
 * ``verify_batch`` — with randomizers rho_j each recipient i checks
   g·(Σ_j rho_j s_ji) + h·(Σ_j rho_j s'_ji) == Σ_l i^l · (Σ_j rho_j E_jl):
-  scalar RLCs folded through ``mod_madd``, the point RLC by Straus
-  (``pt_add`` table builds and tree sums, one window step per 4-bit
-  window: ``pt_window_step``, or ``pt_double`` then ``pt_add`` on
-  Edwards), by Pippenger (``bucket_accumulate``, then ``pt_add`` bucket
+  scalar RLCs (``_field_dot``, one ``mod_madd_dot`` launch each), the
+  point RLC by Straus (``pt_add`` table builds and tree sums, one window
+  step per 4-bit window: ``pt_window_step``, or ``pt_double`` then
+  ``pt_add`` on Edwards), by Pippenger (``bucket_accumulate``, then ``pt_add`` bucket
   closes and window steps) or bit at a time, the right side by point
-  Horner (``pt_ladder_mul_add``);
+  Horner (``eval_point_poly``, one ``pt_ladder_horner`` launch);
 * ``verify_pairwise`` — the direct per-(dealer, recipient) check, run
   only when a batch check fails, to assign blame.
 
@@ -122,11 +122,9 @@ def deal_shares(cfg: CeremonyConfig, coeffs_a, coeffs_b):
 
 def _field_dot(fs, weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """Σ_j weights[j]·values[j, ...] mod p: weights (m, L), values
-    (m, ..., L) -> (..., L), folded acc <- w_j·v_j + acc through mod_madd."""
-    acc = fd.zeros(fs, values.shape[1:-1], device=values.device)
-    for j in range(values.shape[0]):
-        acc = fk.mod_madd(fs, weights[j], values[j], acc)
-    return acc
+    (m, ..., L) -> (..., L), one ``mod_madd_dot`` launch (the fold
+    acc <- w_j·v_j + acc of ``mod_madd``'s step)."""
+    return fk.mod_madd_dot(fs, weights, values)
 
 
 RLC_MODES = ("straus", "bits", "pippenger")

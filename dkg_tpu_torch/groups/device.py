@@ -251,12 +251,9 @@ def eval_point_poly(cs: CurveSpec, coeffs: torch.Tensor, x: torch.Tensor, nbits:
     """Horner evaluation of a point-coefficient polynomial at small public
     x: coeffs (..., T, C, L) low-order first, x (...,) int32 -> (..., C, L).
 
-    acc <- x·acc + C_l per step, each step one ``pt_ladder_mul_add``."""
-    batch = torch.broadcast_shapes(coeffs.shape[:-3], x.shape)
-    acc = identity(cs, batch, device=coeffs.device)
-    for l in reversed(range(coeffs.shape[-3])):
-        acc = pk.pt_ladder_mul_add(cs, acc, coeffs[..., l, :, :], x, nbits)
-    return acc
+    acc <- x·acc + C_l per step, each step ``pt_ladder_mul_add``'s ladder:
+    all T steps are one ``pt_ladder_horner`` launch."""
+    return pk.pt_ladder_horner(cs, coeffs, x, nbits)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,24 @@
 """The ``mod_madd`` and ``mod_mul`` kernels: ``(a * b + c) mod p`` and
-``(a * b) mod p`` in one launch.
+``(a * b) mod p`` in one launch; and ``mod_madd``'s two multi-step forms,
+each one launch: :func:`mod_madd_horner` (Horner over T coefficients,
+``poly.device.eval_many``) and :func:`mod_madd_dot` (a sum of m products,
+``dkg.ceremony._field_dot``).
 
 Counterparts of ``dkg_tpu/ops/pallas_field.py`` ``mod_madd`` and
-``mod_mul``.  On a CUDA tensor :func:`mod_madd` and :func:`mod_mul` launch
-``csrc/field_kernels.cu`` over the field of their operands (secp256k1's
-base and scalar fields, ed25519's base field, the ristretto255 scalar
-field, BLS12-381's 24-limb base field and its scalar field; any other
-field raises); on a CPU tensor they run :func:`mod_madd_plain` and
-``fields.device.mul``, the plain PyTorch versions the kernels are held
-against.  Operands broadcast over their batch axes.
+``mod_mul``; the multi-step forms compose ``mod_madd``'s step.  On a
+CUDA tensor each wrapper launches ``csrc/field_kernels.cu`` over the
+field of its operands (secp256k1's base and scalar fields, ed25519's
+base field, the ristretto255 scalar field, BLS12-381's 24-limb base
+field and its scalar field; any other field raises); on a CPU tensor it
+runs its plain PyTorch version, which the kernel is held against:
+:func:`mod_madd_plain`, ``fields.device.mul``, and the loops of
+``mod_madd_plain`` in :func:`mod_madd_horner_plain` and
+:func:`mod_madd_dot_plain`.  Operands broadcast over their batch axes.
 
-The three field families count their launches apart: ``MOD_MADD`` and
-``MOD_MUL`` for secp256k1's fields, ``MOD_MADD_ED`` and ``MOD_MUL_ED`` for
-ed25519's, ``MOD_MADD_BLS`` and ``MOD_MUL_BLS`` for BLS12-381's.
+The three field families count their launches apart: ``MOD_MADD``,
+``MOD_MUL``, ``MOD_MADD_HORNER`` and ``MOD_MADD_DOT`` for secp256k1's
+fields, the ``_ED`` kernels for ed25519's, the ``_BLS`` ones for
+BLS12-381's.
 """
 
 from __future__ import annotations
@@ -31,7 +37,20 @@ _MUL_ARGS = [build.PTR, build.PTR, build.PTR, build.I64, build.INT, build.PTR]
 MOD_MUL = build.Kernel("mod_mul", "field_kernels.cu", "dkg_mod_mul", _MUL_ARGS)
 MOD_MUL_ED = build.Kernel("mod_mul[ed25519]", "field_kernels.cu", "dkg_mod_mul", _MUL_ARGS)
 MOD_MUL_BLS = build.Kernel("mod_mul[bls12_381]", "field_kernels.cu", "dkg_mod_mul", _MUL_ARGS)
-KERNELS = (MOD_MADD, MOD_MADD_ED, MOD_MADD_BLS, MOD_MUL, MOD_MUL_ED, MOD_MUL_BLS)
+_HORNER_ARGS = [build.PTR, build.I64, build.PTR, build.I64, build.PTR, build.I64, build.I64, build.INT,
+                build.INT, build.PTR]
+MOD_MADD_HORNER = build.Kernel("mod_madd_horner", "field_kernels.cu", "dkg_mod_madd_horner", _HORNER_ARGS)
+MOD_MADD_HORNER_ED = build.Kernel("mod_madd_horner[ed25519]", "field_kernels.cu", "dkg_mod_madd_horner",
+                                  _HORNER_ARGS)
+MOD_MADD_HORNER_BLS = build.Kernel("mod_madd_horner[bls12_381]", "field_kernels.cu", "dkg_mod_madd_horner",
+                                   _HORNER_ARGS)
+_DOT_ARGS = [build.PTR, build.PTR, build.PTR, build.I64, build.I64, build.INT, build.PTR]
+MOD_MADD_DOT = build.Kernel("mod_madd_dot", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
+MOD_MADD_DOT_ED = build.Kernel("mod_madd_dot[ed25519]", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
+MOD_MADD_DOT_BLS = build.Kernel("mod_madd_dot[bls12_381]", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
+KERNELS = (MOD_MADD, MOD_MADD_ED, MOD_MADD_BLS, MOD_MUL, MOD_MUL_ED, MOD_MUL_BLS,
+           MOD_MADD_HORNER, MOD_MADD_HORNER_ED, MOD_MADD_HORNER_BLS, MOD_MADD_DOT, MOD_MADD_DOT_ED,
+           MOD_MADD_DOT_BLS)
 
 # field -> (mod_madd kernel, field id of csrc/field.cuh)
 _FIELDS = {
@@ -43,13 +62,29 @@ _FIELDS = {
     BLS12_381_R: (MOD_MADD_BLS, 5),
 }
 _MUL_KERNELS = {MOD_MADD: MOD_MUL, MOD_MADD_ED: MOD_MUL_ED, MOD_MADD_BLS: MOD_MUL_BLS}
+_HORNER_KERNELS = {MOD_MADD: MOD_MADD_HORNER, MOD_MADD_ED: MOD_MADD_HORNER_ED, MOD_MADD_BLS: MOD_MADD_HORNER_BLS}
+_DOT_KERNELS = {MOD_MADD: MOD_MADD_DOT, MOD_MADD_ED: MOD_MADD_DOT_ED, MOD_MADD_BLS: MOD_MADD_DOT_BLS}
+
+
+def _kernel_for(op: str, table: dict, fs: FieldSpec) -> build.Kernel:
+    if fs not in _FIELDS:
+        raise NotImplementedError(f"{op} has no CUDA kernel for {fs.name}")
+    return table[_FIELDS[fs][0]]
 
 
 def mul_kernel_for(fs: FieldSpec) -> build.Kernel:
     """The ``mod_mul`` kernel of field ``fs``; raises if there is none."""
-    if fs not in _FIELDS:
-        raise NotImplementedError(f"mod_mul has no CUDA kernel for {fs.name}")
-    return _MUL_KERNELS[_FIELDS[fs][0]]
+    return _kernel_for("mod_mul", _MUL_KERNELS, fs)
+
+
+def horner_kernel_for(fs: FieldSpec) -> build.Kernel:
+    """The ``mod_madd_horner`` kernel of field ``fs``; raises if there is none."""
+    return _kernel_for("mod_madd_horner", _HORNER_KERNELS, fs)
+
+
+def dot_kernel_for(fs: FieldSpec) -> build.Kernel:
+    """The ``mod_madd_dot`` kernel of field ``fs``; raises if there is none."""
+    return _kernel_for("mod_madd_dot", _DOT_KERNELS, fs)
 
 
 def mod_madd_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -80,4 +115,66 @@ def mod_mul(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (a, b), out, n = build.lanes([(a, tail), (b, tail)], tail)
     if n:
         kernel(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _FIELDS[fs][1], build.stream_ptr(out.device))
+    return out
+
+
+def mod_madd_horner_plain(fs: FieldSpec, coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """T one-step plain versions: acc <- acc·x + c_l from the top."""
+    batch = torch.broadcast_shapes(coeffs.shape[:-2], xs.shape[:-2])
+    acc = fd.zeros(fs, batch + (xs.shape[-2],), device=coeffs.device)
+    for l in reversed(range(coeffs.shape[-2])):
+        acc = mod_madd_plain(fs, acc, xs, coeffs[..., l, None, :])
+    return acc
+
+
+def mod_madd_horner(fs: FieldSpec, coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Σ_l coeffs[..., l]·x^l mod p at every x in one launch: coeffs
+    (..., T, L) low-order first, xs (..., N, L) -> (..., N, L), batch axes
+    broadcast (a shared operand is read, never copied to the batch)."""
+    if coeffs.device.type == "cpu":
+        return mod_madd_horner_plain(fs, coeffs, xs)
+    kernel, field = horner_kernel_for(fs), _FIELDS[fs][1]
+    L = fs.limbs
+    if coeffs.dim() < 2 or xs.dim() < 2:
+        raise ValueError("mod_madd_horner takes coeffs (..., T, L) and xs (..., N, L)")
+    T, npts = coeffs.shape[-2], xs.shape[-2]
+    dev = build.check_operands([(coeffs, (T, L)), (xs, (npts, L))])
+    batch = torch.broadcast_shapes(coeffs.shape[:-2], xs.shape[:-2])
+    out = torch.empty(batch + (npts, L), dtype=torch.int32, device=dev)
+    n_rows = out.numel() // max(1, npts * L)
+    if n_rows and npts:
+        c, c_share = build.rows(coeffs, batch, (T, L))
+        x, x_share = build.rows(xs, batch, (npts, L))
+        if c_share not in (1, n_rows) or x_share not in (1, n_rows):  # a mixed broadcast: copy to the batch
+            c, x = (t.expand(batch + t.shape[-2:]).reshape(-1, *t.shape[-2:]).contiguous() for t in (coeffs, xs))
+            c_share = x_share = 1
+        kernel(c.data_ptr(), 0 if c_share > 1 else T * L, x.data_ptr(), 0 if x_share > 1 else npts * L,
+               out.data_ptr(), n_rows, npts, T, field, build.stream_ptr(dev))
+    return out
+
+
+def mod_madd_dot_plain(fs: FieldSpec, weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """m one-step plain versions: acc <- w_j·v_j + acc."""
+    acc = fd.zeros(fs, values.shape[1:-1], device=values.device)
+    for j in range(values.shape[0]):
+        acc = mod_madd_plain(fs, weights[j], values[j], acc)
+    return acc
+
+
+def mod_madd_dot(fs: FieldSpec, weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Σ_j weights[j]·values[j, ...] mod p in one launch: weights (m, L),
+    values (m, ..., L) -> (..., L)."""
+    if weights.device.type == "cpu":
+        return mod_madd_dot_plain(fs, weights, values)
+    kernel, field = dot_kernel_for(fs), _FIELDS[fs][1]
+    L = fs.limbs
+    if weights.dim() != 2 or values.dim() < 2 or values.shape[0] != weights.shape[0]:
+        raise ValueError("mod_madd_dot takes weights (m, L) and values (m, ..., L)")
+    m = weights.shape[0]
+    dev = build.check_operands([(weights, (m, L)), (values, (L,))])
+    out = torch.empty(values.shape[1:], dtype=torch.int32, device=dev)
+    K = out.numel() // L
+    if K:
+        w, v = weights.contiguous(), values.reshape(m, K, L).contiguous()
+        kernel(w.data_ptr(), v.data_ptr(), out.data_ptr(), m, K, field, build.stream_ptr(dev))
     return out

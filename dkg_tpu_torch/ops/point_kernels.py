@@ -1,6 +1,7 @@
 """Point kernels: ``pt_add``, ``pt_madd``, ``pt_double``,
-``pt_window_step`` and ``pt_ladder_mul_add``, with their plain PyTorch
-versions.
+``pt_window_step``, ``pt_ladder_mul_add`` and ``pt_ladder_horner`` (the
+whole point Horner of ``groups.device.eval_point_poly`` in one launch),
+with their plain PyTorch versions.
 
 Counterpart of ``dkg_tpu/ops/pallas_point.py``.  Points are int32 limb
 tensors of shape ``(..., C, L)``: C projective coordinates (3 for short
@@ -9,7 +10,8 @@ Weierstrass a = 0, 4 for extended Edwards) of L 16-bit limbs (16, or
 of its curve: secp256k1's in ``csrc/point_kernels.cu``, edwards25519's
 (ristretto255) in ``csrc/edwards_kernels.cu``, ``pt_double`` for both in
 ``csrc/double_kernels.cu``, and every BLS12-381 G1 kernel in
-``csrc/bls_kernels.cu``; a curve with no kernel raises.  On a CPU
+``csrc/bls_kernels.cu``, and ``pt_ladder_horner`` for all three in
+``csrc/ladder_kernels.cu``; a curve with no kernel raises.  On a CPU
 tensor it runs the plain version below.  The plain versions are the
 formulas of the JAX package's ``groups/device.py`` (RCB15 algorithms 7,
 8 and 9 for Weierstrass, HWCD add and doubling for Edwards) in the same
@@ -53,9 +55,15 @@ BLS_PT_WINDOW_STEP = build.Kernel("pt_window_step[bls12_381]", _BLS, "dkg_bls_pt
                                   [_P, _P, _P, _I, _INT, _P])
 BLS_PT_LADDER_MUL_ADD = build.Kernel("pt_ladder_mul_add[bls12_381]", _BLS, "dkg_bls_pt_ladder_mul_add",
                                      _LADDER)
+_HORNER = [_P, _I, _I, _P, _P, _I, _INT, _INT, _P]
+_LAD = "ladder_kernels.cu"
+PT_LADDER_HORNER = build.Kernel("pt_ladder_horner", _LAD, "dkg_pt_ladder_horner", _HORNER)
+ED_PT_LADDER_HORNER = build.Kernel("pt_ladder_horner[edwards]", _LAD, "dkg_ed_pt_ladder_horner", _HORNER)
+BLS_PT_LADDER_HORNER = build.Kernel("pt_ladder_horner[bls12_381]", _LAD, "dkg_bls_pt_ladder_horner", _HORNER)
 KERNELS = (PT_ADD, PT_MADD, PT_WINDOW_STEP, PT_LADDER_MUL_ADD,
            ED_PT_ADD, ED_PT_MADD, ED_PT_WINDOW_STEP, ED_PT_LADDER_MUL_ADD, PT_DOUBLE, ED_PT_DOUBLE,
-           BLS_PT_ADD, BLS_PT_MADD, BLS_PT_DOUBLE, BLS_PT_WINDOW_STEP, BLS_PT_LADDER_MUL_ADD)
+           BLS_PT_ADD, BLS_PT_MADD, BLS_PT_DOUBLE, BLS_PT_WINDOW_STEP, BLS_PT_LADDER_MUL_ADD,
+           PT_LADDER_HORNER, ED_PT_LADDER_HORNER, BLS_PT_LADDER_HORNER)
 
 # The curves the kernels cover, by (kind, base field, curve constant): the
 # constants (b3 = 21 and 12, 2d) are compiled into csrc/point.cuh and
@@ -70,6 +78,7 @@ _VARIANTS = {
     "pt_ladder_mul_add": {_WS_KEY: PT_LADDER_MUL_ADD, _ED_KEY: ED_PT_LADDER_MUL_ADD,
                           _BLS_KEY: BLS_PT_LADDER_MUL_ADD},
     "pt_double": {_WS_KEY: PT_DOUBLE, _ED_KEY: ED_PT_DOUBLE, _BLS_KEY: BLS_PT_DOUBLE},
+    "pt_ladder_horner": {_WS_KEY: PT_LADDER_HORNER, _ED_KEY: ED_PT_LADDER_HORNER, _BLS_KEY: BLS_PT_LADDER_HORNER},
 }
 
 
@@ -249,6 +258,15 @@ def pt_ladder_mul_add_plain(cs, p, addend, x, nbits: int):
     return pt_add_plain(cs, acc, addend)
 
 
+def pt_ladder_horner_plain(cs, coeffs, x, nbits: int):
+    """T one-step plain ladders: acc <- x·acc + C_l from the top, from the
+    identity."""
+    acc = identity_plain(cs, torch.broadcast_shapes(coeffs.shape[:-3], x.shape), coeffs.device)
+    for l in reversed(range(coeffs.shape[-3])):
+        acc = pt_ladder_mul_add_plain(cs, acc, coeffs[..., l, :, :], x, nbits)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
@@ -309,3 +327,30 @@ def pt_ladder_mul_add(cs, p: torch.Tensor, addend: torch.Tensor, x: torch.Tensor
         raise ValueError("nbits must be in [0, 31]")
     point = (cs.ncoords, cs.field.limbs)
     return _launch("pt_ladder_mul_add", cs, [(p, point), (addend, point), (x, ())], (nbits,))
+
+
+def pt_ladder_horner(cs, coeffs: torch.Tensor, x: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Σ_l x^l·C_l in one launch, Horner from the top with one
+    ``pt_ladder_mul_add`` step per coefficient: coeffs (..., T, C, L)
+    low-order first, x (...,) int32 small public ints 0 <= x < 2**nbits ->
+    (..., C, L), batch axes broadcast.  Coefficients shared by the trailing
+    batch axes are read once a row, never copied to the batch."""
+    if coeffs.device.type == "cpu":
+        return pt_ladder_horner_plain(cs, coeffs, x, nbits)
+    if not 0 <= nbits <= 31:
+        raise ValueError("nbits must be in [0, 31]")
+    kernel = kernel_for("pt_ladder_horner", cs)
+    point = (cs.ncoords, cs.field.limbs)
+    if coeffs.dim() < 3:
+        raise ValueError(f"pt_ladder_horner takes coeffs (..., T, C, L), got {tuple(coeffs.shape)}")
+    T = coeffs.shape[-3]
+    dev = build.check_operands([(coeffs, (T,) + point), (x, ())])
+    batch = torch.broadcast_shapes(coeffs.shape[:-3], x.shape)
+    out = torch.empty(batch + point, dtype=torch.int32, device=dev)
+    n = out.numel() // (cs.ncoords * cs.field.limbs)
+    if n:
+        rows, per_row = build.rows(coeffs, batch, (T,) + point)
+        xs = x.expand(batch).contiguous()
+        kernel(rows.data_ptr(), len(rows), per_row, xs.data_ptr(), out.data_ptr(), n, T, nbits,
+               build.stream_ptr(dev))
+    return out

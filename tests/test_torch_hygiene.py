@@ -112,6 +112,17 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
                          _meta((32, 256, 3, 16))),
     lambda: tgd.encode_batch(ED, _meta((2, 4, 16))),
     lambda: tgd.encode_batch(BLS, _meta((2, 3, 24))),
+    lambda: pk.pt_ladder_horner(tgd.SECP256K1, _meta((3, 3, 16)), _meta((4,)), 3),
+    lambda: pk.pt_ladder_horner(ED, _meta((4, 2, 4, 16)), _meta((4,)), 3),
+    lambda: pk.pt_ladder_horner(BLS, _meta((3, 3, 24)), _meta((4,)), 3),
+    lambda: tgd.eval_point_poly(BLS, _meta((2, 1, 3, 3, 24)), _meta((2, 4)), 3),
+    lambda: fk.mod_madd_horner(SECP256K1_N, _meta((4, 3, 16)), _meta((5, 16))),
+    lambda: fk.mod_madd_horner(L25519, _meta((3, 16)), _meta((4, 5, 16))),
+    lambda: fk.mod_madd_horner(BLS12_381_R, _meta((4, 3, 16)), _meta((5, 16))),
+    lambda: fk.mod_madd_dot(SECP256K1_N, _meta((4, 16)), _meta((4, 5, 16))),
+    lambda: fk.mod_madd_dot(L25519, _meta((4, 16)), _meta((4, 5, 16))),
+    lambda: fk.mod_madd_dot(BLS12_381_R, _meta((4, 16)), _meta((4, 5, 16))),
+    lambda: tce._field_dot(BLS12_381_R, _meta((4, 16)), _meta((4, 5, 16))),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -119,7 +130,10 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "bls_pt_window_step", "bls_pt_ladder_mul_add", "bls_bucket_accumulate", "bls_msm_pippenger",
         "mod_mul", "mod_mul_ed", "mod_mul_bls", "mxu_mod_mul", "mxu_mod_mul_ed", "mxu_mod_mul_bls",
         "bls_affine_canon", "ed_affine_canon_gemm", "ed_pt_window_step", "ed_scalar_mul", "scalar_mul",
-        "bls_scalar_mul", "ed_kem_batch", "kem_batch", "ed_encode_batch", "bls_encode_batch"])
+        "bls_scalar_mul", "ed_kem_batch", "kem_batch", "ed_encode_batch", "bls_encode_batch",
+        "pt_ladder_horner", "ed_pt_ladder_horner", "bls_pt_ladder_horner", "bls_eval_point_poly",
+        "mod_madd_horner", "mod_madd_horner_ed", "mod_madd_horner_bls", "mod_madd_dot", "mod_madd_dot_ed",
+        "mod_madd_dot_bls", "bls_field_dot"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -133,7 +147,11 @@ def test_wrappers_raise_instead_of_falling_back(call):
     lambda: pk.pt_ladder_mul_add(tgd.SECP256K1, _meta((4, 3, 16)), _meta((16,)), _meta((4,)), 3),
     lambda: bk.bucket_accumulate(tgd.SECP256K1, _meta((4, 2, 16)), _meta((4, 3)), 4, 3),
     lambda: bk.bucket_accumulate(tgd.SECP256K1, _meta((2, 4, 3, 16)), _meta((4, 2)), 4, 3),
-], ids=["limbs", "coords", "too_few_axes", "bucket_coords", "bucket_digits"])
+    lambda: pk.pt_ladder_horner(tgd.SECP256K1, _meta((3, 1, 16)), _meta((4,)), 3),
+    lambda: fk.mod_madd_horner(SECP256K1_N, _meta((3, 1)), _meta((4, 16))),
+    lambda: fk.mod_madd_dot(SECP256K1_N, _meta((4, 16)), _meta((4, 5, 1))),
+], ids=["limbs", "coords", "too_few_axes", "bucket_coords", "bucket_digits", "horner_coords", "horner_limbs",
+        "dot_limbs"])
 def test_wrappers_reject_operands_of_the_wrong_shape(call):
     """A tail that would broadcast (a size-1 limb or coordinate axis)
     is refused before any pointer reaches a kernel."""
@@ -153,7 +171,7 @@ def test_unported_variants_raise():
     assert pk.kernel_for("pt_window_step", ED).source == "edwards_kernels.cu"
     with pytest.raises(NotImplementedError, match="pt_window_step"):
         pk.pt_window_step(other, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
-    for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add"):
+    for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner"):
         with pytest.raises(NotImplementedError, match=op):
             pk.kernel_for(op, other)
     with pytest.raises(NotImplementedError):
@@ -162,13 +180,19 @@ def test_unported_variants_raise():
         with pytest.raises(NotImplementedError, match="bucket_accumulate"):
             bk.bucket_accumulate(cs, _meta((2, 5, cs.ncoords, cs.field.limbs)), _meta((5, 3)), 4, 3)
     for cs in (L24_B3, L24_P):
-        for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add"):
+        for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner"):
             with pytest.raises(NotImplementedError, match=op):
                 pk.kernel_for(op, cs)
         with pytest.raises(NotImplementedError):
             pk.pt_add(cs, _meta((2, 3, 24)), _meta((2, 3, 24)))
     with pytest.raises(NotImplementedError):
         fk.mod_madd(L24_P.field, _meta((2, 24)), _meta((2, 24)), _meta((2, 24)))
+    with pytest.raises(NotImplementedError, match="mod_madd_horner"):
+        fk.mod_madd_horner(L24_P.field, _meta((2, 3, 24)), _meta((2, 24)))
+    with pytest.raises(NotImplementedError, match="mod_madd_dot"):
+        fk.mod_madd_dot(L24_P.field, _meta((2, 24)), _meta((2, 3, 24)))
+    with pytest.raises(NotImplementedError, match="pt_ladder_horner"):
+        pk.pt_ladder_horner(other, _meta((3, 4, 16)), _meta((2,)), 3)
     with pytest.raises(ValueError, match="window"):
         bk.bucket_accumulate(ED, _meta((2, 5, 4, 16)), _meta((5, 1)), 16, 1)
     with pytest.raises(NotImplementedError):
@@ -185,7 +209,8 @@ def test_unported_variants_raise():
     assert bk.kernel_for(tgd.SECP256K1) is bk.BUCKET_ACCUMULATE
     assert bk.kernel_for(BLS) is bk.BLS_BUCKET_ACCUMULATE
     assert pk.kernel_for("pt_double", BLS) is pk.BLS_PT_DOUBLE
-    assert {pk.kernel_for(op, BLS).source for op in pk._VARIANTS} == {"bls_kernels.cu"}
+    assert {pk.kernel_for(op, BLS).source for op in pk._VARIANTS if op != "pt_ladder_horner"} == {"bls_kernels.cu"}
+    assert pk.kernel_for("pt_ladder_horner", BLS).source == "ladder_kernels.cu"
     for cs in (ED, tgd.SECP256K1, BLS):
         assert all(pk.kernel_for(op, cs) in pk.KERNELS for op in pk._VARIANTS)
 
