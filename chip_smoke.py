@@ -29,12 +29,27 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    route (T, or m, launches of pt_ladder_mul_add or mod_madd), both routes
    timed on the card in the same run, and against their plain versions at
    random lanes and, at the path's shape, on its first rows (the first 2
-   coefficients of the point Horner, 8 dealers of the field Horner).
+   coefficients of the point Horner, 8 dealers of the field Horner).  So
+   are the chained point kernels (pt_fixed_base: every window of
+   fixed_base_mul in one launch; pt_tree_sum: a whole tree reduction in
+   one launch, the Straus windows' entries read in place), at the deal's
+   and the verifier's lanes and at a Straus window's and the master key's
+   tree, against their one-step routes (32 gathered pt_madd with their
+   selects; a pt_add launch a tree level with its gather), and against
+   their plain versions at random inputs (2**16 lanes or columns) and at
+   edges: digit-0 windows and the identity's table at 2**16 and 1000
+   lanes, m in {1, 2, 3, 5, 1000} over 4 columns and over one, direct and
+   gathered (1000 lanes and one column run in a group where the curve's
+   kernel has one), and m past the chunk cap (two launches).
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
    be > 0, and eval_point_poly, eval_many and _field_dot one launch each
    (1 pt_ladder_horner, 2 mod_madd_horner, 2 mod_madd_dot; the one-step
-   pt_ladder_mul_add and mod_madd 0):
+   pt_ladder_mul_add and mod_madd 0), each fixed_base_mul one
+   pt_fixed_base (4; pt_madd 0), each tree reduction one pt_tree_sum
+   (Straus: 32 windows and the master key, 33; Pippenger: 1) and pt_add
+   the table build, E and the left side (16; Pippenger adds its bucket
+   closes, 2 (2**c - 1)):
    - BatchedCeremony("secp256k1", 1024, 341) (BASELINE.md config 3);
    - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2);
    - BatchedCeremony("bls12_381_g1", 1024, 341) (BASELINE.md config 5,
@@ -51,9 +66,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    other) and the host leg give the same three (n, 8) row arrays and the
    run's rho.  On the BLS12-381 path only (the earlier paths skip these
    repeated passes to keep the command's time) it also splits both legs
-   of the fiat_shamir phase step by step and runs the Straus path once
+   of the fiat_shamir phase step by step and runs the Straus path twice
    more under torch.profiler for device time by kernel and the busy
-   share.
+   share (a call's mean).
 5. The dealing round's share encryption on each Straus run's shares and
    hidings (hybrid_batch: the KEM c1 = g·r and kem = r·pk on the card,
    the DEM on the host): recipient keys and randomness from the path's
@@ -64,7 +79,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    against the host ladder, the batch DEM against the per-pair leg on
    min(n, 4096 // n) dealers, recipients 1, n and two others opening
    every dealer's share and hiding, a tampered ciphertext not opening to
-   its share, and no plain multiply on the card.
+   its share, and no plain multiply on the card; the unchunked seal
+   launches exactly 1 pt_fixed_base (c1), 0 pt_madd and 14 pt_add (the
+   KEM's table build).
 6. On each Straus path's tensors: the point RLC D of verify_batch under
    the three schedules (straus, bits, pippenger), equal in canonical
    affine form and timed; and the verify phase under Straus and under
@@ -80,7 +97,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
    for all of them; for the multi-step kernels also the one-step route's
-   device ms and ptxas's registers and spill bytes),
+   device ms and ptxas's registers and spill bytes, per group size for
+   the chained ones),
    the card line again, and last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero without the last line;
@@ -150,11 +168,31 @@ class Path:
     def exact_launches(self) -> dict:
         """Launch counts a run of the ceremony must read exactly: the point
         Horner and the two scalar RLCs one launch each, the deal's two
-        Horners one each, and none of their one-step kernels."""
+        Horners one each, and none of their one-step kernels; the four
+        fixed_base_mul one pt_fixed_base each, and no pt_madd; one
+        pt_tree_sum a Straus window (RHO_BITS / 4 of them) and one for the
+        master key; pt_add the 14 table adds, E = A + B and the left side,
+        or under Pippenger E, the left side and the 2 (2**c - 1) bucket
+        closes."""
         cs = self.cs
+        if self.rlc == "straus":
+            trees, adds = -(-RHO_BITS // gd.WINDOW) + 1, 14 + 2
+        else:
+            trees, adds = 1, 2 * ((1 << gd.pippenger_window(self.n, cs.name)) - 1) + 2
         return {pk.kernel_for("pt_ladder_horner", cs).name: 1, fk.horner_kernel_for(cs.scalar).name: 2,
                 fk.dot_kernel_for(cs.scalar).name: 2, pk.kernel_for("pt_ladder_mul_add", cs).name: 0,
-                fk._FIELDS[cs.scalar][0].name: 0}
+                fk._FIELDS[cs.scalar][0].name: 0, pk.kernel_for("pt_fixed_base", cs).name: 4,
+                pk.kernel_for("pt_madd", cs).name: 0, pk.kernel_for("pt_tree_sum", cs).name: trees,
+                pk.kernel_for("pt_add", cs).name: adds}
+
+    def verify_kernels(self) -> tuple:
+        """The path's kernels that its verify phase launches: all but the
+        deal's field Horner, and under Pippenger the tree sum (the master
+        key's, in the finalise phase)."""
+        skip = {fk.horner_kernel_for(self.cs.scalar)}
+        if self.rlc == "pippenger":
+            skip.add(pk.kernel_for("pt_tree_sum", self.cs))
+        return tuple(k for k in self.kernels if k not in skip)
 
     def gemm(self) -> Path:
         """The same ceremony with the canonical affine form's multiplies
@@ -164,14 +202,14 @@ class Path:
 
 
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
-            (fk.MOD_MADD_HORNER, fk.MOD_MADD_DOT, fk.MOD_MUL, pk.PT_ADD, pk.PT_MADD, pk.PT_WINDOW_STEP,
-             pk.PT_LADDER_HORNER))
+            (fk.MOD_MADD_HORNER, fk.MOD_MADD_DOT, fk.MOD_MUL, pk.PT_ADD, pk.PT_FIXED_BASE, pk.PT_TREE_SUM,
+             pk.PT_WINDOW_STEP, pk.PT_LADDER_HORNER))
 R255 = Path("ristretto255", 256, 85, b"chip-smoke-r255",  # BASELINE.md config 2
-            (fk.MOD_MADD_HORNER_ED, fk.MOD_MADD_DOT_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_MADD,
-             pk.ED_PT_WINDOW_STEP, pk.ED_PT_LADDER_HORNER))
+            (fk.MOD_MADD_HORNER_ED, fk.MOD_MADD_DOT_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_FIXED_BASE,
+             pk.ED_PT_TREE_SUM, pk.ED_PT_WINDOW_STEP, pk.ED_PT_LADDER_HORNER))
 BLS = Path("bls12_381_g1", 1024, 341, b"chip-smoke-bls",  # BASELINE.md config 5 at config 3's n, t
-           (fk.MOD_MADD_HORNER_BLS, fk.MOD_MADD_DOT_BLS, fk.MOD_MUL_BLS, pk.BLS_PT_ADD, pk.BLS_PT_MADD,
-            pk.BLS_PT_WINDOW_STEP, pk.BLS_PT_LADDER_HORNER))
+           (fk.MOD_MADD_HORNER_BLS, fk.MOD_MADD_DOT_BLS, fk.MOD_MUL_BLS, pk.BLS_PT_ADD, pk.BLS_PT_FIXED_BASE,
+            pk.BLS_PT_TREE_SUM, pk.BLS_PT_WINDOW_STEP, pk.BLS_PT_LADDER_HORNER))
 PATHS = (SECP, R255, BLS)
 # paths that also split the fiat_shamir phase's two legs and run once more
 # under the profiler; the earlier paths skip those repeated passes (never
@@ -254,20 +292,36 @@ SOURCES = {
     "mod_madd_dot": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
     "mod_madd_dot[ed25519]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
     "mod_madd_dot[bls12_381]": ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301"),
+    # the chained point kernels: the TPU kernel's step composed over a whole call
+    "pt_fixed_base": ("chain_kernels.cu", PDIR + ":281"),
+    "pt_fixed_base[edwards]": ("chain_kernels.cu", PDIR + ":281"),
+    "pt_fixed_base[bls12_381]": ("chain_kernels.cu", PDIR + ":281"),
+    "pt_tree_sum": ("chain_kernels.cu", PDIR + ":258"),
+    "pt_tree_sum[edwards]": ("chain_kernels.cu", PDIR + ":258"),
+    "pt_tree_sum[bls12_381]": ("chain_kernels.cu", PDIR + ":258"),
 }
-# ptxas's entry of each multi-step kernel: every string must be in the
-# mangled name (the field kernels' template argument is the field id of
-# csrc/field.cuh, mangled ILi<id>E)
+# ptxas's entries of each multi-step kernel, by label: every string must
+# be in the mangled name, and none that starts with "!" (the field
+# kernels' template argument is the field id of csrc/field.cuh, mangled
+# ILi<id>E; the chained kernels' last one the threads a lane, Li<tpi>EEEv:
+# Li1EEEv at one thread a lane, another where the kernel has a group
+# variant)
 PTXAS_ENTRIES = {
-    "pt_ladder_horner": ("pt_ladder_horner_kernel", "Secp256k1"),
-    "pt_ladder_horner[edwards]": ("pt_ladder_horner_kernel", "Edwards25519"),
-    "pt_ladder_horner[bls12_381]": ("pt_ladder_horner_kernel", "Bls12381"),
-    "mod_madd_horner": ("mod_madd_horner_kernel", "ILi1E"),
-    "mod_madd_horner[ed25519]": ("mod_madd_horner_kernel", "ILi3E"),
-    "mod_madd_horner[bls12_381]": ("mod_madd_horner_kernel", "ILi5E"),
-    "mod_madd_dot": ("mod_madd_dot_kernel", "ILi1E"),
-    "mod_madd_dot[ed25519]": ("mod_madd_dot_kernel", "ILi3E"),
-    "mod_madd_dot[bls12_381]": ("mod_madd_dot_kernel", "ILi5E"),
+    "pt_ladder_horner": {"": ("pt_ladder_horner_kernel", "Secp256k1")},
+    "pt_ladder_horner[edwards]": {"": ("pt_ladder_horner_kernel", "Edwards25519")},
+    "pt_ladder_horner[bls12_381]": {"": ("pt_ladder_horner_kernel", "Bls12381")},
+    "mod_madd_horner": {"": ("mod_madd_horner_kernel", "ILi1E")},
+    "mod_madd_horner[ed25519]": {"": ("mod_madd_horner_kernel", "ILi3E")},
+    "mod_madd_horner[bls12_381]": {"": ("mod_madd_horner_kernel", "ILi5E")},
+    "mod_madd_dot": {"": ("mod_madd_dot_kernel", "ILi1E")},
+    "mod_madd_dot[ed25519]": {"": ("mod_madd_dot_kernel", "ILi3E")},
+    "mod_madd_dot[bls12_381]": {"": ("mod_madd_dot_kernel", "ILi5E")},
+    **{f"{op}{suffix}": {"one thread": (f"{op}_kernel", tag, "Li1EEEv"),
+                         **({"group": (f"{op}_kernel", tag, "!Li1EEEv")} if group else {})}
+       for op, suffix, tag, group in (
+           ("pt_fixed_base", "", "Secp256k1", True), ("pt_fixed_base", "[edwards]", "Edwards25519", False),
+           ("pt_fixed_base", "[bls12_381]", "Bls12381", True), ("pt_tree_sum", "", "Secp256k1", False),
+           ("pt_tree_sum", "[edwards]", "Edwards25519", False), ("pt_tree_sum", "[bls12_381]", "Bls12381", True))},
 }
 KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS, *mk.KERNELS)
 
@@ -293,14 +347,19 @@ def ptxas_entries(log: str) -> dict:
 
 
 def ptxas_of(name: str) -> dict | None:
-    """Registers and spill stores of a multi-step kernel's entry."""
-    keys = PTXAS_ENTRIES.get(name)
-    if keys is None:
+    """Registers and spill stores of a multi-step kernel's entry (of each,
+    by label, where it has several)."""
+    labels = PTXAS_ENTRIES.get(name)
+    if labels is None:
         return None
-    found = [v for e, v in ptxas_entries(build.BUILD_LOGS.get(SOURCES[name][0], "")).items()
-             if all(k in e for k in keys)]
-    check(len(found) == 1, f"ptxas: {len(found)} entries of {name} in the build log")
-    return {"registers": found[0][0], "spill_store_bytes": found[0][1]}
+    entries = ptxas_entries(build.BUILD_LOGS.get(SOURCES[name][0], ""))
+    out = {}
+    for label, keys in labels.items():
+        found = [v for e, v in entries.items()
+                 if all((k[1:] not in e) if k.startswith("!") else (k in e) for k in keys)]
+        check(len(found) == 1, f"ptxas: {len(found)} entries of {name} {label} in the build log")
+        out[label] = {"registers": found[0][0], "spill_store_bytes": found[0][1]}
+    return out[""] if list(out) == [""] else out
 
 
 def card_line() -> str:
@@ -421,6 +480,7 @@ class Case:
     plain_rows: int | None = None  # hold and time the plain version on main_args' first rows only
     rows_rerun: bool = False  # the output's rows are not the input's: rerun the wrapper on the rows
     route: object = None  # the one-step route at main_args (T or m launches), held and timed beside
+    nbytes: int | None = None  # bytes the call must move, where not every byte of main_args
 
 
 def ladder_muladds(xs, double: int, add: int) -> int:
@@ -488,6 +548,39 @@ def point_fns(cs, op: str, *extra):
     trailing int arguments."""
     return (lambda *a: getattr(pk, op)(cs, *a, *extra),
             lambda *a: getattr(pk, op + "_plain")(cs, *a, *extra))
+
+
+def fixed_base_fns(cs):
+    """(wrapper, plain) of pt_fixed_base on ``cs``, scalars first."""
+    return (lambda k, table: pk.pt_fixed_base(cs, table, k), lambda k, table: pk.pt_fixed_base_plain(cs, table, k))
+
+
+def fixed_base_muladds(cs, k: torch.Tensor, madd: int) -> int:
+    """Mixed adds fixed_base_mul's k need: on Weierstrass curves one a
+    non-zero 8-bit digit (a zero digit's entry is the identity, which
+    keeps the sum), on Edwards one a window."""
+    digits = pk.window_digits(k, gd.FIXED_WINDOW)
+    return madd * int(digits.numel() if cs.kind == "edwards" else (digits != 0).sum())
+
+
+def tree_fns(cs, gathered: bool):
+    """(wrapper, plain) of pt_tree_sum on ``cs`` over the ceremony's layout:
+    points (m, cols, C, L), or with ``gathered`` per-point tables
+    (m, cols, E, C, L) and digits (m,) shared by the columns."""
+    if gathered:
+        return (lambda tab, d: pk.pt_tree_sum(cs, tab.movedim(0, -4), d),
+                lambda tab, d: pk.pt_tree_sum_plain(cs, tab.movedim(0, -4), d))
+    return (lambda p: pk.pt_tree_sum(cs, p.movedim(0, -3)),
+            lambda p: pk.pt_tree_sum_plain(cs, p.movedim(0, -3)))
+
+
+def tree_adds(m: int) -> int:
+    """Adds of the pairwise tree over m points, the identity pads' included."""
+    adds = 0
+    while m > 1:
+        m = (m + 1) // 2
+        adds += m
+    return adds
 
 
 def bucket_fns(cs, window: int, nw: int):
@@ -576,7 +669,61 @@ def kernel_cases(rng) -> dict:
             [(lanes, *point_fns(cs, "pt_add"), [points(R), points(R)])],
             [points((n, t + 1)), points((n, t + 1))],
             add_c * n * (t + 1))
-        # one fixed_base_mul window over every dealer's t+1 coefficients
+        # fixed_base_mul in one launch over g's table: at the deal's shape
+        # (every dealer's t+1 coefficients) and, in its own row, the
+        # verifier's n lanes; at random lanes (field edges first: digit-0
+        # windows) and over the identity's table (every entry Z = 0, or the
+        # Edwards identity), with scalars whose every other byte is 0, at
+        # 2**16 lanes (one thread a lane) and at 1000 (in a group, where
+        # the curve's kernel has one)
+        g_table = gp.generator_table(cs, device=DEV)
+        ident_table = gd.identity(cs, g_table.shape[:2], device=DEV).contiguous()
+        fixed = fixed_base_fns(cs)
+        k_sparse = rand_field(rng, S, R)
+        k_sparse[..., :] &= 0xFF00
+        # the one-step route: 32 gathered pt_madd launches with their selects
+        fixed_route = lambda k, table, cs=cs: pk.pt_fixed_base_plain(cs, table, k, madd=pk.pt_madd)  # noqa: E731
+        for suffix, batch in (("", (n, t + 1)), (" verify", (n,))):
+            k_main = rand_field(rng, S, batch)
+            cases[name("pt_fixed_base") + suffix] = Case(
+                path, *fixed,
+                [] if suffix else [(f"{lanes}, g's table", *fixed, [rand_field(rng, S, R), g_table]),
+                                   (f"{lanes}, the identity's table", *fixed, [k_sparse, ident_table]),
+                                   ("1000 lanes, g's table", *fixed, [rand_field(rng, S, (1000,)), g_table]),
+                                   ("1000 lanes, the identity's table", *fixed, [k_sparse[:1000], ident_table])],
+                [k_main, g_table], fixed_base_muladds(cs, k_main, madd_c), plain_reps=1,
+                plain_rows=8 if not suffix else None, route=fixed_route)
+        # a Straus window's tree sum: the entries of the n (t+1) points'
+        # 16-entry tables (n, t+1, 16; built as the ceremony builds them, 14
+        # pt_add launches) under n digits shared by the t+1 columns, read
+        # in place (the bound counts the gathered entries' bytes); in its own
+        # row the master key's (one column of n points); at random inputs
+        # (2**16 columns of 3 points) and at the edges m = 1, 2, 3, 5, 1000
+        # (direct and gathered, over 4 columns at one thread a lane and over
+        # one, in a group where the curve's kernel has one) and m = 1500,
+        # past the 1024-point chunk (two launches)
+        W = cs.ncoords * cs.field.limbs
+        tree_d, tree_g = tree_fns(cs, False), tree_fns(cs, True)
+        tree_rand = [(f"{RANDOM_LANES} columns of 3 points", *tree_d, [points((3, RANDOM_LANES))])]
+        for m in (1, 2, 3, 5, 1000):
+            dig = torch.from_numpy(rng.integers(0, 16, size=(m,)).astype(np.int32)).to(DEV)
+            dig[0] = 0
+            for cols in (4, 1):
+                label = f"m={m}, {cols} column{'s' if cols > 1 else ''}"
+                tree_rand += [(label, *tree_d, [points((m, cols))]),
+                              (f"{label} gathered", *tree_g, [points((m, cols, 16)), dig])]
+        tree_rand.append(("m=1500, 3 columns, two launches", *tree_d, [points((1500, 3))]))
+        digits_main = torch.from_numpy(rng.integers(0, 16, size=(n,)).astype(np.int32)).to(DEV)
+        cases[name("pt_tree_sum")] = Case(
+            path, *tree_g, tree_rand, [gd._build_table(cs, points((n, t + 1))), digits_main],
+            add_c * (t + 1) * tree_adds(n),
+            plain_reps=1, nbytes=4 * (n * (t + 1) * W + n + (t + 1) * W),
+            route=lambda tab, d, cs=cs: pk.pt_tree_sum_plain(cs, tab.movedim(0, -4), d, add=pk.pt_add))
+        cases[name("pt_tree_sum") + " master"] = Case(
+            path, *tree_d, [], [points((n,))], add_c * tree_adds(n), plain_reps=1,
+            route=lambda p, cs=cs: pk.pt_tree_sum_plain(cs, p, add=pk.pt_add))
+        # one window of fixed_base_mul's one-step route (off every path since
+        # pt_fixed_base) over every dealer's t+1 coefficients
         cases[name("pt_madd")] = Case(
             path, *point_fns(cs, "pt_madd"),
             [(lanes, *point_fns(cs, "pt_madd"), [points(R), points(R, True)])],
@@ -597,7 +744,7 @@ def kernel_cases(rng) -> dict:
                                 f"({m}, {bnw}) digits", *bucket_fns(cs, w, bnw), [points((rows, m)), digits]))
         cases[bk.kernel_for(cs).name] = Case(
             path, *bucket_fns(cs, window, nw), bucket_rand,
-            [points((t + 1, n)), gd.scalar_windows(rho, window)[:, :nw].contiguous()],
+            [points((t + 1, n)), pk.window_digits(rho, window)[:, :nw].contiguous()],
             add_c * (t + 1) * n * nw, plain_reps=1, plain_rows=BUCKET_PLAIN_ROWS.get(cs.name))
         # one Horner step of eval_point_poly: acc (n,), D_l one point, x = 1..n
         x_rand = torch.from_numpy(rng.integers(0, 1 << path.index_bits, size=R).astype(np.int32)).to(DEV)
@@ -688,7 +835,9 @@ def check_kernels(rng) -> dict:
             route = {"one_step_device_ms": device_ms(lambda: case.route(*case.main_args), reps=1,
                                                      spin=800_000_000),
                      "ptxas": ptxas_of(name)}
-        nbytes = sum(a.numel() * a.element_size() for a in case.main_args) + res.numel() * 4
+        nbytes = case.nbytes
+        if nbytes is None:
+            nbytes = sum(a.numel() * a.element_size() for a in case.main_args) + res.numel() * 4
         bytes_ms = 1e3 * nbytes / BYTES_PER_S
         ops_ms = (1e3 * (2 * case.muladds + case.int32_muls) / INT32_MUL_PER_S
                   + 1e3 * 2 * case.int8_products / INT8_OPS_PER_S)
@@ -775,7 +924,8 @@ def main_path(path: Path, seed: int) -> tuple[cer.BatchedCeremony, dict, dict]:
     exact = path.exact_launches()
     check(all(launches[k] == v for k, v in exact.items()),
           f"{tag}: launch counts {({k: launches[k] for k in exact})}, want {exact}")
-    print(f"main path {tag}: eval_point_poly, eval_many and _field_dot one launch each "
+    print(f"main path {tag}: eval_point_poly, eval_many, _field_dot, each fixed_base_mul and each tree "
+          "reduction one launch each "
           + json.dumps({k: launches[k] for k in exact}) + f"; {plain.count} plain multiplies on the card",
           flush=True)
 
@@ -926,6 +1076,9 @@ PROFILE_GROUPS = (
                      ("pt_window_step", "pt_window_step"), ("pt_ladder", "pt_ladder_mul_add"),
                      ("pt_ladder_horner", "pt_ladder_horner"), ("bucket", "bucket_accumulate"))),
     (("pt_ladder_horner_kernel", "Edwards25519"), "pt_ladder_horner[edwards]"),
+    *(((f"{op}_kernel", tag), op + suffix)
+      for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"), ("Edwards25519", "[edwards]"))
+      for op in ("pt_fixed_base", "pt_tree_sum")),
     (("mxu_mod_mul_kernel",), "mxu"), (("mod_mul_kernel",), "mul"), (("mod_madd_kernel",), "madd"),
     (("mod_madd_horner_kernel",), "madd_horner"), (("mod_madd_dot_kernel",), "madd_dot"),
     (("Memcpy DtoH",), "copy to host"),
@@ -984,9 +1137,11 @@ def profiled(path: Path, label: str, fn, kernels: tuple | None = None, calls: in
 
 
 def profile_main_path(path: Path, seed: int) -> None:
-    """The main path once more under torch.profiler."""
+    """The main path twice more under torch.profiler, in one session: late
+    in the process the profiler dropped the records of the session's first
+    kernels (the deal's), as it did the verify phase's."""
     c = cer.BatchedCeremony(path.curve, path.n, path.t, path.shared, random.Random(seed), device=DEV)
-    profiled(path, f"{path.curve} n={path.n} ceremony rlc={path.rlc}", lambda: c.run(rlc=path.rlc))
+    profiled(path, f"{path.curve} n={path.n} ceremony rlc={path.rlc}", lambda: c.run(rlc=path.rlc), calls=2)
 
 
 def rlc_schedules(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
@@ -1005,7 +1160,6 @@ def rlc_schedules(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
         check(np.array_equal(affine[mode], affine["straus"]), f"{path.curve}: D under {mode} != D under straus")
     print(f"point RLC {path.curve} n={path.n} t={path.t}: D equal in canonical affine form under "
           f"{', '.join(cer.RLC_MODES)}; ms (CUDA events, one call) " + json.dumps(ms), flush=True)
-    deal = fk.horner_kernel_for(cs.scalar)  # the deal's, not the verify phase's
     for p in (path, path.pippenger()):
         def verify(p=p):
             ok = cer.verify_batch(c.cfg, out["randomized"], out["shares"], out["hidings"], out["rho"], RHO_BITS,
@@ -1015,8 +1169,7 @@ def rlc_schedules(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
         # records of a session's first kernels (the phase's two mod_madd_dot
         # launches), behind a spin, a discarded warm-up step and idle host
         # time alike
-        profiled(p, f"{path.curve} n={path.n} verify phase rlc={p.rlc}", verify,
-                 tuple(k for k in p.kernels if k is not deal), calls=2)
+        profiled(p, f"{path.curve} n={path.n} verify phase rlc={p.rlc}", verify, p.verify_kernels(), calls=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1057,10 +1210,18 @@ class HostSeconds:
 
 
 def seal_kernels(cs) -> tuple:
-    """The kernels one seal launches: c1's mixed adds, scalar_mul's table
-    adds and window steps, and the KEM encoding's canonical affine form."""
-    return (pk.kernel_for("pt_madd", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_window_step", cs),
+    """The kernels one seal launches: c1's fixed-base windows, scalar_mul's
+    table adds and window steps, and the KEM encoding's canonical affine
+    form."""
+    return (pk.kernel_for("pt_fixed_base", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_window_step", cs),
             fk.mul_kernel_for(cs.field))
+
+
+def seal_exact(cs) -> dict:
+    """Launch counts the unchunked seal must read exactly: c1 one
+    pt_fixed_base (no pt_madd), and the KEM's per-key table 14 pt_add."""
+    return {pk.kernel_for("pt_fixed_base", cs).name: 1, pk.kernel_for("pt_madd", cs).name: 0,
+            pk.kernel_for("pt_add", cs).name: 14}
 
 
 def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict:
@@ -1119,6 +1280,9 @@ def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict
                   + "; launches " + json.dumps(launches), flush=True)
         for k in seal_kernels(cs):
             check(launches.get(k.name, 0) > 0, f"kernel {k.name} was not launched in the {tag} seal")
+        exact = seal_exact(cs)
+        check(all(launches.get(k, 0) == v for k, v in exact.items()),
+              f"{tag}: launch counts {({k: launches.get(k, 0) for k in exact})}, want {exact}")
         check(len(sealed[0]) == n and all(len(row) == n for row in sealed[0]), f"{tag}: sealed matrix shape")
         check(sealed[None] == sealed[0], f"{tag}: the chunked pipeline's pairs differ from the unchunked one's")
 

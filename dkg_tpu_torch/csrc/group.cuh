@@ -420,16 +420,50 @@ struct GField {
   // r <- one, the Montgomery form of 1
   __device__ __forceinline__ void one(uint32_t r[]) const { slice(r, kMontOne[kRow]); }
 
-  // r <- the Montgomery form of the stored element (2N limbs) at src
-  __device__ __forceinline__ void load(uint32_t r[], const int32_t* src) const {
-    uint32_t w[S], r2[S];
+  // words <- this rank's slice of a, at the words slice() reads
+  __device__ __forceinline__ void put(uint32_t* words, const uint32_t a[]) const {
+#pragma unroll
+    for (int j = 0; j < S; ++j) words[g.rank * S + j] = a[j];
+  }
+
+  // r <- this rank's slice of the stored element (2N limbs) at src, as it is
+  __device__ __forceinline__ void raw(uint32_t r[], const int32_t* src) const {
 #pragma unroll
     for (int j = 0; j < S; ++j) {
       const int k = 2 * (g.rank * S + j);
-      w[j] = (uint32_t)src[k] | ((uint32_t)src[k + 1] << 16);
+      r[j] = (uint32_t)src[k] | ((uint32_t)src[k + 1] << 16);
     }
+  }
+
+  // r <- the Montgomery form of the stored element (2N limbs) at src
+  __device__ __forceinline__ void load(uint32_t r[], const int32_t* src) const {
+    uint32_t w[S], r2[S];
+    raw(w, src);
     slice(r2, kMontR2[kRow]);
     mul(r, w, r2);
+  }
+
+  // r_k <- the Montgomery forms of K stored elements, in lockstep
+  template <int K>
+  __device__ __forceinline__ void load_k(uint32_t* const (&r)[K], const int32_t* const (&src)[K]) const {
+    uint32_t w[K][S], r2[S];
+    const uint32_t* a[K];
+    const uint32_t* b[K];
+    slice(r2, kMontR2[kRow]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      raw(w[k], src[k]);
+      a[k] = w[k];
+      b[k] = r2;
+    }
+    mul_k<K>(r, a, b);
+  }
+
+  // whether the stored element at src is 0, on every rank (a ballot)
+  __device__ __forceinline__ bool is_zero(const int32_t* src) const {
+    uint32_t w[S];
+    raw(w, src);
+    return g.ballot(all_zero<S>(w)) == (1u << TPI) - 1u;
   }
 
   // the canonical limbs of a to dst (computed by the whole group, written
@@ -456,12 +490,13 @@ struct GField {
 // (0:1:0); hwcd doubling takes (0:1:1:0) to (0:-1:-1:0)), which lets the
 // ladder skip the doublings of x's leading zero bits.
 
-// Short Weierstrass a = 0 over C of point.cuh (RCB15 algorithms 7 and 9).
+// Short Weierstrass a = 0 over C of point.cuh (RCB15 algorithms 7, 8 and
+// 9).
 template <class C, class G>
 struct GroupWs {
   using GF = GField<C::F, G>;
   static constexpr int N = GF::N, S = GF::S, kCoords = dkg::kCoords;
-  static constexpr bool kDoubleFixesIdentity = true;
+  static constexpr bool kDoubleFixesIdentity = true, kWeierstrass = true;
   struct P {
     uint32_t x[S], y[S], z[S];
   };
@@ -522,6 +557,26 @@ struct GroupWs {
     f.template add_k<2>({o.y, o.z}, {u2, u3}, {v2, v3});  // Y = t1 z3 + x3 y3, Z = z3 t4 + x3 t3
   }
 
+  // RCB15 algorithm 8 (point.cuh pt_madd), q affine: its Z is not read.
+  // Complete for every p, not for q = identity (callers keep p there).  o
+  // may alias p.
+  __device__ __forceinline__ void madd(P& o, const P& p, const P& q) const {
+    uint32_t t0[S], t1[S], t2[S], t3[S], t4[S], y3[S], x3[S], z3[S], u[S], v[S];
+    uint32_t u1[S], v1[S], u2[S], v2[S], u3[S], v3[S];
+    f.template add_k<2>({u, v}, {p.x, q.x}, {p.y, q.y});
+    f.template mul_k<5>({t0, t1, t3, t4, y3}, {p.x, p.y, u, q.y, q.x}, {q.x, q.y, v, p.z, p.z});
+    f.template add_k<3>({t4, y3, x3}, {t4, y3, t0}, {p.y, p.x, t0});  // t4 = y2 z1 + y1, y3 = x2 z1 + x1
+    f.sub(t3, t3, t0);
+    f.sub(t3, t3, t1);  // t3 = x1 y2 + x2 y1
+    f.add(x3, x3, t0);  // x3 = 3 t0
+    mul_b3<2>({t2, y3}, {p.z, y3});
+    f.add(z3, t1, t2);
+    f.sub(t1, t1, t2);
+    f.template mul_k<6>({u1, v1, u2, v2, u3, v3}, {t3, t4, t1, x3, z3, x3}, {t1, y3, z3, y3, t4, t3});
+    f.sub(o.x, u1, v1);
+    f.template add_k<2>({o.y, o.z}, {u2, u3}, {v2, v3});
+  }
+
   // RCB15 algorithm 9 (point.cuh pt_double), in place; x y is formed with
   // the first products (its operands do not change before the reference
   // forms it).
@@ -568,6 +623,22 @@ struct GroupWs {
     f.slice(p.y, words + N);
     f.slice(p.z, words + 2 * N);
   }
+  // this rank's slice of each coordinate to words, as load_words reads it
+  __device__ __forceinline__ void store_words(uint32_t* words, const P& p) const {
+    f.put(words, p.x);
+    f.put(words + N, p.y);
+    f.put(words + 2 * N, p.z);
+  }
+  // an affine entry (X, Y of the stored point at src; Z is taken as 1)
+  __device__ __forceinline__ void load_affine(P& p, const int32_t* src) const {
+    f.template load_k<2>({p.x, p.y}, {src, src + 2 * N});
+    f.one(p.z);
+  }
+  // whether the stored point at src has Z = 0 (the same on every rank)
+  __device__ __forceinline__ bool z_is_zero(const int32_t* src) const {
+    return f.is_zero(src + 4 * N);
+  }
+  __device__ __forceinline__ bool any(bool p) const { return f.g.any(p); }
 };
 
 // edwards25519 (a = -1) over the ed25519 base field: add-2008-hwcd-3 and

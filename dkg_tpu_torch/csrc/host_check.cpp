@@ -10,13 +10,20 @@
 // inner steps, so its integer bounds can be driven to their worst cases.
 // The multi-step kernels too: mod_madd_horner and mod_madd_dot's lane
 // bodies (horner.cuh), and pt_ladder_horner's (group.cuh), whose warp is
-// 32 host threads: its TPI threads a lane meet at a barrier for each
-// shuffle and ballot, and all 32 for each of the warp's votes.
-#include <atomic>
-#include <thread>
+// 32 fibers on the calling thread: its TPI threads a lane meet at a
+// barrier for each shuffle and ballot, and all 32 for each of the warp's
+// votes.  And the chained point kernels of chain_kernels.cu (chain.cuh):
+// pt_fixed_base's lane and pt_tree_sum's block (whose threads also meet
+// at a barrier for each __syncthreads), at one thread a lane or, where
+// chain_kernels.cu builds it, a group of TPI.
+#include <ucontext.h>
+
+#include <functional>
+#include <memory>
 #include <vector>
 
 #include "bucket.cuh"
+#include "chain.cuh"
 #include "group.cuh"
 #include "horner.cuh"
 #include "mxu.cuh"
@@ -164,23 +171,82 @@ void dot_lanes(const int32_t* w, const int32_t* v, int32_t* out, int64_t m, int6
   }
 }
 
-// A warp as host threads: each group of TPI threads shuffles and ballots
+// The threads of a warp (or a block) run as fibers on the calling thread:
+// each runs until it waits at an Exchange, then the next one in turn, so a
+// barrier costs a context switch whatever the machine's load (as OS
+// threads, a waiting thread held a core the others needed).
+struct Fibers {
+  struct Fiber {
+    ucontext_t ctx;
+    std::function<void()> fn;
+    bool done = false;
+  };
+  static constexpr size_t kStack = 1 << 20;
+  std::vector<Fiber> fibers;
+  ucontext_t main;
+  size_t cur = 0;
+  static Fibers*& active() {
+    static Fibers* f = nullptr;
+    return f;
+  }
+  static std::vector<std::unique_ptr<char[]>>& stacks() {  // kept for the next run
+    static std::vector<std::unique_ptr<char[]>> s;
+    return s;
+  }
+  static void entry() {
+    Fibers* f = active();
+    f->fibers[f->cur].fn();
+    f->fibers[f->cur].done = true;  // then back to main through uc_link
+  }
+  // each fn to its end, in turns
+  void run(std::vector<std::function<void()>> fns) {
+    fibers.resize(fns.size());
+    while (stacks().size() < fns.size()) stacks().emplace_back(new char[kStack]);
+    for (size_t i = 0; i < fns.size(); ++i) {
+      Fiber& fb = fibers[i];
+      fb.fn = std::move(fns[i]);
+      getcontext(&fb.ctx);
+      fb.ctx.uc_stack.ss_sp = stacks()[i].get();
+      fb.ctx.uc_stack.ss_size = kStack;
+      fb.ctx.uc_link = &main;
+      makecontext(&fb.ctx, &Fibers::entry, 0);
+    }
+    Fibers* outer = active();
+    active() = this;
+    for (bool left = true; left;) {
+      left = false;
+      for (cur = 0; cur < fibers.size(); ++cur) {
+        if (fibers[cur].done) continue;
+        swapcontext(&main, &fibers[cur].ctx);
+        left = left || !fibers[cur].done;
+      }
+    }
+    active() = outer;
+  }
+  // the running fiber lets the next one run
+  static void yield() {
+    Fibers* f = active();
+    swapcontext(&f->fibers[f->cur].ctx, &f->main);
+  }
+};
+
+// A warp as fibers: each group of TPI threads shuffles and ballots
 // through its own slots and barrier, and the warp's votes (any) go
 // through one shared by all its threads.  Each exchange writes the
 // thread's value to a slot, meets the others at the barrier, reads, and
 // meets them again before the slots are reused.
 struct Exchange {
   int threads;
-  std::atomic<int> count{0}, generation{0};
+  int count = 0, generation = 0;
   uint32_t slot[32];
   void sync() {
-    const int gen = generation.load(std::memory_order_acquire);
-    if (count.fetch_add(1, std::memory_order_acq_rel) == threads - 1) {
-      count.store(0, std::memory_order_relaxed);
-      generation.fetch_add(1, std::memory_order_release);
-    } else {
-      while (generation.load(std::memory_order_acquire) == gen) std::this_thread::yield();
+    const int gen = generation;
+    if (++count == threads) {
+      count = 0;
+      ++generation;
+      return;
     }
+    while (generation == gen) Fibers::yield();
   }
 };
 
@@ -225,7 +291,7 @@ void on_warp(int groups, Body body) {
   std::vector<Exchange> ex(groups);
   Exchange warp;
   warp.threads = groups * TPI;
-  std::vector<std::thread> threads;
+  std::vector<std::function<void()>> threads;
   for (int q = 0; q < groups; ++q) {
     ex[q].threads = TPI;
     for (int r = 0; r < TPI; ++r)
@@ -234,7 +300,7 @@ void on_warp(int groups, Body body) {
         body(k, q);
       });
   }
-  for (auto& t : threads) t.join();
+  Fibers().run(std::move(threads));
 }
 
 // ladder_kernels.cu's pt_ladder_horner_kernel, a warp of 32 / TPI lanes at
@@ -281,6 +347,140 @@ int ladder_horner_tpi(int tpi, const int32_t* coeffs, int64_t rows, int64_t lane
         return 0;
       }
       return 1;
+    default: return 1;
+  }
+}
+// The kind of chain_kernels.cu at group size TPI, over host threads: a
+// group of group.cuh's, or at TPI = 1 chain.cuh's one-thread kinds.
+template <template <class, class> class Kind, class C, int TPI>
+struct HostKind {
+  using type = Kind<C, HostGroup<TPI>>;
+  static type make(uint32_t rank, Exchange* group, Exchange* warp, int warp_lane) {
+    return type{HostGroup<TPI>{rank, group, warp, warp_lane}};
+  }
+};
+template <class C>
+struct HostKind<GroupWs, C, 1> {
+  using type = LaneWs<C>;
+  static type make(uint32_t, Exchange*, Exchange*, int) { return type{}; }
+};
+template <class C>
+struct HostKind<GroupEd, C, 1> {
+  using type = LaneEd;
+  static type make(uint32_t, Exchange*, Exchange*, int) { return type{}; }
+};
+
+struct HostBlock {
+  int n_groups, gid;
+  Exchange* bar;
+  int groups() const { return n_groups; }
+  int group() const { return gid; }
+  void sync() const { bar->sync(); }
+};
+
+// chain_kernels.cu's pt_fixed_base_kernel: a lane at a time at TPI = 1,
+// else a warp of 32 / TPI lanes at a time (a group past the last lane
+// runs the last lane's work and stores nothing, as on the card).
+template <template <class, class> class Kind, class C, int TPI>
+void fixed_base_lanes(const int32_t* table, const int32_t* k, int32_t* out, int64_t n, int nw,
+                      int window, int klimbs) {
+  using HK = HostKind<Kind, C, TPI>;
+  using K = typename HK::type;
+  if constexpr (TPI == 1) {
+    for (int64_t lane = 0; lane < n; ++lane)
+      fixed_base_lane(K{}, table, k + lane * klimbs, nw, window, out + lane * stored_limbs<K>());
+  } else {
+    constexpr int kGroups = 32 / TPI;
+    for (int64_t lane0 = 0; lane0 < n; lane0 += kGroups) {
+      on_warp<K, TPI>(kGroups, [&](const K& kind, int q) {
+        const int64_t lane = lane0 + q, own = lane < n ? lane : n - 1;
+        fixed_base_lane(kind, table, k + own * klimbs, nw, window,
+                        lane < n ? out + lane * stored_limbs<K>() : nullptr);
+      });
+    }
+  }
+}
+
+// chain_kernels.cu's pt_tree_sum_kernel, a block at a time: `threads`
+// host threads (at most a warp's 32) in groups of TPI, meeting at a
+// barrier for each __syncthreads.
+template <template <class, class> class Kind, class C, int TPI>
+void tree_sum_blocks(const int32_t* src, int64_t sb, int64_t sj, const int32_t* digits,
+                     int64_t dsb, int64_t dsj, int32_t* out, int64_t cols, int64_t m,
+                     int levels, int threads) {
+  using HK = HostKind<Kind, C, TPI>;
+  using K = typename HK::type;
+  const int groups = threads / TPI;
+  const int64_t chunks = ((m - 1) >> levels) + 1;
+  std::vector<uint32_t> words((levels > 0 ? (size_t)1 << (levels - 1) : 1) * point_smem_words<K>());
+  for (int64_t b = 0; b < cols * chunks; ++b) {
+    const int64_t col = b / chunks, chunk = b % chunks, first = chunk << levels;
+    const int64_t rest = m - first, size = (int64_t)1 << levels;
+    const Leaves<K> leaves{src + col * sb + first * sj, sj,
+                           digits != nullptr ? digits + col * dsb + first * dsj : nullptr, dsj};
+    std::vector<Exchange> ex(groups);
+    Exchange warp, bar;
+    warp.threads = bar.threads = groups * TPI;
+    std::vector<std::function<void()>> ts;
+    for (int q = 0; q < groups; ++q) {
+      ex[q].threads = TPI;
+      for (int r = 0; r < TPI; ++r)
+        ts.emplace_back([&, q, r] {
+          const K kind = HK::make((uint32_t)r, &ex[q], &warp, q * TPI + r);
+          tree_block(kind, HostBlock{groups, q, &bar}, words.data(), leaves,
+                     rest < size ? rest : size, levels, out + b * stored_limbs<K>());
+        });
+    }
+    Fibers().run(std::move(ts));
+  }
+}
+
+// Each chained kernel at group size tpi: 1, or where chain_kernels.cu
+// builds a group variant of it (kFixedGroups, kTreeGroups) 2, 4, or on
+// the 8-word fields 8; returns 1 for another size.
+template <template <class, class> class Kind, class C, bool kFixedGroups, bool kTreeGroups>
+struct Chain {
+  template <int TPI>
+  static int run(bool tree, const int32_t* a, int64_t sb, int64_t sj, const int32_t* digits,
+                 int64_t dsb, int64_t dsj, int32_t* out, int64_t n, int64_t m, int levels,
+                 int nw, int window, int klimbs, int threads) {
+    if constexpr (TPI == 1 || kTreeGroups) {
+      if (tree) {
+        tree_sum_blocks<Kind, C, TPI>(a, sb, sj, digits, dsb, dsj, out, n, m, levels, threads);
+        return 0;
+      }
+    }
+    if constexpr (TPI == 1 || kFixedGroups) {
+      if (!tree) {
+        fixed_base_lanes<Kind, C, TPI>(a, digits, out, n, nw, window, klimbs);
+        return 0;
+      }
+    }
+    return 1;
+  }
+  template <class... A>
+  static int at(int tpi, A... args) {
+    if constexpr (!kFixedGroups && !kTreeGroups) return tpi == 1 ? run<1>(args...) : 1;
+    else {
+      switch (tpi) {
+        case 1: return run<1>(args...);
+        case 2: return run<2>(args...);
+        case 4: return run<4>(args...);
+        case 8:
+          if constexpr (C::N % 8 == 0) return run<8>(args...);
+          return 1;
+        default: return 1;
+      }
+    }
+  }
+};
+
+template <class... A>
+int chain_at(int curve, int tpi, A... args) {
+  switch (curve) {
+    case 0: return Chain<GroupWs, Secp256k1, true, false>::at(tpi, args...);
+    case 1: return Chain<GroupWs, Bls12381, true, true>::at(tpi, args...);
+    case 2: return Chain<GroupEd, Edwards25519, false, false>::at(tpi, args...);
     default: return 1;
   }
 }
@@ -457,6 +657,25 @@ int host_pt_ladder_horner(int curve, int tpi, const int32_t* coeffs, int64_t row
     case 2: return ladder_horner_tpi<GroupEd, Edwards25519>(tpi, coeffs, rows, lanes_per_row, x, out, n, T, nbits, staged);
     default: return 1;
   }
+}
+
+// curve: 0 secp256k1, 1 BLS12-381 G1, 2 edwards25519; tpi as Chain::at
+// takes it.  table (nw, 2^window, C, L), k (n, klimbs).
+int host_pt_fixed_base(int curve, int tpi, const int32_t* table, const int32_t* k, int32_t* out,
+                       int64_t n, int nw, int window, int klimbs) {
+  return chain_at(curve, tpi, false, table, (int64_t)0, (int64_t)0, k, (int64_t)0, (int64_t)0, out,
+                  n, (int64_t)0, 0, nw, window, klimbs, 0);
+}
+
+// cols columns of m leaves (column b's leaf j at src + b sb + j sj, with
+// digits under digits + b dsb + j dsj), chunks of 2^levels leaves, blocks
+// of `threads` host threads -> out (cols, chunks, C, L).
+int host_pt_tree_sum(int curve, int tpi, int threads, const int32_t* src, int64_t sb, int64_t sj,
+                     const int32_t* digits, int64_t dsb, int64_t dsj, int32_t* out, int64_t cols,
+                     int64_t m, int levels) {
+  if (threads < tpi || threads > 32 || threads % tpi != 0 || m < 1 || levels < 0) return 1;
+  return chain_at(curve, tpi, true, src, sb, sj, digits, dsb, dsj, out, cols, m, levels, 0, 0, 0,
+                  threads);
 }
 
 }  // extern "C"

@@ -8,7 +8,7 @@ randomizers.  State is struct-of-arrays over all parties at once:
 
 * ``deal`` — commitments A = g·a and E = A + h·b for every dealer's t+1
   coefficients (``fixed_base_mul`` over the g/h window tables, one
-  ``pt_madd`` launch per window), and the n×n share/hiding matrices by
+  ``pt_fixed_base`` launch each), and the n×n share/hiding matrices by
   Horner (``eval_many``, one ``mod_madd_horner`` launch);
 * ``derive_rho`` — per-dealer BLAKE2s Merkle digests of the canonical
   transcript, folded with BLAKE2b, then n BLAKE2b randomizers; on the
@@ -20,11 +20,11 @@ randomizers.  State is struct-of-arrays over all parties at once:
 * ``verify_batch`` — with randomizers rho_j each recipient i checks
   g·(Σ_j rho_j s_ji) + h·(Σ_j rho_j s'_ji) == Σ_l i^l · (Σ_j rho_j E_jl):
   scalar RLCs (``_field_dot``, one ``mod_madd_dot`` launch each), the
-  point RLC by Straus (``pt_add`` table builds and tree sums, one window
-  step per 4-bit window: ``pt_window_step``, or ``pt_double`` then
-  ``pt_add`` on Edwards), by Pippenger (``bucket_accumulate``, then ``pt_add`` bucket
-  closes and window steps) or bit at a time, the right side by point
-  Horner (``eval_point_poly``, one ``pt_ladder_horner`` launch);
+  point RLC by Straus (``pt_add`` table builds, one ``pt_tree_sum`` and
+  one ``pt_window_step`` per 4-bit window), by Pippenger
+  (``bucket_accumulate``, then ``pt_add`` bucket closes and window steps)
+  or bit at a time, the right side by point Horner (``eval_point_poly``,
+  one ``pt_ladder_horner`` launch), the left by two ``pt_fixed_base``;
 * ``verify_pairwise`` — the direct per-(dealer, recipient) check, run
   only when a batch check fails, to assign blame.
 
@@ -51,6 +51,7 @@ from ..groups import device as gd
 from ..groups import host as gh
 from ..groups import precompute as gp
 from ..ops import field_kernels as fk
+from ..ops import point_kernels as pk
 from ..poly import device as pdev
 from .errors import DkgError, DkgErrorKind
 
@@ -139,8 +140,9 @@ def _point_rlc(cs: gd.CurveSpec, weights: torch.Tensor, points: torch.Tensor, nb
     canonical affine form):
 
     * ``"straus"``: windowed Straus (w = 4), per-point 16-entry tables,
-      then per window from the top, gather each point's entry, tree-sum
-      over j, and one window step;
+      then per window from the top, tree-sum each point's entry over j
+      (one ``pt_tree_sum`` launch reading the entries in place), and one
+      window step;
     * ``"pippenger"``: :func:`groups.device.msm_pippenger` with the m axis
       moved to -3 and the weights shared by every column: the points
       scatter into buckets (``bucket_accumulate``), which are closed and
@@ -159,12 +161,10 @@ def _point_rlc(cs: gd.CurveSpec, weights: torch.Tensor, points: torch.Tensor, nb
     acc = gd.identity(cs, points.shape[1:-2], device=points.device)
     if mode == "straus":
         nd = -(-nbits // gd.WINDOW)  # windows that can be non-zero
-        table = gd._build_table(cs, points)  # (m, ..., 16, C, L)
-        digits = gd.scalar_windows(weights, gd.WINDOW)[:, :nd]  # (m, nd)
+        table = gd._build_table(cs, points).movedim(0, -4)  # (..., m, 16, C, L), a view
+        digits = pk.window_digits(weights, gd.WINDOW)[:, :nd]  # (m, nd)
         for d in reversed(range(nd)):
-            dig = digits[:, d].reshape(shape).expand(points.shape[:-2])
-            contribs = gd._gather_table(table, dig)  # (m, ..., C, L)
-            total = gd._tree_reduce(cs, contribs.movedim(0, -3), m)
+            total = pk.pt_tree_sum(cs, table, digits[:, d])  # the entries read in place
             acc = gd.window_step(cs, acc, total, gd.WINDOW)
         return acc
     idx = torch.arange(nbits, device=weights.device)

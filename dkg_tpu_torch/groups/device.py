@@ -6,9 +6,11 @@ batched over the leading axes.  Every formula is complete, so adding the
 identity, adding a point to itself and doubling all take the same
 branchless path.  Point adds go through the kernels of
 ``ops/point_kernels.py`` (CUDA tensors) or their plain versions (CPU
-tensors); the schedules around them (window tables, gathers, tree
-reductions, Horner) are plain PyTorch, in the JAX package's order, so
-the projective coordinates equal the JAX package's limb for limb.
+tensors); the schedules around them (window tables, gathers, bucket
+closes) are plain PyTorch, in the JAX package's order, and the chained
+ones (tree reductions, fixed-base windows, Horner) one kernel each, in
+the same order, so the projective coordinates equal the JAX package's
+limb for limb.
 """
 
 from __future__ import annotations
@@ -147,14 +149,6 @@ def select(pred: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def scalar_windows(k: torch.Tensor, window: int = WINDOW) -> torch.Tensor:
-    """(..., L) scalar limbs -> (..., L * 16/window) little-endian digits;
-    ``window`` divides the 16-bit limb."""
-    shifts = torch.arange(0, 16, window, dtype=torch.int32, device=k.device)
-    digits = (k[..., :, None] >> shifts) & ((1 << window) - 1)
-    return digits.reshape(k.shape[:-1] + (k.shape[-1] * (16 // window),))
-
-
 def n_windows(cs: CurveSpec, window: int = WINDOW) -> int:
     return cs.scalar.limbs * (16 // window)
 
@@ -180,17 +174,12 @@ def _gather_table(table: torch.Tensor, digit: torch.Tensor) -> torch.Tensor:
 
 
 def _tree_reduce(cs: CurveSpec, pts: torch.Tensor, axis_len: int) -> torch.Tensor:
-    """Pairwise point-add reduction over axis -3, padding odd levels with
-    the identity."""
-    m = axis_len
-    while m > 1:
-        if m % 2 == 1:
-            pad = identity(cs, pts.shape[:-3] + (1,), device=pts.device)
-            pts = torch.cat([pts, pad], dim=-3)
-            m += 1
-        pts = add(cs, pts[..., 0::2, :, :], pts[..., 1::2, :, :])
-        m //= 2
-    return pts[..., 0, :, :]
+    """Pairwise point-add reduction over axis -3 (of length ``axis_len``),
+    padding odd levels with the identity: one ``pt_tree_sum`` launch (its
+    plain version, the level loop, on CPU tensors)."""
+    if axis_len != pts.shape[-3]:
+        raise ValueError(f"axis_len {axis_len} is not the length {pts.shape[-3]} of axis -3")
+    return pk.pt_tree_sum(cs, pts)
 
 
 def window_step(cs: CurveSpec, acc: torch.Tensor, entry: torch.Tensor, window: int) -> torch.Tensor:
@@ -221,7 +210,7 @@ def scalar_mul(cs: CurveSpec, k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     batch = k.shape[:-1]
     if p.dim() > 2:
         table = table.expand(batch + table.shape[-3:])
-    digits = scalar_windows(k, WINDOW)  # (..., NW)
+    digits = pk.window_digits(k, WINDOW)  # (..., NW)
     acc = identity(cs, batch, device=p.device)
     for d in reversed(range(digits.shape[-1])):
         acc = window_step(cs, acc, _gather_table(table, digits[..., d]), WINDOW)
@@ -232,19 +221,12 @@ def fixed_base_mul(cs: CurveSpec, table: torch.Tensor, k: torch.Tensor) -> torch
     """Batched k·B for a fixed B: table (NW, 2**w, C, L) of affine entries
     T[w][d] = d·(2**w)^w·B, k (..., L) -> (..., C, L).
 
-    One gathered mixed add per window, no doublings.  A Weierstrass
-    identity entry is stored (0, 1, 0), which the mixed add cannot take,
-    so lanes whose gathered entry has Z = 0 keep their accumulator."""
-    window = int(table.shape[1]).bit_length() - 1
-    digits = scalar_windows(k, window)  # (..., NW)
-    acc = identity(cs, k.shape[:-1], device=k.device)
-    for w in range(table.shape[0]):
-        entry = _gather_table(table[w], digits[..., w])
-        nxt = madd(cs, acc, entry)
-        if cs.kind != "edwards":
-            nxt = select(~fd.is_zero(entry[..., 2, :]), nxt, acc)
-        acc = nxt
-    return acc
+    One gathered mixed add per window, no doublings, all windows in one
+    ``pt_fixed_base`` launch (its plain version, the window loop, on CPU
+    tensors).  A Weierstrass identity entry is stored (0, 1, 0), which the
+    mixed add cannot take, so lanes whose gathered entry has Z = 0 keep
+    their accumulator."""
+    return pk.pt_fixed_base(cs, table, k)
 
 
 def eval_point_poly(cs: CurveSpec, coeffs: torch.Tensor, x: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -281,15 +263,15 @@ def msm(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, mode: str | 
 
 def msm_straus(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Straus shared-doubling MSM: per-point 16-entry tables, then per
-    4-bit window from the top, gather each point's entry, tree-sum the m
-    contributions, and one window step."""
-    m = points.shape[-3]
+    4-bit window from the top, tree-sum each point's entry under its digit
+    (one ``pt_tree_sum`` launch, the entries read in place), and one window
+    step."""
     scalars = scalars.expand(points.shape[:-2] + scalars.shape[-1:])
     tables = _build_table(cs, points)  # (..., m, 16, C, L)
-    digits = scalar_windows(scalars, WINDOW)  # (..., m, NW)
+    digits = pk.window_digits(scalars, WINDOW)  # (..., m, NW)
     acc = identity(cs, points.shape[:-3], device=points.device)
     for d in reversed(range(digits.shape[-1])):
-        total = _tree_reduce(cs, _gather_table(tables, digits[..., d]), m)
+        total = pk.pt_tree_sum(cs, tables, digits[..., d])  # the entries read in place
         acc = window_step(cs, acc, total, WINDOW)
     return acc
 
@@ -336,7 +318,7 @@ def _msm_pippenger_core(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tens
     window = pippenger_window(m, cs.name)
     entries = 1 << window
     nw = min(n_windows(cs, window), -(-nbits // window))
-    digits = scalar_windows(scalars, window)[..., :nw]  # (..., m, nw)
+    digits = pk.window_digits(scalars, window)[..., :nw]  # (..., m, nw)
     buckets = bk.bucket_accumulate(cs, points, digits, window, nw)  # (..., nw, entries, C, L)
     run = tot = identity(cs, batch + (nw,), device=points.device)
     for b in reversed(range(1, entries)):

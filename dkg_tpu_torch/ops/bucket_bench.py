@@ -30,6 +30,7 @@ import torch
 from ..groups import device as gd
 from . import bucket_kernels as bk
 from . import build
+from . import point_kernels as pk
 
 # (curve, columns, m)
 PATHS = (("secp256k1", 342, 1024), ("ristretto255", 86, 256), ("bls12_381_g1", 342, 1024))
@@ -47,7 +48,7 @@ def scatter_inputs(rng, cs, cols: int, m: int):
     rho = rng.integers(0, 1 << 16, size=(m, cs.scalar.limbs))
     rho[:, RHO_BITS // 16:] = 0
     pts = torch.from_numpy(limbs.astype(np.int32)).cuda()
-    digits = gd.scalar_windows(torch.from_numpy(rho.astype(np.int32)).cuda(), window)[:, :nw].contiguous()
+    digits = pk.window_digits(torch.from_numpy(rho.astype(np.int32)).cuda(), window)[:, :nw].contiguous()
     return pts, digits, window, nw
 
 

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu",
-           "bucket_kernels.cu", "bls_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu")
+           "bucket_kernels.cu", "bls_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu", "chain_kernels.cu")
 
 _LOCK = threading.Lock()
 _LIBS: dict[tuple, ctypes.CDLL] = {}
@@ -189,6 +189,12 @@ def rows(t: torch.Tensor, batch: tuple, tail: tuple) -> tuple[torch.Tensor, int]
     if r.data_ptr() % 16:
         r = r.clone()
     return r, per_row
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes (the
+    kernels load a point's limbs four at a time)."""
+    return t.clone(memory_format=torch.contiguous_format) if t.data_ptr() % 16 else t
 
 
 def lanes(operands: list, out_tail: tuple) -> tuple[list, torch.Tensor, int]:

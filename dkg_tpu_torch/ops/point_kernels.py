@@ -1,7 +1,9 @@
 """Point kernels: ``pt_add``, ``pt_madd``, ``pt_double``,
-``pt_window_step``, ``pt_ladder_mul_add`` and ``pt_ladder_horner`` (the
+``pt_window_step``, ``pt_ladder_mul_add``, ``pt_ladder_horner`` (the
 whole point Horner of ``groups.device.eval_point_poly`` in one launch),
-with their plain PyTorch versions.
+``pt_fixed_base`` (every window of ``groups.device.fixed_base_mul`` in one
+launch) and ``pt_tree_sum`` (a whole ``groups.device._tree_reduce`` in
+one launch), with their plain PyTorch versions.
 
 Counterpart of ``dkg_tpu/ops/pallas_point.py``.  Points are int32 limb
 tensors of shape ``(..., C, L)``: C projective coordinates (3 for short
@@ -10,8 +12,9 @@ Weierstrass a = 0, 4 for extended Edwards) of L 16-bit limbs (16, or
 of its curve: secp256k1's in ``csrc/point_kernels.cu``, edwards25519's
 (ristretto255) in ``csrc/edwards_kernels.cu``, ``pt_double`` for both in
 ``csrc/double_kernels.cu``, and every BLS12-381 G1 kernel in
-``csrc/bls_kernels.cu``, and ``pt_ladder_horner`` for all three in
-``csrc/ladder_kernels.cu``; a curve with no kernel raises.  On a CPU
+``csrc/bls_kernels.cu``, ``pt_ladder_horner`` for all three in
+``csrc/ladder_kernels.cu``, and ``pt_fixed_base`` and ``pt_tree_sum`` for
+all three in ``csrc/chain_kernels.cu``; a curve with no kernel raises.  On a CPU
 tensor it runs the plain version below.  The plain versions are the
 formulas of the JAX package's ``groups/device.py`` (RCB15 algorithms 7,
 8 and 9 for Weierstrass, HWCD add and doubling for Edwards) in the same
@@ -60,10 +63,22 @@ _LAD = "ladder_kernels.cu"
 PT_LADDER_HORNER = build.Kernel("pt_ladder_horner", _LAD, "dkg_pt_ladder_horner", _HORNER)
 ED_PT_LADDER_HORNER = build.Kernel("pt_ladder_horner[edwards]", _LAD, "dkg_ed_pt_ladder_horner", _HORNER)
 BLS_PT_LADDER_HORNER = build.Kernel("pt_ladder_horner[bls12_381]", _LAD, "dkg_bls_pt_ladder_horner", _HORNER)
+# the chained kernels: (table, k, out, n, nw, window, klimbs, group) and
+# (src, sb, sj, digits, dsb, dsj, out, cols, m, levels, group)
+_CHAIN = "chain_kernels.cu"
+_FIXED = [_P, _P, _P, _I, _INT, _INT, _INT, _INT, _P]
+_TREE = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _INT, _INT, _P]
+PT_FIXED_BASE = build.Kernel("pt_fixed_base", _CHAIN, "dkg_pt_fixed_base", _FIXED)
+ED_PT_FIXED_BASE = build.Kernel("pt_fixed_base[edwards]", _CHAIN, "dkg_ed_pt_fixed_base", _FIXED)
+BLS_PT_FIXED_BASE = build.Kernel("pt_fixed_base[bls12_381]", _CHAIN, "dkg_bls_pt_fixed_base", _FIXED)
+PT_TREE_SUM = build.Kernel("pt_tree_sum", _CHAIN, "dkg_pt_tree_sum", _TREE)
+ED_PT_TREE_SUM = build.Kernel("pt_tree_sum[edwards]", _CHAIN, "dkg_ed_pt_tree_sum", _TREE)
+BLS_PT_TREE_SUM = build.Kernel("pt_tree_sum[bls12_381]", _CHAIN, "dkg_bls_pt_tree_sum", _TREE)
 KERNELS = (PT_ADD, PT_MADD, PT_WINDOW_STEP, PT_LADDER_MUL_ADD,
            ED_PT_ADD, ED_PT_MADD, ED_PT_WINDOW_STEP, ED_PT_LADDER_MUL_ADD, PT_DOUBLE, ED_PT_DOUBLE,
            BLS_PT_ADD, BLS_PT_MADD, BLS_PT_DOUBLE, BLS_PT_WINDOW_STEP, BLS_PT_LADDER_MUL_ADD,
-           PT_LADDER_HORNER, ED_PT_LADDER_HORNER, BLS_PT_LADDER_HORNER)
+           PT_LADDER_HORNER, ED_PT_LADDER_HORNER, BLS_PT_LADDER_HORNER,
+           PT_FIXED_BASE, ED_PT_FIXED_BASE, BLS_PT_FIXED_BASE, PT_TREE_SUM, ED_PT_TREE_SUM, BLS_PT_TREE_SUM)
 
 # The curves the kernels cover, by (kind, base field, curve constant): the
 # constants (b3 = 21 and 12, 2d) are compiled into csrc/point.cuh and
@@ -79,7 +94,27 @@ _VARIANTS = {
                           _BLS_KEY: BLS_PT_LADDER_MUL_ADD},
     "pt_double": {_WS_KEY: PT_DOUBLE, _ED_KEY: ED_PT_DOUBLE, _BLS_KEY: BLS_PT_DOUBLE},
     "pt_ladder_horner": {_WS_KEY: PT_LADDER_HORNER, _ED_KEY: ED_PT_LADDER_HORNER, _BLS_KEY: BLS_PT_LADDER_HORNER},
+    "pt_fixed_base": {_WS_KEY: PT_FIXED_BASE, _ED_KEY: ED_PT_FIXED_BASE, _BLS_KEY: BLS_PT_FIXED_BASE},
+    "pt_tree_sum": {_WS_KEY: PT_TREE_SUM, _ED_KEY: ED_PT_TREE_SUM, _BLS_KEY: BLS_PT_TREE_SUM},
 }
+# The chained kernels' lane rules.  A lane runs on one thread or, on the
+# curves where csrc/chain_kernels.cu builds a group variant of the kernel
+# (its DKG_CHAIN_TPI_* set the sizes), below a count of lanes (or
+# columns) on a group of threads; a curve missing here has no group
+# variant, and a group asked of one raises.
+# pt_fixed_base: below 2**15 lanes on secp256k1 and BLS12-381 (one thread
+# a lane leaves most of the card idle at the verifier's 1024 lanes; from
+# 2**15 on, one thread a lane needs no Montgomery conversion); on
+# edwards25519 one thread a lane was as fast at 256 lanes.  pt_tree_sum:
+# one thread a lane was faster at a Straus window's 342 and 86 columns on
+# every curve and at the master key's one column on the 8-word fields; on
+# BLS12-381 one column (one block: its 1023 adds' latency) went faster on
+# groups of 4 (ops/chain_bench.py; PERF.md has the table).
+FIXED_BASE_GROUP_BELOW = {_WS_KEY: 1 << 15, _BLS_KEY: 1 << 15}
+TREE_GROUP_BELOW = {_BLS_KEY: 2}
+# pt_tree_sum: leaves a block sums at most (2^TREE_CHUNK_LOG); a longer
+# column sums aligned chunks of that many, then their tops.
+TREE_CHUNK_LOG = 10
 
 
 def kernel_for(op: str, cs) -> build.Kernel:
@@ -258,6 +293,60 @@ def pt_ladder_mul_add_plain(cs, p, addend, x, nbits: int):
     return pt_add_plain(cs, acc, addend)
 
 
+def window_digits(k, window: int):
+    """(..., L) scalar limbs -> (..., L * 16/window) little-endian digits;
+    ``window`` divides the 16-bit limb."""
+    shifts = torch.arange(0, 16, window, dtype=torch.int32, device=k.device)
+    digits = (k[..., :, None] >> shifts) & ((1 << window) - 1)
+    return digits.reshape(k.shape[:-1] + (k.shape[-1] * (16 // window),))
+
+
+def pt_fixed_base_plain(cs, table, k, madd=pt_madd_plain):
+    """k·B for a fixed B: one gathered mixed add per window of the affine
+    table (NW, 2**w, C, L), no doublings; on Weierstrass curves a gathered
+    entry with Z = 0 (the identity, which the mixed add cannot take) keeps
+    the accumulator.  ``madd`` (cs, p, q) is the step: given ``pt_madd``,
+    this loop is the kernel's one-step route."""
+    window = int(table.shape[1]).bit_length() - 1
+    digits = window_digits(k, window)
+    acc = identity_plain(cs, k.shape[:-1], k.device)
+    for w in range(table.shape[0]):
+        entry = table[w][digits[..., w].long()]
+        nxt = madd(cs, acc, entry)
+        if cs.kind != "edwards":
+            nxt = torch.where(fd.is_zero(entry[..., 2, :])[..., None, None], acc, nxt)
+        acc = nxt
+    return acc
+
+
+def _gather_entries(tables, digits):
+    """tables (..., m, E, C, L), digits broadcast to (..., m) ->
+    (..., m, C, L): entry digits[..., j] of point j's table."""
+    batch = torch.broadcast_shapes(tables.shape[:-3], digits.shape)
+    idx = digits.long().expand(batch)[..., None, None, None].expand(batch + (1,) + tables.shape[-2:])
+    return torch.gather(tables.expand(batch + tables.shape[-3:]), -3, idx)[..., 0, :, :]
+
+
+def pt_tree_sum_plain(cs, pts, digits=None, add=pt_add_plain):
+    """The pairwise add tree over axis -3 of pts (..., m, C, L), the
+    identity appended at each odd level; with ``digits``, over the entries
+    ``pts[..., j, digits[..., j]]`` of per-point tables (..., m, E, C, L).
+    ``add`` (cs, p, q) is the step: given ``pt_add``, this loop is the
+    kernel's one-step route."""
+    if digits is not None:
+        pts = _gather_entries(pts, digits)
+    m = pts.shape[-3]
+    if m < 1:
+        raise ValueError("pt_tree_sum needs at least one point")
+    while m > 1:
+        if m % 2 == 1:
+            pts = torch.cat([pts, identity_plain(cs, pts.shape[:-3] + (1,), pts.device)], dim=-3)
+            m += 1
+        pts = add(cs, pts[..., 0::2, :, :], pts[..., 1::2, :, :])
+        m //= 2
+    return pts[..., 0, :, :]
+
+
 def pt_ladder_horner_plain(cs, coeffs, x, nbits: int):
     """T one-step plain ladders: acc <- x·acc + C_l from the top, from the
     identity."""
@@ -354,3 +443,106 @@ def pt_ladder_horner(cs, coeffs: torch.Tensor, x: torch.Tensor, nbits: int) -> t
         kernel(rows.data_ptr(), len(rows), per_row, xs.data_ptr(), out.data_ptr(), n, T, nbits,
                build.stream_ptr(dev))
     return out
+
+
+def fixed_base_group(cs, lanes: int) -> bool:
+    """Whether pt_fixed_base's call over ``lanes`` lanes spreads a lane
+    over a group of threads."""
+    return lanes < FIXED_BASE_GROUP_BELOW.get((cs.kind, cs.field.name, cs.const), 0)
+
+
+def tree_group(cs, columns: int) -> bool:
+    """Whether pt_tree_sum's call over ``columns`` columns spreads a lane
+    over a group of threads."""
+    return columns < TREE_GROUP_BELOW.get((cs.kind, cs.field.name, cs.const), 0)
+
+
+def pt_fixed_base(cs, table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k·B for a fixed B in one launch: table (NW, 2**w, C, L) affine
+    entries T[w][d] = d·2**(w·j)·B (w divides 16), k (..., L) scalar limbs
+    -> (..., C, L), equal to NW gathered ``pt_madd`` steps from the
+    identity.  A lane runs on one thread or a group by
+    :func:`fixed_base_group`."""
+    if k.device.type == "cpu":
+        return pt_fixed_base_plain(cs, table, k)
+    kernel = kernel_for("pt_fixed_base", cs)
+    point = (cs.ncoords, cs.field.limbs)
+    if table.dim() != 4:
+        raise ValueError(f"pt_fixed_base takes a table (NW, 2**w, C, L), got {tuple(table.shape)}")
+    nw, entries = table.shape[:2]
+    window = entries.bit_length() - 1
+    if entries != 1 << window or window < 1 or 16 % window or nw * window > 16 * k.shape[-1]:
+        raise ValueError(f"pt_fixed_base: a table of {nw} windows of {entries} entries does not fit "
+                         f"{k.shape[-1]}-limb scalars")
+    dev = build.check_operands([(table, (nw, entries) + point), (k, (k.shape[-1],))])
+    tab = build.aligned(table.contiguous())
+    ks = k.reshape(-1, k.shape[-1]).contiguous()
+    out = torch.empty(k.shape[:-1] + point, dtype=torch.int32, device=dev)
+    n = ks.shape[0]
+    if n:
+        kernel(tab.data_ptr(), ks.data_ptr(), out.data_ptr(), n, nw, window, ks.shape[-1],
+               int(fixed_base_group(cs, n)), build.stream_ptr(dev))
+    return out
+
+
+def tree_levels(m: int, chunk_log: int) -> int:
+    """Levels of pt_tree_sum's first launch over m points: the whole tree
+    (ceil(log2 m)) where it fits a block, else chunk_log."""
+    return min((m - 1).bit_length(), chunk_log)
+
+
+def _strided(t: torch.Tensor, tail: tuple) -> torch.Tensor:
+    """t (cols, m, *tail) as the kernel reads it: tail contiguous, the two
+    leading strides free, 16-byte aligned points."""
+    want = torch.empty(tail).stride()
+    if tuple(t.stride()[2:]) != want or any(s % 4 for s in t.stride()[:2]):
+        t = t.contiguous()
+    return build.aligned(t)
+
+
+def pt_tree_sum(cs, pts: torch.Tensor, digits: torch.Tensor | None = None) -> torch.Tensor:
+    """The pairwise add tree of ``groups.device._tree_reduce`` over axis -3
+    in one launch (two where a column has more than 2**TREE_CHUNK_LOG
+    points): pts (..., m, C, L) -> (..., C, L).  With ``digits`` (..., m),
+    pts are per-point tables (..., m, E, C, L) and the tree sums entry
+    digits[..., j] of each, read in place (digits in [0, E)).  Strided views
+    are read as they are; a lane runs on one thread or a group by
+    :func:`tree_group`."""
+    if pts.device.type == "cpu":
+        return pt_tree_sum_plain(cs, pts, digits)
+    kernel = kernel_for("pt_tree_sum", cs)
+    point = (cs.ncoords, cs.field.limbs)
+    tail = point if digits is None else (pts.shape[-3],) + point
+    if pts.dim() < len(tail) + 1:
+        raise ValueError(f"pt_tree_sum takes points (..., m, C, L), got {tuple(pts.shape)}")
+    lead = pts.shape[: pts.dim() - len(tail)]
+    dev = build.check_operands([(pts, tail)] + ([] if digits is None else [(digits.to(torch.int32), ())]))
+    batch = lead if digits is None else torch.broadcast_shapes(lead, digits.shape)
+    m = batch[-1]
+    if m < 1:
+        raise ValueError("pt_tree_sum needs at least one point")
+    src = _strided(pts.expand(batch + tail).reshape((-1, m) + tail), tail)
+    dig = None if digits is None else digits.to(torch.int32).expand(batch).reshape(-1, m)
+    group, stream = int(tree_group(cs, src.shape[0])), build.stream_ptr(dev)
+    out = tree_sum_passes(lambda *args: kernel(*args, group, stream), src, dig, point, TREE_CHUNK_LOG)
+    return out.reshape(batch[:-1] + point)
+
+
+def tree_sum_passes(launch, src, dig, point: tuple, chunk_log: int) -> torch.Tensor:
+    """pt_tree_sum's launches over src (cols, m, ...) (with dig (cols, m),
+    table entries): ``launch(src, sb, sj, digits, dsb, dsj, out, cols, m,
+    levels)`` (pointers and strides in int32 words) sums each column's
+    aligned chunks of 2**levels points into out (cols, chunks, *point);
+    while there is more than one chunk, their tops are summed the same way.
+    Returns (cols, *point)."""
+    cols, m = src.shape[:2]
+    levels = tree_levels(m, chunk_log)
+    chunks = ((m - 1) >> levels) + 1
+    out = torch.empty((cols, chunks) + point, dtype=torch.int32, device=src.device)
+    if cols:
+        launch(src.data_ptr(), src.stride(0), src.stride(1), None if dig is None else dig.data_ptr(),
+               0 if dig is None else dig.stride(0), 0 if dig is None else dig.stride(1),
+               out.data_ptr(), cols, m, levels)
+    if chunks == 1:
+        return out[:, 0]
+    return tree_sum_passes(launch, out, None, point, chunk_log)

@@ -123,6 +123,15 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: fk.mod_madd_dot(L25519, _meta((4, 16)), _meta((4, 5, 16))),
     lambda: fk.mod_madd_dot(BLS12_381_R, _meta((4, 16)), _meta((4, 5, 16))),
     lambda: tce._field_dot(BLS12_381_R, _meta((4, 16)), _meta((4, 5, 16))),
+    lambda: pk.pt_fixed_base(tgd.SECP256K1, _meta((32, 256, 3, 16)), _meta((4, 16))),
+    lambda: pk.pt_fixed_base(ED, _meta((32, 256, 4, 16)), _meta((4, 16))),
+    lambda: pk.pt_fixed_base(BLS, _meta((32, 256, 3, 24)), _meta((4, 16))),
+    lambda: tgd.fixed_base_mul(BLS, _meta((32, 256, 3, 24)), _meta((2, 3, 16))),
+    lambda: pk.pt_tree_sum(tgd.SECP256K1, _meta((2, 5, 3, 16))),
+    lambda: pk.pt_tree_sum(ED, _meta((2, 5, 16, 4, 16)), _meta((5,))),
+    lambda: pk.pt_tree_sum(BLS, _meta((5, 3, 24))),
+    lambda: tgd._tree_reduce(BLS, _meta((2, 5, 3, 24)), 5),
+    lambda: tgd.msm_straus(ED, _meta((5, 16)), _meta((2, 5, 4, 16))),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -133,7 +142,9 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "bls_scalar_mul", "ed_kem_batch", "kem_batch", "ed_encode_batch", "bls_encode_batch",
         "pt_ladder_horner", "ed_pt_ladder_horner", "bls_pt_ladder_horner", "bls_eval_point_poly",
         "mod_madd_horner", "mod_madd_horner_ed", "mod_madd_horner_bls", "mod_madd_dot", "mod_madd_dot_ed",
-        "mod_madd_dot_bls", "bls_field_dot"])
+        "mod_madd_dot_bls", "bls_field_dot", "pt_fixed_base", "ed_pt_fixed_base", "bls_pt_fixed_base",
+        "bls_fixed_base_mul", "pt_tree_sum", "ed_pt_tree_sum_gathered", "bls_pt_tree_sum", "bls_tree_reduce",
+        "ed_msm_straus"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -150,8 +161,11 @@ def test_wrappers_raise_instead_of_falling_back(call):
     lambda: pk.pt_ladder_horner(tgd.SECP256K1, _meta((3, 1, 16)), _meta((4,)), 3),
     lambda: fk.mod_madd_horner(SECP256K1_N, _meta((3, 1)), _meta((4, 16))),
     lambda: fk.mod_madd_dot(SECP256K1_N, _meta((4, 16)), _meta((4, 5, 1))),
+    lambda: pk.pt_fixed_base(tgd.SECP256K1, _meta((32, 256, 1, 16)), _meta((4, 16))),
+    lambda: pk.pt_tree_sum(tgd.SECP256K1, _meta((2, 5, 1, 16))),
+    lambda: pk.pt_tree_sum(tgd.SECP256K1, _meta((2, 5, 16, 1, 16)), _meta((2, 5))),
 ], ids=["limbs", "coords", "too_few_axes", "bucket_coords", "bucket_digits", "horner_coords", "horner_limbs",
-        "dot_limbs"])
+        "dot_limbs", "fixed_base_coords", "tree_coords", "tree_table_coords"])
 def test_wrappers_reject_operands_of_the_wrong_shape(call):
     """A tail that would broadcast (a size-1 limb or coordinate axis)
     is refused before any pointer reaches a kernel."""
@@ -171,7 +185,8 @@ def test_unported_variants_raise():
     assert pk.kernel_for("pt_window_step", ED).source == "edwards_kernels.cu"
     with pytest.raises(NotImplementedError, match="pt_window_step"):
         pk.pt_window_step(other, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
-    for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner"):
+    for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner",
+               "pt_fixed_base", "pt_tree_sum"):
         with pytest.raises(NotImplementedError, match=op):
             pk.kernel_for(op, other)
     with pytest.raises(NotImplementedError):
@@ -180,7 +195,8 @@ def test_unported_variants_raise():
         with pytest.raises(NotImplementedError, match="bucket_accumulate"):
             bk.bucket_accumulate(cs, _meta((2, 5, cs.ncoords, cs.field.limbs)), _meta((5, 3)), 4, 3)
     for cs in (L24_B3, L24_P):
-        for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner"):
+        for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner",
+                   "pt_fixed_base", "pt_tree_sum"):
             with pytest.raises(NotImplementedError, match=op):
                 pk.kernel_for(op, cs)
         with pytest.raises(NotImplementedError):
@@ -193,6 +209,10 @@ def test_unported_variants_raise():
         fk.mod_madd_dot(L24_P.field, _meta((2, 24)), _meta((2, 3, 24)))
     with pytest.raises(NotImplementedError, match="pt_ladder_horner"):
         pk.pt_ladder_horner(other, _meta((3, 4, 16)), _meta((2,)), 3)
+    with pytest.raises(NotImplementedError, match="pt_fixed_base"):
+        pk.pt_fixed_base(other, _meta((32, 256, 4, 16)), _meta((2, 16)))
+    with pytest.raises(NotImplementedError, match="pt_tree_sum"):
+        pk.pt_tree_sum(L24_P, _meta((2, 5, 3, 24)))
     with pytest.raises(ValueError, match="window"):
         bk.bucket_accumulate(ED, _meta((2, 5, 4, 16)), _meta((5, 1)), 16, 1)
     with pytest.raises(NotImplementedError):
@@ -209,8 +229,10 @@ def test_unported_variants_raise():
     assert bk.kernel_for(tgd.SECP256K1) is bk.BUCKET_ACCUMULATE
     assert bk.kernel_for(BLS) is bk.BLS_BUCKET_ACCUMULATE
     assert pk.kernel_for("pt_double", BLS) is pk.BLS_PT_DOUBLE
-    assert {pk.kernel_for(op, BLS).source for op in pk._VARIANTS if op != "pt_ladder_horner"} == {"bls_kernels.cu"}
-    assert pk.kernel_for("pt_ladder_horner", BLS).source == "ladder_kernels.cu"
+    chained = {"pt_ladder_horner": "ladder_kernels.cu", "pt_fixed_base": "chain_kernels.cu",
+               "pt_tree_sum": "chain_kernels.cu"}
+    assert {pk.kernel_for(op, BLS).source for op in pk._VARIANTS if op not in chained} == {"bls_kernels.cu"}
+    assert all(pk.kernel_for(op, BLS).source == src for op, src in chained.items())
     for cs in (ED, tgd.SECP256K1, BLS):
         assert all(pk.kernel_for(op, cs) in pk.KERNELS for op in pk._VARIANTS)
 
