@@ -40,7 +40,19 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    edges: digit-0 windows and the identity's table at 2**16 and 1000
    lanes, m in {1, 2, 3, 5, 1000} over 4 columns and over one, direct and
    gathered (1000 lanes and one column run in a group where the curve's
-   kernel has one), and m past the chunk cap (two launches).
+   kernel has one), and m past the chunk cap (two launches).  And so are
+   the two one-launch kernels of the canonical affine form and the KEM:
+   mod_batch_inv (a whole Montgomery-trick batch inversion, at the
+   ceremony's commitments laid out as affine_canon lays them and at a
+   default seal chunk's 4096 KEM points, against the JAX package's 256-row
+   chain of mod_mul launches; edges: 1, p - 1, 2, p - 2, a repeated
+   element, a zero column, k = 1) and pt_scalar_mul (every window of
+   scalar_mul, at the seal's n * n KEM lanes over the recipients' tables
+   read in place, at a default seal chunk's 4096 KEM lanes and at a
+   recipient's n opens, against 64 gathered
+   pt_window_step launches; edges: k = 0, 1, order - 1, zero digit
+   windows, the identity, a table a lane, one shared table, a table a
+   recipient).
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
    be > 0, and eval_point_poly, eval_many and _field_dot one launch each
@@ -49,7 +61,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    pt_fixed_base (4; pt_madd 0), each tree reduction one pt_tree_sum
    (Straus: 32 windows and the master key, 33; Pippenger: 1) and pt_add
    the table build, E and the left side (16; Pippenger adds its bucket
-   closes, 2 (2**c - 1)):
+   closes, 2 (2**c - 1)), pt_window_step one a window of the point RLC
+   (32; Pippenger 128 / c), each canonical affine form one mod_batch_inv
+   (2) and its coordinates' mod_mul (4, 6 on ristretto255, with gd.eq's
+   4 more; under mul="gemm" no mod_batch_inv and the JAX package's
+   mxu_mod_mul chain, 2540 / 2548 / 2750):
    - BatchedCeremony("secp256k1", 1024, 341) (BASELINE.md config 3);
    - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2);
    - BatchedCeremony("bls12_381_g1", 1024, 341) (BASELINE.md config 5,
@@ -79,9 +95,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    against the host ladder, the batch DEM against the per-pair leg on
    min(n, 4096 // n) dealers, recipients 1, n and two others opening
    every dealer's share and hiding, a tampered ciphertext not opening to
-   its share, and no plain multiply on the card; the unchunked seal
-   launches exactly 1 pt_fixed_base (c1), 0 pt_madd and 14 pt_add (the
-   KEM's table build).
+   its share, and no plain multiply on the card; each chunk of a seal
+   (one unchunked) launches exactly 1 pt_fixed_base (c1), 0 pt_madd, 14
+   pt_add (the KEM's table build), 1 pt_scalar_mul and 0 pt_window_step
+   (the KEM), 1 mod_batch_inv and 2 mod_mul (3 on ristretto255: the KEM
+   points' canonical affine form).
 6. On each Straus path's tensors: the point RLC D of verify_batch under
    the three schedules (straus, bits, pippenger), equal in canonical
    affine form and timed; and the verify phase under Straus and under
@@ -173,43 +191,67 @@ class Path:
         pt_tree_sum a Straus window (RHO_BITS / 4 of them) and one for the
         master key; pt_add the 14 table adds, E = A + B and the left side,
         or under Pippenger E, the left side and the 2 (2**c - 1) bucket
-        closes."""
+        closes; pt_window_step one a window of the point RLC; the digest's
+        two canonical affine forms (:func:`canon_launches`) and gd.eq's four
+        mod_mul."""
         cs = self.cs
+        canon = canon_launches(cs, self.mul, 2)  # the digest's A and E
+        mul = fk.mul_kernel_for(cs.field).name
+        canon[mul] = canon.get(mul, 0) + 4  # and verify_batch's gd.eq, four products
         if self.rlc == "straus":
-            trees, adds = -(-RHO_BITS // gd.WINDOW) + 1, 14 + 2
+            trees, adds, steps = -(-RHO_BITS // gd.WINDOW) + 1, 14 + 2, -(-RHO_BITS // gd.WINDOW)
         else:
-            trees, adds = 1, 2 * ((1 << gd.pippenger_window(self.n, cs.name)) - 1) + 2
+            c = gd.pippenger_window(self.n, cs.name)
+            trees, adds, steps = 1, 2 * ((1 << c) - 1) + 2, -(-RHO_BITS // c)
         return {pk.kernel_for("pt_ladder_horner", cs).name: 1, fk.horner_kernel_for(cs.scalar).name: 2,
                 fk.dot_kernel_for(cs.scalar).name: 2, pk.kernel_for("pt_ladder_mul_add", cs).name: 0,
                 fk._FIELDS[cs.scalar][0].name: 0, pk.kernel_for("pt_fixed_base", cs).name: 4,
                 pk.kernel_for("pt_madd", cs).name: 0, pk.kernel_for("pt_tree_sum", cs).name: trees,
-                pk.kernel_for("pt_add", cs).name: adds}
+                pk.kernel_for("pt_add", cs).name: adds, pk.kernel_for("pt_window_step", cs).name: steps, **canon}
 
     def verify_kernels(self) -> tuple:
         """The path's kernels that its verify phase launches: all but the
-        deal's field Horner, and under Pippenger the tree sum (the master
-        key's, in the finalise phase)."""
-        skip = {fk.horner_kernel_for(self.cs.scalar)}
+        deal's field Horner and the digest's batch inversion, and under
+        Pippenger the tree sum (the master key's, in the finalise phase)."""
+        skip = {fk.horner_kernel_for(self.cs.scalar), fk.batch_inv_kernel_for(self.cs.field)}
         if self.rlc == "pippenger":
             skip.add(pk.kernel_for("pt_tree_sum", self.cs))
         return tuple(k for k in self.kernels if k not in skip)
 
     def gemm(self) -> Path:
         """The same ceremony with the canonical affine form's multiplies
-        through mxu_mod_mul, which adds the base field's mxu kernel (point
-        equality keeps mod_mul's)."""
-        return dataclasses.replace(self, mul="gemm", kernels=self.kernels + (mk.kernel_for(self.cs.field),))
+        through mxu_mod_mul, which adds the base field's mxu kernel and
+        drops mod_batch_inv (point equality keeps mod_mul's)."""
+        inv = fk.batch_inv_kernel_for(self.cs.field)
+        return dataclasses.replace(self, mul="gemm", kernels=tuple(k for k in self.kernels if k is not inv)
+                                   + (mk.kernel_for(self.cs.field),))
+
+
+def canon_launches(cs, mul: str, calls: int) -> dict:
+    """Launches of ``calls`` affine_canon calls over more than 256 lanes:
+    under "classic" one mod_batch_inv each and the affine coordinates'
+    mod_mul (x·zi, y·zi, and on Edwards t = x·y); under "gemm" the JAX
+    package's chain down 256 rows, each multiply one mxu_mod_mul (255
+    forward, pow_const's square-and-multiply of p - 2, 510 backward) and
+    the coordinates', and no mod_batch_inv."""
+    F = cs.field
+    coords = 3 if cs.kind == "edwards" else 2
+    if mul == "classic":
+        return {fk.batch_inv_kernel_for(F).name: calls, fk.mul_kernel_for(F).name: coords * calls}
+    e = F.modulus - 2
+    chain = 3 * (gd.GEMM_INV_ROWS - 1) + e.bit_length() - 1 + bin(e).count("1") - 1
+    return {fk.batch_inv_kernel_for(F).name: 0, mk.kernel_for(F).name: (chain + coords) * calls}
 
 
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
-            (fk.MOD_MADD_HORNER, fk.MOD_MADD_DOT, fk.MOD_MUL, pk.PT_ADD, pk.PT_FIXED_BASE, pk.PT_TREE_SUM,
-             pk.PT_WINDOW_STEP, pk.PT_LADDER_HORNER))
+            (fk.MOD_MADD_HORNER, fk.MOD_MADD_DOT, fk.MOD_MUL, fk.MOD_BATCH_INV, pk.PT_ADD, pk.PT_FIXED_BASE,
+             pk.PT_TREE_SUM, pk.PT_WINDOW_STEP, pk.PT_LADDER_HORNER))
 R255 = Path("ristretto255", 256, 85, b"chip-smoke-r255",  # BASELINE.md config 2
-            (fk.MOD_MADD_HORNER_ED, fk.MOD_MADD_DOT_ED, fk.MOD_MUL_ED, pk.ED_PT_ADD, pk.ED_PT_FIXED_BASE,
-             pk.ED_PT_TREE_SUM, pk.ED_PT_WINDOW_STEP, pk.ED_PT_LADDER_HORNER))
+            (fk.MOD_MADD_HORNER_ED, fk.MOD_MADD_DOT_ED, fk.MOD_MUL_ED, fk.MOD_BATCH_INV_ED, pk.ED_PT_ADD,
+             pk.ED_PT_FIXED_BASE, pk.ED_PT_TREE_SUM, pk.ED_PT_WINDOW_STEP, pk.ED_PT_LADDER_HORNER))
 BLS = Path("bls12_381_g1", 1024, 341, b"chip-smoke-bls",  # BASELINE.md config 5 at config 3's n, t
-           (fk.MOD_MADD_HORNER_BLS, fk.MOD_MADD_DOT_BLS, fk.MOD_MUL_BLS, pk.BLS_PT_ADD, pk.BLS_PT_FIXED_BASE,
-            pk.BLS_PT_TREE_SUM, pk.BLS_PT_WINDOW_STEP, pk.BLS_PT_LADDER_HORNER))
+           (fk.MOD_MADD_HORNER_BLS, fk.MOD_MADD_DOT_BLS, fk.MOD_MUL_BLS, fk.MOD_BATCH_INV_BLS, pk.BLS_PT_ADD,
+            pk.BLS_PT_FIXED_BASE, pk.BLS_PT_TREE_SUM, pk.BLS_PT_WINDOW_STEP, pk.BLS_PT_LADDER_HORNER))
 PATHS = (SECP, R255, BLS)
 # paths that also split the fiat_shamir phase's two legs and run once more
 # under the profiler; the earlier paths skip those repeated passes (never
@@ -299,6 +341,12 @@ SOURCES = {
     "pt_tree_sum": ("chain_kernels.cu", PDIR + ":258"),
     "pt_tree_sum[edwards]": ("chain_kernels.cu", PDIR + ":258"),
     "pt_tree_sum[bls12_381]": ("chain_kernels.cu", PDIR + ":258"),
+    "pt_scalar_mul": ("chain_kernels.cu", PDIR + ":328"),
+    "pt_scalar_mul[edwards]": ("chain_kernels.cu", PDIR + ":328"),
+    "pt_scalar_mul[bls12_381]": ("chain_kernels.cu", PDIR + ":328"),
+    "mod_batch_inv": ("inv_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
+    "mod_batch_inv[ed25519]": ("inv_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
+    "mod_batch_inv[bls12_381]": ("inv_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
 }
 # ptxas's entries of each multi-step kernel, by label: every string must
 # be in the mangled name, and none that starts with "!" (the field
@@ -316,12 +364,17 @@ PTXAS_ENTRIES = {
     "mod_madd_dot": {"": ("mod_madd_dot_kernel", "ILi1E")},
     "mod_madd_dot[ed25519]": {"": ("mod_madd_dot_kernel", "ILi3E")},
     "mod_madd_dot[bls12_381]": {"": ("mod_madd_dot_kernel", "ILi5E")},
+    "mod_batch_inv": {"": ("mod_batch_inv_kernel", "ILi0E")},
+    "mod_batch_inv[ed25519]": {"": ("mod_batch_inv_kernel", "ILi2E")},
+    "mod_batch_inv[bls12_381]": {"": ("mod_batch_inv_kernel", "ILi4E")},
     **{f"{op}{suffix}": {"one thread": (f"{op}_kernel", tag, "Li1EEEv"),
                          **({"group": (f"{op}_kernel", tag, "!Li1EEEv")} if group else {})}
        for op, suffix, tag, group in (
            ("pt_fixed_base", "", "Secp256k1", True), ("pt_fixed_base", "[edwards]", "Edwards25519", False),
            ("pt_fixed_base", "[bls12_381]", "Bls12381", True), ("pt_tree_sum", "", "Secp256k1", False),
-           ("pt_tree_sum", "[edwards]", "Edwards25519", False), ("pt_tree_sum", "[bls12_381]", "Bls12381", True))},
+           ("pt_tree_sum", "[edwards]", "Edwards25519", False), ("pt_tree_sum", "[bls12_381]", "Bls12381", True),
+           ("pt_scalar_mul", "", "Secp256k1", True), ("pt_scalar_mul", "[edwards]", "Edwards25519", True),
+           ("pt_scalar_mul", "[bls12_381]", "Bls12381", True))},
 }
 KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS, *mk.KERNELS)
 
@@ -422,6 +475,13 @@ def rand_field(rng, fs, batch: tuple, operand: int | None = 0) -> torch.Tensor:
             j = (i // e, i % e)[operand] if operand < 2 else (i * (operand + 2)) % e
             flat[i] = edges[j]
     return torch.from_numpy(limbs.astype(np.int32)).to(DEV)
+
+
+def nonzero_field(rng, fs, batch: tuple) -> torch.Tensor:
+    """Random non-zero canonical elements (..., L)."""
+    x = rand_field(rng, fs, batch, operand=None)
+    x[..., 0] |= 1
+    return x
 
 
 def point_pool(rng, cs, k: int = 64) -> torch.Tensor:
@@ -553,6 +613,26 @@ def point_fns(cs, op: str, *extra):
 def fixed_base_fns(cs):
     """(wrapper, plain) of pt_fixed_base on ``cs``, scalars first."""
     return (lambda k, table: pk.pt_fixed_base(cs, table, k), lambda k, table: pk.pt_fixed_base_plain(cs, table, k))
+
+
+def scalar_mul_fns(cs):
+    """(wrapper, plain) of pt_scalar_mul on ``cs``, scalars first."""
+    return (lambda k, tab: pk.pt_scalar_mul(cs, tab, k), lambda k, tab: pk.pt_scalar_mul_plain(cs, tab, k))
+
+
+def scalar_mul_layouts_fns(cs):
+    """(wrapper, plain) of pt_scalar_mul on ``cs`` over three layouts of
+    the same scalars k (1000, L) and tables tab (1000, 16, C, L): a table
+    a lane, table 3 shared by every lane, and tables 0..9 each read by 100
+    dealers' lanes; the plain version over every lane's own table, once."""
+    def wrapper(k, tab):
+        return torch.cat([pk.pt_scalar_mul(cs, tab, k), pk.pt_scalar_mul(cs, tab[3], k),
+                          pk.pt_scalar_mul(cs, tab[:10], k.reshape(100, 10, -1)).flatten(0, 1)])
+
+    def plain(k, tab):
+        lanes = torch.cat([tab, tab[3].expand(tab.shape), tab[:10].repeat(100, 1, 1, 1)])
+        return pk.pt_scalar_mul_plain(cs, lanes, k.repeat(3, 1))
+    return wrapper, plain
 
 
 def fixed_base_muladds(cs, k: torch.Tensor, madd: int) -> int:
@@ -802,6 +882,62 @@ def kernel_cases(rng) -> dict:
                     path, *mul_fns(F, gemm), mul_rand if not suffix else [],
                     [rand_field(rng, F, (m,)), rand_field(rng, F, (m,))],
                     0 if gemm else MADD_FIELD[F.name] * m, int32_muls * m, int8 * m)
+        # the canonical affine form's whole batch inversion in one launch:
+        # the n(t+1) commitments' non-zero Z as affine_canon lays them out,
+        # (INV_ROWS, lanes / INV_ROWS), and in its own row a default seal
+        # chunk's 4096 KEM points, against the one-step route (the JAX
+        # package's 256 rows, each multiply one mod_mul launch); at random
+        # inputs the edges: 1, p - 1, 2 and p - 2 down a column, a column of
+        # one repeated element, a column holding a zero (it reads 0), k = 1,
+        # and 2**16 lanes at INV_ROWS rows
+        inv = (lambda x, F=F: fk.mod_batch_inv(F, x), lambda x, F=F: fd.batch_inv(F, x))
+        p_ = F.modulus
+        ends = fh.to_tensor(fh.encode(F, [1, p_ - 1, 2, p_ - 2]), DEV).reshape(4, 1, F.limbs)
+        cols = nonzero_field(rng, F, (gd.INV_ROWS, 8))
+        cols[:, 1] = cols[0, 1]
+        cols[3, 2] = 0
+        inv_rand = [("1, p - 1, 2, p - 2 down a column", *inv, [ends]),
+                    (f"{gd.INV_ROWS} rows: a repeated element, a zero", *inv, [cols]),
+                    ("k = 1, 1000 columns", *inv, [nonzero_field(rng, F, (1, 1000))]),
+                    (f"{lanes} at {gd.INV_ROWS} rows", *inv, [nonzero_field(rng, F, (gd.INV_ROWS, R[0] // gd.INV_ROWS))])]
+        chain_muls = fk.chain_multiplies(*fk.inv_chain(F))
+        for suffix, m in (("", lanes_all), (" seal chunk", 4096)):
+            rows = gd.INV_ROWS
+            cases[fk.batch_inv_kernel_for(F).name + suffix] = Case(
+                path, *inv, inv_rand if not suffix else [], [nonzero_field(rng, F, (rows, m // rows))],
+                MADD_FIELD[F.name] * (3 * (m - 1) + chain_muls), plain_reps=1,
+                route=lambda x, F=F: fd.batch_inv(F, x.reshape(gd.GEMM_INV_ROWS, -1, F.limbs),
+                                                  mul=fk.mod_mul).reshape(x.shape))
+        # every window of scalar_mul in one launch: the seal's KEM (n x n
+        # scalars over the n recipients' 16-entry tables, each table read in
+        # place by its n dealers) and, in their own rows, a default seal
+        # chunk's KEM (4096 // n dealers, 4096 lanes: groups of threads, as
+        # the opens) and a recipient's opens (one key's n lanes, a table a
+        # lane), against the one-step route (64 gathered pt_window_step
+        # launches); the KEM's plain version on its first 4 dealers, the
+        # chunk's on its first.  At random inputs the edges (scalars 0, 1,
+        # order - 1 and others first, then ones with zero digit windows; the
+        # identity every 7th point) in three calls, held at once against one
+        # plain call over the lanes' own tables: 1000 lanes with a table a
+        # lane, with one table shared by all, and 100 dealers x 10
+        # recipients' tables
+        smul = scalar_mul_fns(cs)
+        k_edge = rand_field(rng, S, (1000,))
+        k_edge[100:300] &= 0x0F0F
+        lane_tables = gd._build_table(cs, points((1000,)))
+        smul_rand = [("1000 lanes with a table a lane, with one shared table and with a table a recipient",
+                      *scalar_mul_layouts_fns(cs), [k_edge, lane_tables])]
+        step_c = gd.WINDOW * dbl_c + add_c
+        nw = gd.n_windows(cs)
+        kem_tables = gd._build_table(cs, points((n,)))
+        sk = rand_field(rng, S, (1,), operand=None).expand(n, S.limbs)
+        for suffix, k_main, plain_rows in (("", rand_field(rng, S, (n, n)), 4),
+                                           (" seal chunk", rand_field(rng, S, (max(1, 4096 // n), n)), 1),
+                                           (" open", sk, None)):
+            cases[name("pt_scalar_mul") + suffix] = Case(
+                path, *smul, smul_rand if not suffix else [], [k_main, kem_tables],
+                step_c * nw * (k_main.numel() // S.limbs), plain_reps=1, plain_rows=plain_rows,
+                route=lambda k, tab, cs=cs: pk.pt_scalar_mul_plain(cs, tab, k, step=pk.pt_window_step))
     return cases
 
 
@@ -1041,7 +1177,10 @@ def digest_legs(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
         check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the digest")
         check(own.launches > 0 and other.launches == 0,
               f"digest mul={mul}: {own.name} launched {own.launches}, {other.name} {other.launches} times")
-        print(f"digest {path.curve} mul={mul}: {own.launches} launches of {own.name}, none of {other.name}, "
+        want = canon_launches(path.cs, mul, 2)
+        check(all(k.launches == want[k.name] for k in KERNELS if k.name in want),
+              f"digest mul={mul}: launches {({k.name: k.launches for k in KERNELS if k.name in want})}, want {want}")
+        print(f"digest {path.curve} mul={mul}: launches " + json.dumps(want) + f", none of {other.name}, "
               "no plain multiply on the card", flush=True)
     rows["host"] = host_leg(cfg, out, path in REPEATED_PASSES)
     for leg, arrays in rows.items():
@@ -1063,8 +1202,9 @@ def digest_legs(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
 # not; "pt_add_kernel" is also inside "ed_pt_add_kernel" (and
 # "pt_window_step_kernel" inside "ed_pt_window_step_kernel"), so the
 # Edwards kernels come first, and "mod_mul_kernel" is inside "mxu_mod_mul_kernel".
-# The field kernels' names carry a field id: "madd", "mul" and "mxu" stand
-# for the path's own family of mod_madd, mod_mul and mxu_mod_mul.
+# The field kernels' names carry a field id: "madd", "mul", "mxu" and
+# "batch_inv" stand for the path's own family of mod_madd, mod_mul,
+# mxu_mod_mul and mod_batch_inv.
 PROFILE_GROUPS = (
     (("ed_pt_add_kernel",), "pt_add[edwards]"), (("ed_pt_madd_kernel",), "pt_madd[edwards]"),
     (("ed_pt_double_kernel",), "pt_double[edwards]"), (("ed_pt_ladder_kernel",), "pt_ladder_mul_add[edwards]"),
@@ -1079,6 +1219,9 @@ PROFILE_GROUPS = (
     *(((f"{op}_kernel", tag), op + suffix)
       for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"), ("Edwards25519", "[edwards]"))
       for op in ("pt_fixed_base", "pt_tree_sum")),
+    *((("pt_scalar_mul_kernel", tag), "pt_scalar_mul" + suffix)
+      for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"), ("Edwards25519", "[edwards]"))),
+    (("mod_batch_inv_kernel",), "batch_inv"),
     (("mxu_mod_mul_kernel",), "mxu"), (("mod_mul_kernel",), "mul"), (("mod_madd_kernel",), "madd"),
     (("mod_madd_horner_kernel",), "madd_horner"), (("mod_madd_dot_kernel",), "madd_dot"),
     (("Memcpy DtoH",), "copy to host"),
@@ -1113,6 +1256,7 @@ def profiled(path: Path, label: str, fn, kernels: tuple | None = None, calls: in
 
     F, S = path.cs.field, path.cs.scalar
     family = {"madd": fk._FIELDS[S][0].name, "mul": fk.mul_kernel_for(F).name, "mxu": mk.kernel_for(F).name,
+              "batch_inv": fk.batch_inv_kernel_for(F).name,
               "madd_horner": fk.horner_kernel_for(S).name, "madd_dot": fk.dot_kernel_for(S).name}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1211,17 +1355,20 @@ class HostSeconds:
 
 def seal_kernels(cs) -> tuple:
     """The kernels one seal launches: c1's fixed-base windows, scalar_mul's
-    table adds and window steps, and the KEM encoding's canonical affine
-    form."""
-    return (pk.kernel_for("pt_fixed_base", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_window_step", cs),
-            fk.mul_kernel_for(cs.field))
+    table adds and windows, and the KEM encoding's canonical affine form
+    (its batch inversion and affine coordinates)."""
+    return (pk.kernel_for("pt_fixed_base", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_scalar_mul", cs),
+            fk.batch_inv_kernel_for(cs.field), fk.mul_kernel_for(cs.field))
 
 
-def seal_exact(cs) -> dict:
-    """Launch counts the unchunked seal must read exactly: c1 one
-    pt_fixed_base (no pt_madd), and the KEM's per-key table 14 pt_add."""
-    return {pk.kernel_for("pt_fixed_base", cs).name: 1, pk.kernel_for("pt_madd", cs).name: 0,
-            pk.kernel_for("pt_add", cs).name: 14}
+def seal_exact(cs, chunks: int) -> dict:
+    """Launch counts a seal in ``chunks`` chunks must read exactly: a chunk's
+    c1 one pt_fixed_base (no pt_madd), its KEM one pt_scalar_mul (no
+    pt_window_step), and its encoding one canonical affine form; the KEM's
+    per-key table 14 pt_add (built once a chunk, over the same keys)."""
+    return {pk.kernel_for("pt_fixed_base", cs).name: chunks, pk.kernel_for("pt_madd", cs).name: 0,
+            pk.kernel_for("pt_add", cs).name: 14 * chunks, pk.kernel_for("pt_scalar_mul", cs).name: chunks,
+            pk.kernel_for("pt_window_step", cs).name: 0, **canon_launches(cs, "classic", chunks)}
 
 
 def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict:
@@ -1273,16 +1420,17 @@ def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict
             # the rest of seal_shares_batch: the HybridCiphertext objects and byte rows
             seconds["packing"] = seconds.pop("seal_shares_batch") - sum(seconds.values())
             launches = {k.name: k.launches for k in KERNELS if k.launches}
-            label = "unchunked" if chunk == 0 else f"chunk={max(1, 4096 // n)} dealers"
+            dealers = max(1, 4096 // n)
+            label = "unchunked" if chunk == 0 else f"chunk={dealers} dealers"
             print(f"{tag}: seal_shares_pipeline {label}: wall {wall[chunk]:.6f} s, "
                   f"{n * n / wall[chunk]:.1f} pairs sealed per s; host s " + json.dumps(
                       {k: round(v, 6) for k, v in seconds.items()})
                   + "; launches " + json.dumps(launches), flush=True)
+            exact = seal_exact(cs, 1 if chunk == 0 else -(-n // dealers))
+            check(all(launches.get(k, 0) == v for k, v in exact.items()),
+                  f"{tag} {label}: launch counts {({k: launches.get(k, 0) for k in exact})}, want {exact}")
         for k in seal_kernels(cs):
             check(launches.get(k.name, 0) > 0, f"kernel {k.name} was not launched in the {tag} seal")
-        exact = seal_exact(cs)
-        check(all(launches.get(k, 0) == v for k, v in exact.items()),
-              f"{tag}: launch counts {({k: launches.get(k, 0) for k in exact})}, want {exact}")
         check(len(sealed[0]) == n and all(len(row) == n for row in sealed[0]), f"{tag}: sealed matrix shape")
         check(sealed[None] == sealed[0], f"{tag}: the chunked pipeline's pairs differ from the unchunked one's")
 

@@ -1,11 +1,12 @@
-// The bodies of the two chained point kernels of chain_kernels.cu, over
+// The bodies of the three chained point kernels of chain_kernels.cu, over
 // any point kind: pt_fixed_base (all windows of fixed_base_mul, one lane
-// each) and pt_tree_sum (a column's pairwise tree of adds, one block
-// each).  Shared with csrc/host_check.cpp, which runs them on the host.
+// each), pt_scalar_mul (all windows of scalar_mul, one lane each) and
+// pt_tree_sum (a column's pairwise tree of adds, one block each).  Shared
+// with csrc/host_check.cpp, which runs them on the host.
 //
 // A kind K names a point type P and its ops: identity, add, madd (q
-// affine), load (a stored point), load_affine (a stored table entry, Z
-// taken as 1), store (nothing where dst is null), select, z_is_zero
+// affine), dbl (in place), load (a stored point), load_affine (a stored
+// table entry, Z taken as 1), store (nothing where dst is null), select, z_is_zero
 // (Weierstrass only), store_words / load_words (a point in shared
 // memory, C N words), and any (a vote: whether p holds for any lane of
 // the warp, or, at one thread a lane, p itself).  group.cuh's GroupWs
@@ -30,6 +31,7 @@ struct LaneWs {
   __device__ __forceinline__ void identity(P& p) const { set_identity(p); }
   __device__ __forceinline__ void add(P& o, const P& p, const P& q) const { pt_add(o, p, q); }
   __device__ __forceinline__ void madd(P& o, const P& p, const P& q) const { pt_madd(o, p, q); }
+  __device__ __forceinline__ void dbl(P& p) const { pt_double(p); }
   __device__ __forceinline__ void load(P& p, const int32_t* src) const { load_point(src, p); }
   __device__ __forceinline__ void load_affine(P& p, const int32_t* src) const {
     load_elem<N>(src, p.x);
@@ -76,6 +78,7 @@ struct LaneEd {
   __device__ __forceinline__ void identity(P& p) const { ed_set_identity(p); }
   __device__ __forceinline__ void add(P& o, const P& p, const P& q) const { ed_add(o, p, q); }
   __device__ __forceinline__ void madd(P& o, const P& p, const P& q) const { ed_madd(o, p, q); }
+  __device__ __forceinline__ void dbl(P& p) const { ed_double(p); }
   __device__ __forceinline__ void load(P& p, const int32_t* src) const { load_ed(src, p); }
   __device__ __forceinline__ void load_affine(P& p, const int32_t* src) const {
     load_elem<N>(src, p.x);
@@ -147,6 +150,33 @@ __device__ __forceinline__ void fixed_base_lane(const K& k, const int32_t* table
       k.load_affine(e, entry);
       k.madd(acc, acc, e);
     }
+  }
+  k.store(out, acc);
+}
+
+// k P, one lane: table (2^window, C, 2N) the lane's entries d P (entry 0
+// the identity), the scalar's 16-bit limbs at k; out <- from the
+// identity, for each window w from the top (nw of them), window doublings
+// and a complete add of entry digit w, the order of groups/device.py
+// scalar_mul (and of the JAX package's _scalar_mul_core): digit 0 adds the
+// identity, and the doublings of the leading windows double the identity
+// (which hwcd doubling does not keep limb for limb), as there.  The
+// accumulator stays in registers for every window; the entries are read
+// where they lie.
+template <class K>
+__device__ __forceinline__ void scalar_mul_lane(const K& k, const int32_t* table, const int32_t* scalar,
+                                                int nw, int window, int32_t* out) {
+  typename K::P acc, e;
+  k.identity(acc);
+  const uint32_t mask = (1u << window) - 1u;
+#pragma unroll 1
+  for (int w = nw - 1; w >= 0; --w) {
+#pragma unroll 1
+    for (int i = 0; i < window; ++i) k.dbl(acc);
+    const int bit = w * window;
+    const uint32_t d = ((uint32_t)scalar[bit >> 4] >> (bit & 15)) & mask;
+    k.load(e, table + (int64_t)d * stored_limbs<K>());
+    k.add(acc, acc, e);
   }
   k.store(out, acc);
 }

@@ -13,9 +13,10 @@
 // 32 fibers on the calling thread: its TPI threads a lane meet at a
 // barrier for each shuffle and ballot, and all 32 for each of the warp's
 // votes.  And the chained point kernels of chain_kernels.cu (chain.cuh):
-// pt_fixed_base's lane and pt_tree_sum's block (whose threads also meet
-// at a barrier for each __syncthreads), at one thread a lane or, where
-// chain_kernels.cu builds it, a group of TPI.
+// pt_fixed_base's and pt_scalar_mul's lanes and pt_tree_sum's block
+// (whose threads also meet at a barrier for each __syncthreads), at one
+// thread a lane or, where chain_kernels.cu builds it, a group of TPI.
+// And mod_batch_inv's column (inv.cuh, inv_kernels.cu).
 #include <ucontext.h>
 
 #include <functional>
@@ -26,6 +27,7 @@
 #include "chain.cuh"
 #include "group.cuh"
 #include "horner.cuh"
+#include "inv.cuh"
 #include "mxu.cuh"
 
 using namespace dkg;
@@ -47,6 +49,15 @@ void mod_madd_lanes(const int32_t* a, const int32_t* b, const int32_t* c, int32_
     fmadd<F>(r, x, y, z);
     store_elem<N>(out + lane * 2 * N, r);
   }
+}
+
+// inv_kernels.cu's mod_batch_inv_kernel, a column at a time.
+template <int F>
+void batch_inv_columns(const int32_t* x, int32_t* out, int64_t rows, int64_t cols,
+                       const int32_t* chain, int chain_len, int npow) {
+  constexpr int L = 2 * Field<F>::N;
+  for (int64_t col = 0; col < cols; ++col)
+    batch_inv_column<F>(x + col * L, out + col * L, rows, cols * L, chain, chain_len, npow);
 }
 
 template <int F>
@@ -401,6 +412,45 @@ void fixed_base_lanes(const int32_t* table, const int32_t* k, int32_t* out, int6
   }
 }
 
+// chain_kernels.cu's pt_scalar_mul_kernel: a lane at a time at TPI = 1,
+// else a warp of 32 / TPI lanes at a time (a group past the last lane
+// runs the last lane's work and stores nothing, as on the card).
+template <template <class, class> class Kind, class C, int TPI>
+void scalar_mul_lanes(const int32_t* table, int64_t rows, int64_t per_row, const int32_t* k,
+                      int32_t* out, int64_t n, int nw, int window, int klimbs) {
+  using K = typename HostKind<Kind, C, TPI>::type;
+  auto run = [&](const K& kind, int64_t lane) {
+    const int64_t own = lane < n ? lane : n - 1;
+    scalar_mul_lane(kind, table + (((own / per_row) % rows) << window) * stored_limbs<K>(),
+                    k + own * klimbs, nw, window, lane < n ? out + lane * stored_limbs<K>() : nullptr);
+  };
+  if constexpr (TPI == 1) {
+    for (int64_t lane = 0; lane < n; ++lane) run(K{}, lane);
+  } else {
+    constexpr int kGroups = 32 / TPI;
+    for (int64_t lane0 = 0; lane0 < n; lane0 += kGroups)
+      on_warp<K, TPI>(kGroups, [&](const K& kind, int q) { run(kind, lane0 + q); });
+  }
+}
+
+// pt_scalar_mul at group size tpi: 1, 2, 4, or on the 8-word fields 8;
+// returns 1 for another size.
+template <template <class, class> class Kind, class C, class... A>
+int scalar_mul_tpi(int tpi, A... args) {
+  switch (tpi) {
+    case 1: scalar_mul_lanes<Kind, C, 1>(args...); return 0;
+    case 2: scalar_mul_lanes<Kind, C, 2>(args...); return 0;
+    case 4: scalar_mul_lanes<Kind, C, 4>(args...); return 0;
+    case 8:
+      if constexpr (C::N % 8 == 0) {
+        scalar_mul_lanes<Kind, C, 8>(args...);
+        return 0;
+      }
+      return 1;
+    default: return 1;
+  }
+}
+
 // chain_kernels.cu's pt_tree_sum_kernel, a block at a time: `threads`
 // host threads (at most a warp's 32) in groups of TPI, meeting at a
 // barrier for each __syncthreads.
@@ -665,6 +715,33 @@ int host_pt_fixed_base(int curve, int tpi, const int32_t* table, const int32_t* 
                        int64_t n, int nw, int window, int klimbs) {
   return chain_at(curve, tpi, false, table, (int64_t)0, (int64_t)0, k, (int64_t)0, (int64_t)0, out,
                   n, (int64_t)0, 0, nw, window, klimbs, 0);
+}
+
+// x, out (rows, cols, L); field: 0, 2 or 4 (the base fields of
+// inv_kernels.cu), else returns 1.
+int host_mod_batch_inv(const int32_t* x, int32_t* out, int64_t rows, int64_t cols,
+                       const int32_t* chain, int chain_len, int npow, int field) {
+  if (rows < 1 || chain_len < 1 || npow < 1 || npow > kInvMaxPowers) return 1;
+  switch (field) {
+    case kSecpP: batch_inv_columns<kSecpP>(x, out, rows, cols, chain, chain_len, npow); return 0;
+    case kEdP: batch_inv_columns<kEdP>(x, out, rows, cols, chain, chain_len, npow); return 0;
+    case kBlsP: batch_inv_columns<kBlsP>(x, out, rows, cols, chain, chain_len, npow); return 0;
+    default: return 1;
+  }
+}
+
+// curve: 0 secp256k1, 1 BLS12-381 G1, 2 edwards25519; tpi: 1 (one thread
+// a lane), 2, 4 or (on the 8-word fields) 8.  table rows (rows, 2^window,
+// C, L), lane i's row (i / per_row) % rows; k (n, klimbs).
+int host_pt_scalar_mul(int curve, int tpi, const int32_t* table, int64_t rows, int64_t per_row,
+                       const int32_t* k, int32_t* out, int64_t n, int nw, int window, int klimbs) {
+  if (rows < 1 || per_row < 1 || window < 1 || 16 % window != 0 || nw * window > klimbs * 16) return 1;
+  switch (curve) {
+    case 0: return scalar_mul_tpi<GroupWs, Secp256k1>(tpi, table, rows, per_row, k, out, n, nw, window, klimbs);
+    case 1: return scalar_mul_tpi<GroupWs, Bls12381>(tpi, table, rows, per_row, k, out, n, nw, window, klimbs);
+    case 2: return scalar_mul_tpi<GroupEd, Edwards25519>(tpi, table, rows, per_row, k, out, n, nw, window, klimbs);
+    default: return 1;
+  }
 }
 
 // cols columns of m leaves (column b's leaf j at src + b sb + j sj, with

@@ -13,8 +13,9 @@ randomizers.  State is struct-of-arrays over all parties at once:
 * ``derive_rho`` — per-dealer BLAKE2s Merkle digests of the canonical
   transcript, folded with BLAKE2b, then n BLAKE2b randomizers; on the
   device leg (the default) the commitments are made canonical affine
-  (``affine_canon``: each multiply one ``mod_mul`` launch, or
-  ``mxu_mod_mul`` under ``mul="gemm"``) and the Merkle rows hashed where
+  (``affine_canon``: the batch inversion one ``mod_batch_inv`` launch and
+  the affine coordinates ``mod_mul``'s, or under ``mul="gemm"`` every
+  multiply one ``mxu_mod_mul`` launch) and the Merkle rows hashed where
   the tensors are (``crypto/device_hash.py``), only the (n, 8) row
   digests crossing to the host; the host leg does both on the host;
 * ``verify_batch`` — with randomizers rho_j each recipient i checks

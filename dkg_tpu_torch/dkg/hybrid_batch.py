@@ -5,9 +5,11 @@ Counterpart of ``dkg_tpu/dkg/hybrid_batch.py``, the same wire bytes.  The
 KEM scalar multiplications of every (dealer, recipient) pair run as two
 batched device passes (:func:`kem_batch`):
 
-    c1[d, i]  = g·r[d, i]          (fixed-base table, one pt_madd a window)
+    c1[d, i]  = g·r[d, i]          (fixed-base table, one pt_fixed_base
+                                    launch)
     kem[d, i] = pk_i·r[d, i]       (groups.device.scalar_mul, one
-                                    pt_window_step a 4-bit window)
+                                    pt_scalar_mul launch over the
+                                    recipients' tables)
 
 and the byte-level DEM tail is array-shaped (:func:`seal_shares_batch`):
 one ``groups.device.encode_batch`` of every KEM point (canonical affine

@@ -164,15 +164,6 @@ def _build_table(cs: CurveSpec, p: torch.Tensor) -> torch.Tensor:
     return torch.stack(entries, dim=-3)
 
 
-def _gather_table(table: torch.Tensor, digit: torch.Tensor) -> torch.Tensor:
-    """Window entries: table (..., 16, C, L) batch-matched to ``digit``
-    (...,), or one shared (16, C, L) table -> (..., C, L)."""
-    if table.dim() == 3:
-        return table[digit.long()]
-    idx = digit.long()[..., None, None, None].expand(digit.shape + (1,) + table.shape[-2:])
-    return torch.gather(table, -3, idx)[..., 0, :, :]
-
-
 def _tree_reduce(cs: CurveSpec, pts: torch.Tensor, axis_len: int) -> torch.Tensor:
     """Pairwise point-add reduction over axis -3 (of length ``axis_len``),
     padding odd levels with the identity: one ``pt_tree_sum`` launch (its
@@ -202,19 +193,13 @@ def scalar_mul(cs: CurveSpec, k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
     A fixed-window MSB-first double-and-add: per-lane 16-entry tables, then
     one window step per 4-bit digit from the top (a digit 0 adds the
-    identity through the complete formulas).  The tables are built over
-    p's own batch and broadcast to k's, so a point shared by many scalars
-    (a recipient's key under every dealer's randomness) builds its table
-    once; the entries are the same values either way."""
-    table = _build_table(cs, p)  # (..., 16, C, L)
-    batch = k.shape[:-1]
-    if p.dim() > 2:
-        table = table.expand(batch + table.shape[-3:])
-    digits = pk.window_digits(k, WINDOW)  # (..., NW)
-    acc = identity(cs, batch, device=p.device)
-    for d in reversed(range(digits.shape[-1])):
-        acc = window_step(cs, acc, _gather_table(table, digits[..., d]), WINDOW)
-    return acc
+    identity through the complete formulas), every window in one
+    ``pt_scalar_mul`` launch (its plain version, the window loop, on CPU
+    tensors).  The tables are built over p's own batch and read where they
+    lie, so a point shared by many scalars (a recipient's key under every
+    dealer's randomness) builds its table once and is never copied to k's
+    batch; the entries are the same values either way."""
+    return pk.pt_scalar_mul(cs, _build_table(cs, p), k)
 
 
 def fixed_base_mul(cs: CurveSpec, table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -354,6 +339,21 @@ def field_mul(mode: str):
     raise ValueError(f"mul must be one of {MUL_MODES}, got {mode!r}")
 
 
+# The rows of affine_canon's batch inversion under mul="classic": one
+# mod_batch_inv launch inverts columns of INV_ROWS lanes, each a chain of
+# INV_ROWS - 1 + Fermat + 2 (INV_ROWS - 1) dependent multiplies, so fewer
+# rows make more columns and a shorter chain.  Every lane inverted is
+# non-zero (zero Z is replaced by one first) and has one inverse, so the
+# rows change no limb.  Of 256, 64 and 16, 16 took the least device time
+# over each path's calls on the H100 (a ceremony's two, the unchunked
+# seal's, and the default-chunk seal's 256 or 16 chunks of 4096 lanes);
+# 64 was faster at 1,048,576 lanes and on BLS12-381 at 350,208
+# (ops/inv_bench.py; PERF.md).  mul="gemm" keeps the JAX package's 256
+# rows, each multiply one mxu_mod_mul launch.
+INV_ROWS = 16
+GEMM_INV_ROWS = 256
+
+
 def affine_canon(cs: CurveSpec, pts: torch.Tensor, *, mul: str = "classic") -> torch.Tensor:
     """Canonical affine limbs of a point batch, where the points live:
     (..., C, L) -> (..., C, L) with X/Z, Y/Z, Z = 1 (Edwards T = XY);
@@ -361,11 +361,13 @@ def affine_canon(cs: CurveSpec, pts: torch.Tensor, *, mul: str = "classic") -> t
     the same group elements yields the same limbs, which is why the
     transcript digest hashes this form.
 
-    The JAX package's shape: the lanes (padded with ones to a multiple of
-    256) invert in one Montgomery-trick ``batch_inv`` down 256 rows, each
-    multiply one launch of ``mul``'s kernel over a row; then x·zi, y·zi
-    (and t = x·y) over all lanes.  The selects and the padding are plain
-    tensor ops, as the JAX package leaves them to XLA."""
+    The lanes (padded with ones to a multiple of the rows) invert in one
+    Montgomery-trick batch inversion down the rows: under ``"classic"``
+    one ``mod_batch_inv`` launch over INV_ROWS rows, under ``"gemm"`` the
+    JAX package's shape, 256 rows, each multiply one ``mxu_mod_mul``
+    launch over a row; then x·zi, y·zi (and t = x·y) over all lanes.  The
+    selects and the padding are plain tensor ops, as the JAX package
+    leaves them to XLA."""
     f = cs.field
     mulf = field_mul(mul)
     z = pts[..., 2, :]
@@ -373,11 +375,15 @@ def affine_canon(cs: CurveSpec, pts: torch.Tensor, *, mul: str = "classic") -> t
     z_safe = fd.select(z_is_zero, fd.ones(f, z.shape[:-1], device=z.device), z)
     flat = z_safe.reshape(-1, f.limbs)
     n_lanes = flat.shape[0]
-    pad = (-n_lanes) % 256
+    k = INV_ROWS if mul == "classic" else GEMM_INV_ROWS
+    pad = (-n_lanes) % k
     if pad:
         flat = torch.cat([flat, fd.ones(f, (pad,), device=z.device)])
-    rows = 256 if flat.shape[0] >= 256 else 1
-    zi = fd.batch_inv(f, flat.reshape(rows, -1, f.limbs), axis=0, mul=mulf)
+    flat = flat.reshape(k, -1, f.limbs)
+    if mul == "classic":
+        zi = fk.mod_batch_inv(f, flat)
+    else:
+        zi = fd.batch_inv(f, flat, axis=0, mul=mulf)
     zi = zi.reshape(-1, f.limbs)[:n_lanes].reshape(z.shape)
     x_a = mulf(f, pts[..., 0, :], zi)
     y_a = mulf(f, pts[..., 1, :], zi)
@@ -449,10 +455,11 @@ def encode_batch(cs: CurveSpec, pts) -> np.ndarray:
 
     Where the inversion runs follows where the points are, as the JAX
     package's follows its backend: a tensor on the card takes the device
-    leg (:func:`affine_canon`, each multiply one ``mod_mul`` launch, then
-    one transfer); a CPU tensor or a numpy array the host leg
-    (:func:`affine_canon_host`, one Montgomery-trick inversion over big
-    ints).  Both give the same canonical affine limbs, so the same bytes."""
+    leg (:func:`affine_canon`: one ``mod_batch_inv`` launch and the
+    ``mod_mul`` launches of the affine coordinates, then one transfer); a
+    CPU tensor or a numpy array the host leg (:func:`affine_canon_host`,
+    one Montgomery-trick inversion over big ints).  Both give the same
+    canonical affine limbs, so the same bytes."""
     if isinstance(pts, torch.Tensor) and pts.device.type != "cpu":
         return encode_affine(cs, fh.from_tensor(affine_canon(cs, pts)))
     return encode_affine(cs, affine_canon_host(cs, pts))

@@ -1,11 +1,15 @@
 """The ``mod_madd`` and ``mod_mul`` kernels: ``(a * b + c) mod p`` and
-``(a * b) mod p`` in one launch; and ``mod_madd``'s two multi-step forms,
+``(a * b) mod p`` in one launch; ``mod_madd``'s two multi-step forms,
 each one launch: :func:`mod_madd_horner` (Horner over T coefficients,
 ``poly.device.eval_many``) and :func:`mod_madd_dot` (a sum of m products,
-``dkg.ceremony._field_dot``).
+``dkg.ceremony._field_dot``); and ``mod_mul``'s: :func:`mod_batch_inv`
+(a whole ``fields.device.batch_inv`` in one launch,
+``csrc/inv_kernels.cu``, over the three base fields whose points
+``groups.device.affine_canon`` makes affine; plain version
+``fields.device.batch_inv``).
 
 Counterparts of ``dkg_tpu/ops/pallas_field.py`` ``mod_madd`` and
-``mod_mul``; the multi-step forms compose ``mod_madd``'s step.  On a
+``mod_mul``; the multi-step forms compose their steps.  On a
 CUDA tensor each wrapper launches ``csrc/field_kernels.cu`` over the
 field of its operands (secp256k1's base and scalar fields, ed25519's
 base field, the ristretto255 scalar field, BLS12-381's 24-limb base
@@ -16,12 +20,14 @@ runs its plain PyTorch version, which the kernel is held against:
 :func:`mod_madd_dot_plain`.  Operands broadcast over their batch axes.
 
 The three field families count their launches apart: ``MOD_MADD``,
-``MOD_MUL``, ``MOD_MADD_HORNER`` and ``MOD_MADD_DOT`` for secp256k1's
-fields, the ``_ED`` kernels for ed25519's, the ``_BLS`` ones for
-BLS12-381's.
+``MOD_MUL``, ``MOD_MADD_HORNER``, ``MOD_MADD_DOT`` and ``MOD_BATCH_INV``
+for secp256k1's fields, the ``_ED`` kernels for ed25519's, the ``_BLS``
+ones for BLS12-381's.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -48,9 +54,13 @@ _DOT_ARGS = [build.PTR, build.PTR, build.PTR, build.I64, build.I64, build.INT, b
 MOD_MADD_DOT = build.Kernel("mod_madd_dot", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
 MOD_MADD_DOT_ED = build.Kernel("mod_madd_dot[ed25519]", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
 MOD_MADD_DOT_BLS = build.Kernel("mod_madd_dot[bls12_381]", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
+_INV_ARGS = [build.PTR, build.PTR, build.I64, build.I64, build.PTR, build.INT, build.INT, build.INT, build.PTR]
+MOD_BATCH_INV = build.Kernel("mod_batch_inv", "inv_kernels.cu", "dkg_mod_batch_inv", _INV_ARGS)
+MOD_BATCH_INV_ED = build.Kernel("mod_batch_inv[ed25519]", "inv_kernels.cu", "dkg_mod_batch_inv", _INV_ARGS)
+MOD_BATCH_INV_BLS = build.Kernel("mod_batch_inv[bls12_381]", "inv_kernels.cu", "dkg_mod_batch_inv", _INV_ARGS)
 KERNELS = (MOD_MADD, MOD_MADD_ED, MOD_MADD_BLS, MOD_MUL, MOD_MUL_ED, MOD_MUL_BLS,
            MOD_MADD_HORNER, MOD_MADD_HORNER_ED, MOD_MADD_HORNER_BLS, MOD_MADD_DOT, MOD_MADD_DOT_ED,
-           MOD_MADD_DOT_BLS)
+           MOD_MADD_DOT_BLS, MOD_BATCH_INV, MOD_BATCH_INV_ED, MOD_BATCH_INV_BLS)
 
 # field -> (mod_madd kernel, field id of csrc/field.cuh)
 _FIELDS = {
@@ -64,6 +74,9 @@ _FIELDS = {
 _MUL_KERNELS = {MOD_MADD: MOD_MUL, MOD_MADD_ED: MOD_MUL_ED, MOD_MADD_BLS: MOD_MUL_BLS}
 _HORNER_KERNELS = {MOD_MADD: MOD_MADD_HORNER, MOD_MADD_ED: MOD_MADD_HORNER_ED, MOD_MADD_BLS: MOD_MADD_HORNER_BLS}
 _DOT_KERNELS = {MOD_MADD: MOD_MADD_DOT, MOD_MADD_ED: MOD_MADD_DOT_ED, MOD_MADD_BLS: MOD_MADD_DOT_BLS}
+# mod_batch_inv is built for the base fields whose points affine_canon makes affine
+_INV_KERNELS = {SECP256K1_P: MOD_BATCH_INV, P25519: MOD_BATCH_INV_ED, BLS12_381_P: MOD_BATCH_INV_BLS}
+INV_WINDOW_MAX = 5  # csrc/inv.cuh kInvMaxPowers = 2**(INV_WINDOW_MAX - 1) odd powers
 
 
 def _kernel_for(op: str, table: dict, fs: FieldSpec) -> build.Kernel:
@@ -85,6 +98,86 @@ def horner_kernel_for(fs: FieldSpec) -> build.Kernel:
 def dot_kernel_for(fs: FieldSpec) -> build.Kernel:
     """The ``mod_madd_dot`` kernel of field ``fs``; raises if there is none."""
     return _kernel_for("mod_madd_dot", _DOT_KERNELS, fs)
+
+
+def batch_inv_kernel_for(fs: FieldSpec) -> build.Kernel:
+    """The ``mod_batch_inv`` kernel of field ``fs``; raises if there is none."""
+    if fs not in _INV_KERNELS:
+        raise NotImplementedError(f"mod_batch_inv has no CUDA kernel for {fs.name}")
+    return _INV_KERNELS[fs]
+
+
+def sliding_chain(e: int, window: int) -> tuple[list, int]:
+    """x**e (e >= 1) as a sliding-window chain: ``[first, op, op, ...]``,
+    ``first`` the odd power x**(2 first + 1) the chain starts from, each op
+    a squaring (-1) or a multiply by the odd power x**(2 j + 1) (j >= 0);
+    and the count of odd powers it reads.  Windows of at most ``window``
+    bits, each ending in a set bit, MSB first."""
+    if e < 1 or window < 1:
+        raise ValueError("sliding_chain takes e >= 1 and window >= 1")
+    bits = bin(e)[2:]
+    chain: list = []
+    i = 0
+    while i < len(bits):
+        if bits[i] == "0":
+            chain.append(-1)
+            i += 1
+            continue
+        j = min(i + window, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        odd = (int(bits[i:j], 2) - 1) // 2
+        if chain:
+            chain += [-1] * (j - i)
+        chain.append(odd)
+        i = j
+    return chain, max(op for op in chain) + 1
+
+
+def chain_multiplies(chain: list, npow: int) -> int:
+    """Multiplies a chain runs: its ops, and x**2 and the odd powers
+    above x."""
+    return len(chain) - 1 + (npow if npow > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def inv_chain(fs: FieldSpec) -> tuple[tuple, int]:
+    """The Fermat inversion x**(p - 2) that ``mod_batch_inv`` runs: the
+    sliding-window chain of :func:`sliding_chain` with the window (at most
+    INV_WINDOW_MAX bits) of fewest multiplies."""
+    e = fs.modulus - 2
+    best = min((sliding_chain(e, w) for w in range(1, INV_WINDOW_MAX + 1)),
+               key=lambda c: chain_multiplies(*c))
+    return tuple(best[0]), best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_table(fs: FieldSpec, device: torch.device) -> torch.Tensor:
+    """``inv_chain(fs)``'s ops as an int32 tensor on ``device``, made once."""
+    return torch.tensor(inv_chain(fs)[0], dtype=torch.int32, device=device)
+
+
+def mod_batch_inv(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """``fields.device.batch_inv(fs, x, axis=0)`` in one launch: x (k, ...,
+    L) -> the same shape, each column x[:, c] inverted by the Montgomery
+    trick.  A column holding a zero reads 0 in every row (its total has no
+    inverse); the others read the canonical inverses."""
+    if x.device.type == "cpu":
+        return fd.batch_inv(fs, x, axis=0)
+    kernel = batch_inv_kernel_for(fs)
+    L = fs.limbs
+    if x.dim() < 2:
+        raise ValueError(f"mod_batch_inv takes x (k, ..., L), got {tuple(x.shape)}")
+    dev = build.check_operands([(x, (L,))])
+    rows = x.shape[0]
+    xs = build.aligned(x.reshape(rows, -1, L).contiguous())
+    out = torch.empty_like(xs)
+    cols = xs.shape[1]
+    if rows and cols:
+        chain, npow = _chain_table(fs, dev), inv_chain(fs)[1]
+        kernel(xs.data_ptr(), out.data_ptr(), rows, cols, chain.data_ptr(), len(chain), npow, _FIELDS[fs][1],
+               build.stream_ptr(dev))
+    return out.reshape(x.shape)
 
 
 def mod_madd_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 ``pt_window_step``, ``pt_ladder_mul_add``, ``pt_ladder_horner`` (the
 whole point Horner of ``groups.device.eval_point_poly`` in one launch),
 ``pt_fixed_base`` (every window of ``groups.device.fixed_base_mul`` in one
-launch) and ``pt_tree_sum`` (a whole ``groups.device._tree_reduce`` in
-one launch), with their plain PyTorch versions.
+launch), ``pt_scalar_mul`` (every window of ``groups.device.scalar_mul``
+in one launch) and ``pt_tree_sum`` (a whole ``groups.device._tree_reduce``
+in one launch), with their plain PyTorch versions.
 
 Counterpart of ``dkg_tpu/ops/pallas_point.py``.  Points are int32 limb
 tensors of shape ``(..., C, L)``: C projective coordinates (3 for short
@@ -13,8 +14,9 @@ of its curve: secp256k1's in ``csrc/point_kernels.cu``, edwards25519's
 (ristretto255) in ``csrc/edwards_kernels.cu``, ``pt_double`` for both in
 ``csrc/double_kernels.cu``, and every BLS12-381 G1 kernel in
 ``csrc/bls_kernels.cu``, ``pt_ladder_horner`` for all three in
-``csrc/ladder_kernels.cu``, and ``pt_fixed_base`` and ``pt_tree_sum`` for
-all three in ``csrc/chain_kernels.cu``; a curve with no kernel raises.  On a CPU
+``csrc/ladder_kernels.cu``, and ``pt_fixed_base``, ``pt_scalar_mul`` and
+``pt_tree_sum`` for all three in ``csrc/chain_kernels.cu``; a curve with
+no kernel raises.  On a CPU
 tensor it runs the plain version below.  The plain versions are the
 formulas of the JAX package's ``groups/device.py`` (RCB15 algorithms 7,
 8 and 9 for Weierstrass, HWCD add and doubling for Edwards) in the same
@@ -71,6 +73,11 @@ _TREE = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _INT, _INT, _P]
 PT_FIXED_BASE = build.Kernel("pt_fixed_base", _CHAIN, "dkg_pt_fixed_base", _FIXED)
 ED_PT_FIXED_BASE = build.Kernel("pt_fixed_base[edwards]", _CHAIN, "dkg_ed_pt_fixed_base", _FIXED)
 BLS_PT_FIXED_BASE = build.Kernel("pt_fixed_base[bls12_381]", _CHAIN, "dkg_bls_pt_fixed_base", _FIXED)
+# (table, rows, per_row, k, out, n, nw, window, klimbs, group)
+_SCALAR = [_P, _I, _I, _P, _P, _I, _INT, _INT, _INT, _INT, _P]
+PT_SCALAR_MUL = build.Kernel("pt_scalar_mul", _CHAIN, "dkg_pt_scalar_mul", _SCALAR)
+ED_PT_SCALAR_MUL = build.Kernel("pt_scalar_mul[edwards]", _CHAIN, "dkg_ed_pt_scalar_mul", _SCALAR)
+BLS_PT_SCALAR_MUL = build.Kernel("pt_scalar_mul[bls12_381]", _CHAIN, "dkg_bls_pt_scalar_mul", _SCALAR)
 PT_TREE_SUM = build.Kernel("pt_tree_sum", _CHAIN, "dkg_pt_tree_sum", _TREE)
 ED_PT_TREE_SUM = build.Kernel("pt_tree_sum[edwards]", _CHAIN, "dkg_ed_pt_tree_sum", _TREE)
 BLS_PT_TREE_SUM = build.Kernel("pt_tree_sum[bls12_381]", _CHAIN, "dkg_bls_pt_tree_sum", _TREE)
@@ -78,7 +85,8 @@ KERNELS = (PT_ADD, PT_MADD, PT_WINDOW_STEP, PT_LADDER_MUL_ADD,
            ED_PT_ADD, ED_PT_MADD, ED_PT_WINDOW_STEP, ED_PT_LADDER_MUL_ADD, PT_DOUBLE, ED_PT_DOUBLE,
            BLS_PT_ADD, BLS_PT_MADD, BLS_PT_DOUBLE, BLS_PT_WINDOW_STEP, BLS_PT_LADDER_MUL_ADD,
            PT_LADDER_HORNER, ED_PT_LADDER_HORNER, BLS_PT_LADDER_HORNER,
-           PT_FIXED_BASE, ED_PT_FIXED_BASE, BLS_PT_FIXED_BASE, PT_TREE_SUM, ED_PT_TREE_SUM, BLS_PT_TREE_SUM)
+           PT_FIXED_BASE, ED_PT_FIXED_BASE, BLS_PT_FIXED_BASE, PT_TREE_SUM, ED_PT_TREE_SUM, BLS_PT_TREE_SUM,
+           PT_SCALAR_MUL, ED_PT_SCALAR_MUL, BLS_PT_SCALAR_MUL)
 
 # The curves the kernels cover, by (kind, base field, curve constant): the
 # constants (b3 = 21 and 12, 2d) are compiled into csrc/point.cuh and
@@ -96,6 +104,7 @@ _VARIANTS = {
     "pt_ladder_horner": {_WS_KEY: PT_LADDER_HORNER, _ED_KEY: ED_PT_LADDER_HORNER, _BLS_KEY: BLS_PT_LADDER_HORNER},
     "pt_fixed_base": {_WS_KEY: PT_FIXED_BASE, _ED_KEY: ED_PT_FIXED_BASE, _BLS_KEY: BLS_PT_FIXED_BASE},
     "pt_tree_sum": {_WS_KEY: PT_TREE_SUM, _ED_KEY: ED_PT_TREE_SUM, _BLS_KEY: BLS_PT_TREE_SUM},
+    "pt_scalar_mul": {_WS_KEY: PT_SCALAR_MUL, _ED_KEY: ED_PT_SCALAR_MUL, _BLS_KEY: BLS_PT_SCALAR_MUL},
 }
 # The chained kernels' lane rules.  A lane runs on one thread or, on the
 # curves where csrc/chain_kernels.cu builds a group variant of the kernel
@@ -112,6 +121,12 @@ _VARIANTS = {
 # groups of 4 (ops/chain_bench.py; PERF.md has the table).
 FIXED_BASE_GROUP_BELOW = {_WS_KEY: 1 << 15, _BLS_KEY: 1 << 15}
 TREE_GROUP_BELOW = {_BLS_KEY: 2}
+# pt_scalar_mul: below 2**15 lanes on every curve: a recipient's opens
+# (1024 or 256 lanes) and a default seal chunk's KEM (4096 lanes), where
+# one thread a lane leaves the card idle and waits on one multiply at a
+# time; the unchunked KEM's 65,536 and more fill the card at one thread a
+# lane (ops/chain_bench.py; PERF.md has the table).
+SCALAR_MUL_GROUP_BELOW = {_WS_KEY: 1 << 15, _BLS_KEY: 1 << 15, _ED_KEY: 1 << 15}
 # pt_tree_sum: leaves a block sums at most (2^TREE_CHUNK_LOG); a longer
 # column sums aligned chunks of that many, then their tops.
 TREE_CHUNK_LOG = 10
@@ -319,6 +334,32 @@ def pt_fixed_base_plain(cs, table, k, madd=pt_madd_plain):
     return acc
 
 
+def _gather_table(table, digit):
+    """Window entries: table (..., E, C, L) batch-matched to ``digit``
+    (...,), or one shared (E, C, L) table -> (..., C, L)."""
+    if table.dim() == 3:
+        return table[digit.long()]
+    idx = digit.long()[..., None, None, None].expand(digit.shape + (1,) + table.shape[-2:])
+    return torch.gather(table, -3, idx)[..., 0, :, :]
+
+
+def pt_scalar_mul_plain(cs, table, k, step=pt_window_step_plain):
+    """k·P from P's window table (..., 2**w, C, L) (entry d = d·P, its
+    batch broadcast to k's), k (..., L) scalar limbs: from the identity,
+    for each w-bit digit MSB first, one window step (w doublings, then +
+    the gathered entry).  ``step`` (cs, acc, entry, w) is the step: given
+    ``pt_window_step``, this loop is the kernel's one-step route."""
+    window = int(table.shape[-3]).bit_length() - 1
+    batch = k.shape[:-1]
+    if table.dim() > 3:
+        table = table.expand(batch + table.shape[-3:])
+    digits = window_digits(k, window)
+    acc = identity_plain(cs, batch, k.device)
+    for d in reversed(range(digits.shape[-1])):
+        acc = step(cs, acc, _gather_table(table, digits[..., d]), window)
+    return acc
+
+
 def _gather_entries(tables, digits):
     """tables (..., m, E, C, L), digits broadcast to (..., m) ->
     (..., m, C, L): entry digits[..., j] of point j's table."""
@@ -451,6 +492,12 @@ def fixed_base_group(cs, lanes: int) -> bool:
     return lanes < FIXED_BASE_GROUP_BELOW.get((cs.kind, cs.field.name, cs.const), 0)
 
 
+def scalar_mul_group(cs, lanes: int) -> bool:
+    """Whether pt_scalar_mul's call over ``lanes`` lanes spreads a lane
+    over a group of threads."""
+    return lanes < SCALAR_MUL_GROUP_BELOW.get((cs.kind, cs.field.name, cs.const), 0)
+
+
 def tree_group(cs, columns: int) -> bool:
     """Whether pt_tree_sum's call over ``columns`` columns spreads a lane
     over a group of threads."""
@@ -482,6 +529,58 @@ def pt_fixed_base(cs, table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     if n:
         kernel(tab.data_ptr(), ks.data_ptr(), out.data_ptr(), n, nw, window, ks.shape[-1],
                int(fixed_base_group(cs, n)), build.stream_ptr(dev))
+    return out
+
+
+def table_rows(table: torch.Tensor, batch: tuple, tail: tuple) -> tuple[torch.Tensor, int, int]:
+    """``table`` (a batch broadcast to ``batch``, then ``tail``) as
+    contiguous rows (R, *tail) and the lane map row(i) = (i // per_row) %
+    R over the lanes of ``batch``: the batch axes before its first and
+    after its last axis of size > 1 are broadcast and read in place (a key
+    shared by every dealer, a point shared by every scalar); only a
+    broadcast axis between those is copied.  Returns (rows, R, per_row)."""
+    nlead = table.dim() - len(tail)
+    lead = (1,) * (len(batch) - nlead) + tuple(table.shape[:nlead])
+    live = [i for i, d in enumerate(lead) if d > 1]
+    lo, hi = (live[0], live[-1] + 1) if live else (0, 0)
+    per_row = 1
+    for d in batch[hi:]:
+        per_row *= d
+    block = tuple(batch[lo:hi])
+    rows = table.reshape(lead + tuple(tail))[(0,) * lo + (slice(None),) * (hi - lo) + (0,) * (len(lead) - hi)]
+    rows = build.aligned(rows.expand(block + tuple(tail)).reshape((-1,) + tuple(tail)).contiguous())
+    return rows, rows.shape[0], per_row
+
+
+def pt_scalar_mul(cs, table: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k·P for every window of ``groups.device.scalar_mul`` in one launch:
+    table (..., 2**w, C, L) window tables (entry d = d·P, w divides 16),
+    their batch broadcast to k's and read in place, k (..., L) scalar limbs
+    -> (..., C, L), equal to the L·16/w ``pt_window_step`` steps of
+    :func:`pt_scalar_mul_plain` from the identity.  A lane runs on one
+    thread or a group by :func:`scalar_mul_group`."""
+    if k.device.type == "cpu":
+        return pt_scalar_mul_plain(cs, table, k)
+    kernel = kernel_for("pt_scalar_mul", cs)
+    point = (cs.ncoords, cs.field.limbs)
+    if table.dim() < 3:
+        raise ValueError(f"pt_scalar_mul takes tables (..., 2**w, C, L), got {tuple(table.shape)}")
+    entries = table.shape[-3]
+    window = entries.bit_length() - 1
+    klimbs = k.shape[-1]
+    if entries != 1 << window or window < 1 or 16 % window:
+        raise ValueError(f"pt_scalar_mul: a table of {entries} entries is not a window that divides 16")
+    dev = build.check_operands([(table, (entries,) + point), (k, (klimbs,))])
+    batch = k.shape[:-1]
+    if torch.broadcast_shapes(table.shape[:-3], batch) != batch:
+        raise ValueError(f"pt_scalar_mul: tables {tuple(table.shape)} do not broadcast to the scalars' batch {batch}")
+    out = torch.empty(batch + point, dtype=torch.int32, device=dev)
+    n = out.numel() // (cs.ncoords * cs.field.limbs)
+    if n:
+        rows, n_rows, per_row = table_rows(table, batch, (entries,) + point)
+        ks = k.reshape(-1, klimbs).contiguous()
+        kernel(rows.data_ptr(), n_rows, per_row, ks.data_ptr(), out.data_ptr(), n, klimbs * 16 // window, window,
+               klimbs, int(scalar_mul_group(cs, n)), build.stream_ptr(dev))
     return out
 
 

@@ -14,7 +14,7 @@ import torch
 
 from dkg_tpu_torch.dkg import ceremony as tce
 from dkg_tpu_torch.dkg import hybrid_batch as hb
-from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, FieldSpec
+from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
@@ -132,6 +132,12 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: pk.pt_tree_sum(BLS, _meta((5, 3, 24))),
     lambda: tgd._tree_reduce(BLS, _meta((2, 5, 3, 24)), 5),
     lambda: tgd.msm_straus(ED, _meta((5, 16)), _meta((2, 5, 4, 16))),
+    lambda: fk.mod_batch_inv(SECP256K1_P, _meta((16, 3, 16))),
+    lambda: fk.mod_batch_inv(P25519, _meta((16, 3, 16))),
+    lambda: fk.mod_batch_inv(BLS12_381_P, _meta((16, 3, 24))),
+    lambda: pk.pt_scalar_mul(tgd.SECP256K1, _meta((3, 16, 3, 16)), _meta((2, 3, 16))),
+    lambda: pk.pt_scalar_mul(ED, _meta((16, 4, 16)), _meta((5, 16))),
+    lambda: pk.pt_scalar_mul(BLS, _meta((3, 16, 3, 24)), _meta((3, 16))),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -144,7 +150,8 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "mod_madd_horner", "mod_madd_horner_ed", "mod_madd_horner_bls", "mod_madd_dot", "mod_madd_dot_ed",
         "mod_madd_dot_bls", "bls_field_dot", "pt_fixed_base", "ed_pt_fixed_base", "bls_pt_fixed_base",
         "bls_fixed_base_mul", "pt_tree_sum", "ed_pt_tree_sum_gathered", "bls_pt_tree_sum", "bls_tree_reduce",
-        "ed_msm_straus"])
+        "ed_msm_straus", "mod_batch_inv", "mod_batch_inv_ed", "mod_batch_inv_bls", "pt_scalar_mul",
+        "ed_pt_scalar_mul_shared", "bls_pt_scalar_mul"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -164,8 +171,11 @@ def test_wrappers_raise_instead_of_falling_back(call):
     lambda: pk.pt_fixed_base(tgd.SECP256K1, _meta((32, 256, 1, 16)), _meta((4, 16))),
     lambda: pk.pt_tree_sum(tgd.SECP256K1, _meta((2, 5, 1, 16))),
     lambda: pk.pt_tree_sum(tgd.SECP256K1, _meta((2, 5, 16, 1, 16)), _meta((2, 5))),
+    lambda: fk.mod_batch_inv(SECP256K1_P, _meta((16, 3, 1))),
+    lambda: pk.pt_scalar_mul(tgd.SECP256K1, _meta((3, 16, 1, 16)), _meta((2, 3, 16))),
 ], ids=["limbs", "coords", "too_few_axes", "bucket_coords", "bucket_digits", "horner_coords", "horner_limbs",
-        "dot_limbs", "fixed_base_coords", "tree_coords", "tree_table_coords"])
+        "dot_limbs", "fixed_base_coords", "tree_coords", "tree_table_coords", "batch_inv_limbs",
+        "scalar_mul_table_coords"])
 def test_wrappers_reject_operands_of_the_wrong_shape(call):
     """A tail that would broadcast (a size-1 limb or coordinate axis)
     is refused before any pointer reaches a kernel."""
@@ -186,7 +196,7 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="pt_window_step"):
         pk.pt_window_step(other, _meta((2, 4, 16)), _meta((2, 4, 16)), 4)
     for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner",
-               "pt_fixed_base", "pt_tree_sum"):
+               "pt_fixed_base", "pt_tree_sum", "pt_scalar_mul"):
         with pytest.raises(NotImplementedError, match=op):
             pk.kernel_for(op, other)
     with pytest.raises(NotImplementedError):
@@ -196,7 +206,7 @@ def test_unported_variants_raise():
             bk.bucket_accumulate(cs, _meta((2, 5, cs.ncoords, cs.field.limbs)), _meta((5, 3)), 4, 3)
     for cs in (L24_B3, L24_P):
         for op in ("pt_add", "pt_madd", "pt_double", "pt_window_step", "pt_ladder_mul_add", "pt_ladder_horner",
-                   "pt_fixed_base", "pt_tree_sum"):
+                   "pt_fixed_base", "pt_tree_sum", "pt_scalar_mul"):
             with pytest.raises(NotImplementedError, match=op):
                 pk.kernel_for(op, cs)
         with pytest.raises(NotImplementedError):
@@ -222,6 +232,11 @@ def test_unported_variants_raise():
         fk.mod_mul(other_fs, _meta((2, 16)), _meta((2, 16)))
     with pytest.raises(NotImplementedError, match="mxu_mod_mul"):
         mk.mxu_mod_mul(L24_P.field, _meta((2, 24)), _meta((2, 24)))
+    for fs in (L25519, SECP256K1_N, BLS12_381_R, L24_P.field):  # built for the three base fields alone
+        with pytest.raises(NotImplementedError, match="mod_batch_inv"):
+            fk.mod_batch_inv(fs, _meta((2, 3, fs.limbs)))
+    with pytest.raises(NotImplementedError, match="pt_scalar_mul"):
+        pk.pt_scalar_mul(other, _meta((16, 4, 16)), _meta((2, 16)))
     assert fk.mul_kernel_for(BLS12_381_R) is fk.MOD_MUL_BLS and mk.kernel_for(L25519) is mk.MXU_MOD_MUL_ED
     assert pk.kernel_for("pt_add", ED) is pk.ED_PT_ADD and pk.kernel_for("pt_double", ED) is pk.ED_PT_DOUBLE
     assert pk.kernel_for("pt_double", tgd.SECP256K1) is pk.PT_DOUBLE
@@ -230,7 +245,7 @@ def test_unported_variants_raise():
     assert bk.kernel_for(BLS) is bk.BLS_BUCKET_ACCUMULATE
     assert pk.kernel_for("pt_double", BLS) is pk.BLS_PT_DOUBLE
     chained = {"pt_ladder_horner": "ladder_kernels.cu", "pt_fixed_base": "chain_kernels.cu",
-               "pt_tree_sum": "chain_kernels.cu"}
+               "pt_tree_sum": "chain_kernels.cu", "pt_scalar_mul": "chain_kernels.cu"}
     assert {pk.kernel_for(op, BLS).source for op in pk._VARIANTS if op not in chained} == {"bls_kernels.cu"}
     assert all(pk.kernel_for(op, BLS).source == src for op, src in chained.items())
     for cs in (ED, tgd.SECP256K1, BLS):

@@ -2,10 +2,12 @@
 Edwards window step and encode_batch of dkg_tpu_torch against dkg_tpu's
 and the host big-int oracles.
 
-scalar_mul runs 64 window steps a call (each one ``pt_window_step``, on
-the CPU its plain version), so each case is one batched call covering its
+scalar_mul runs 64 window steps a call (all of them one
+``pt_scalar_mul`` launch, on the CPU its plain version, the loop of
+``pt_window_step_plain``), so each case is one batched call covering its
 edge scalars (0, 1, order - 1), the identity and projective points with
-Z != 1.  Everything is compared by exact equality: limbs against the JAX
+Z != 1; a table a lane and the KEM's tables shared by dealers are both
+held against the JAX package's limbs.  Everything is compared by exact equality: limbs against the JAX
 package, group elements against the host ladder, bytes against
 ``HostGroup.encode``."""
 
@@ -74,6 +76,19 @@ def test_scalar_mul_shares_one_point_across_scalars(r255_lanes):
     got = tgd.scalar_mul(tcs, to_torch(ks[:2]), one)
     lanes = tgd.scalar_mul(tcs, to_torch(ks[:2]), one.expand(2, *one.shape))
     assert torch.equal(got, lanes)
+
+
+def test_scalar_mul_kem_broadcast_matches_the_jax_package(r255_lanes):
+    """The KEM's layout: scalars (2, 4) over 4 recipients' points, each
+    point's table read by both dealers' lanes (pt_scalar_mul's table rows,
+    never copied to the batch); every dealer's row equals the JAX
+    package's scalar_mul of the same (scalar, point) lanes, limb for limb."""
+    ks, pts, want, _ = r255_lanes
+    tcs = tgd.RISTRETTO255
+    k2 = to_torch(np.stack([ks, ks]))
+    got = tgd.scalar_mul(tcs, k2, to_torch(pts))
+    assert got.shape == (2, 4, tcs.ncoords, tcs.field.limbs)
+    assert same(got[0], want) and same(got[1], want)
 
 
 @pytest.mark.parametrize("k", [0, 1, 4, 8])
