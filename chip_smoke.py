@@ -17,8 +17,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    fields of their family), and at the shapes its ceremony path gives it,
    where both are also timed (CUDA events over repeated wrapper
    calls, the operands' broadcast copies included; the bucket kernels'
-   plain versions, m sequential steps, once, and BLS12-381's on the first
-   32 of its 342 columns only, which its row's plain_rows says).  Every
+   plain versions, m or 2 (2**c - 1) sequential steps, once, and
+   bucket_accumulate's on BLS12-381 on the first 32 of its 342 columns
+   only; some other plain versions on the first rows of the path's
+   shape, as each row's plain_rows says).  Each kernel line ends with
+   the seconds its checks took.  Every
    curve's window step (the Edwards one a single launch too) is held and
    timed at the Straus RLC's k = 4, the Pippenger combine's k = 8 and the
    KEM's n * n lanes at k = 4; each curve's pt_double, on no path, at its
@@ -52,7 +55,19 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    recipient's n opens, against 64 gathered
    pt_window_step launches; edges: k = 0, 1, order - 1, zero digit
    windows, the identity, a table a lane, one shared table, a table a
-   recipient).
+   recipient).  And the gemm family's whole batch inversion,
+   mxu_batch_inv (every multiply the fused multiply-reduce with its fold
+   on the tensor cores, a warp's 32 columns in lockstep), at the
+   commitments laid out as affine_canon(mul="gemm") lays them, against the
+   route it replaces (the 256-row chain of mxu_mod_mul launches) and at
+   mod_batch_inv's edges and a column count that is not a multiple of 32;
+   and the Pippenger RLC's
+   pt_bucket_sum (the scatter from sorted bucket lists, the commitments
+   read in place in their (n, t+1) order) and pt_bucket_close (the whole
+   suffix sum of a (column, window)), against their routes
+   (bucket_accumulate; 2 (2**c - 1) pt_add launches) and at edges (c = 4
+   and 8, identity points, all digits zero, one bucket holding every
+   point, m = 1, B = 1 and 33, bucket_accumulate's layout).
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
    be > 0, and eval_point_poly, eval_many and _field_dot one launch each
@@ -60,21 +75,23 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    pt_ladder_mul_add and mod_madd 0), each fixed_base_mul one
    pt_fixed_base (4; pt_madd 0), each tree reduction one pt_tree_sum
    (Straus: 32 windows and the master key, 33; Pippenger: 1) and pt_add
-   the table build, E and the left side (16; Pippenger adds its bucket
-   closes, 2 (2**c - 1)), pt_window_step one a window of the point RLC
-   (32; Pippenger 128 / c), each canonical affine form one mod_batch_inv
-   (2) and its coordinates' mod_mul (4, 6 on ristretto255, with gd.eq's
-   4 more; under mul="gemm" no mod_batch_inv and the JAX package's
-   mxu_mod_mul chain, 2540 / 2548 / 2750):
+   the table build, E and the left side (16; Pippenger 2, with one
+   pt_bucket_sum, one pt_bucket_close and no bucket_accumulate),
+   pt_window_step one a window of the point RLC (32; Pippenger 128 / c),
+   each canonical affine form one mod_batch_inv (2) and its coordinates'
+   mod_mul (4, 6 on ristretto255, with gd.eq's 4 more; under mul="gemm"
+   one mxu_batch_inv each (2), no mod_batch_inv, and the coordinates'
+   mxu_mod_mul, 4 or 6):
    - BatchedCeremony("secp256k1", 1024, 341) (BASELINE.md config 3);
    - BatchedCeremony("ristretto255", 256, 85) (BASELINE.md config 2);
    - BatchedCeremony("bls12_381_g1", 1024, 341) (BASELINE.md config 5,
      its n = 16384 cut to config 3's committee);
-   each with the Straus point RLC and the device transcript digest with
-   mod_mul's multiply (the defaults), then again with
-   run(rlc="pippenger"), whose scatter pass is bucket_accumulate, and
-   with run(mul="gemm"), whose canonical affine form multiplies through
-   mxu_mod_mul.  Checks ok, the master key, some commitments and shares
+   each with the Straus point RLC (named; the JAX package's default) and
+   the device transcript digest with mod_mul's multiply (the defaults),
+   then again with run(rlc="pippenger") (the default),
+   whose scatter and close are pt_bucket_sum and
+   pt_bucket_close, and with run(mul="gemm"), whose canonical affine form
+   inverts through mxu_batch_inv and multiplies through mxu_mod_mul.  Checks ok, the master key, some commitments and shares
    against host big-int oracles, that the other runs' outputs equal the
    Straus run's, and that no plain field multiply reached a CUDA tensor.
    Once per path, on the Straus run's round-1 tensors, the device digest
@@ -82,9 +99,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    other) and the host leg give the same three (n, 8) row arrays and the
    run's rho.  On the BLS12-381 path only (the earlier paths skip these
    repeated passes to keep the command's time) it also splits both legs
-   of the fiat_shamir phase step by step and runs the Straus path twice
-   more under torch.profiler for device time by kernel and the busy
-   share (a call's mean).
+   of the fiat_shamir phase step by step and runs the Pippenger path (the
+   default) twice more under torch.profiler for device time by kernel and
+   the busy share (a call's mean).
 5. The dealing round's share encryption on each Straus run's shares and
    hidings (hybrid_batch: the KEM c1 = g·r and kem = r·pk on the card,
    the DEM on the host): recipient keys and randomness from the path's
@@ -115,8 +132,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
    for all of them; for the multi-step kernels also the one-step route's
-   device ms and ptxas's registers and spill bytes, per group size for
-   the chained ones),
+   device ms (for pt_bucket_sum bucket_accumulate's, for pt_bucket_close
+   the pt_add launches', for mxu_batch_inv the mxu_mod_mul chain's) and
+   ptxas's registers and spill bytes, per group size for the chained ones),
    the card line again, and last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero without the last line;
@@ -180,8 +198,9 @@ class Path:
 
     def pippenger(self) -> Path:
         """The same ceremony with the Pippenger point RLC, which adds the
-        curve's bucket kernel to the path."""
-        return dataclasses.replace(self, rlc="pippenger", kernels=self.kernels + (bk.kernel_for(self.cs),))
+        curve's pt_bucket_sum and pt_bucket_close to the path."""
+        return dataclasses.replace(self, rlc="pippenger",
+                                   kernels=self.kernels + (bk.sum_kernel_for(self.cs), bk.close_kernel_for(self.cs)))
 
     def exact_launches(self) -> dict:
         """Launch counts a run of the ceremony must read exactly: the point
@@ -190,20 +209,22 @@ class Path:
         fixed_base_mul one pt_fixed_base each, and no pt_madd; one
         pt_tree_sum a Straus window (RHO_BITS / 4 of them) and one for the
         master key; pt_add the 14 table adds, E = A + B and the left side,
-        or under Pippenger E, the left side and the 2 (2**c - 1) bucket
-        closes; pt_window_step one a window of the point RLC; the digest's
-        two canonical affine forms (:func:`canon_launches`) and gd.eq's four
-        mod_mul."""
+        or under Pippenger E and the left side alone, with one pt_bucket_sum
+        (no bucket_accumulate) and one pt_bucket_close; pt_window_step one a
+        window of the point RLC; the digest's two canonical affine forms
+        (:func:`canon_launches`) and gd.eq's four mod_mul."""
         cs = self.cs
         canon = canon_launches(cs, self.mul, 2)  # the digest's A and E
         mul = fk.mul_kernel_for(cs.field).name
         canon[mul] = canon.get(mul, 0) + 4  # and verify_batch's gd.eq, four products
+        buckets = {bk.kernel_for(cs).name: 0, bk.sum_kernel_for(cs).name: 0, bk.close_kernel_for(cs).name: 0}
         if self.rlc == "straus":
             trees, adds, steps = -(-RHO_BITS // gd.WINDOW) + 1, 14 + 2, -(-RHO_BITS // gd.WINDOW)
         else:
             c = gd.pippenger_window(self.n, cs.name)
-            trees, adds, steps = 1, 2 * ((1 << c) - 1) + 2, -(-RHO_BITS // c)
-        return {pk.kernel_for("pt_ladder_horner", cs).name: 1, fk.horner_kernel_for(cs.scalar).name: 2,
+            trees, adds, steps = 1, 2, -(-RHO_BITS // c)
+            buckets.update({bk.sum_kernel_for(cs).name: 1, bk.close_kernel_for(cs).name: 1})
+        return {**buckets, pk.kernel_for("pt_ladder_horner", cs).name: 1, fk.horner_kernel_for(cs.scalar).name: 2,
                 fk.dot_kernel_for(cs.scalar).name: 2, pk.kernel_for("pt_ladder_mul_add", cs).name: 0,
                 fk._FIELDS[cs.scalar][0].name: 0, pk.kernel_for("pt_fixed_base", cs).name: 4,
                 pk.kernel_for("pt_madd", cs).name: 0, pk.kernel_for("pt_tree_sum", cs).name: trees,
@@ -213,34 +234,36 @@ class Path:
         """The path's kernels that its verify phase launches: all but the
         deal's field Horner and the digest's batch inversion, and under
         Pippenger the tree sum (the master key's, in the finalise phase)."""
-        skip = {fk.horner_kernel_for(self.cs.scalar), fk.batch_inv_kernel_for(self.cs.field)}
+        skip = {fk.horner_kernel_for(self.cs.scalar), fk.batch_inv_kernel_for(self.cs.field),
+                mk.batch_inv_kernel_for(self.cs.field)}
         if self.rlc == "pippenger":
             skip.add(pk.kernel_for("pt_tree_sum", self.cs))
         return tuple(k for k in self.kernels if k not in skip)
 
     def gemm(self) -> Path:
         """The same ceremony with the canonical affine form's multiplies
-        through mxu_mod_mul, which adds the base field's mxu kernel and
-        drops mod_batch_inv (point equality keeps mod_mul's)."""
-        inv = fk.batch_inv_kernel_for(self.cs.field)
+        through the fused multiply-reduce, which adds the base field's
+        mxu_batch_inv and mxu_mod_mul and drops mod_batch_inv (point
+        equality keeps mod_mul's)."""
+        F = self.cs.field
+        inv = fk.batch_inv_kernel_for(F)
         return dataclasses.replace(self, mul="gemm", kernels=tuple(k for k in self.kernels if k is not inv)
-                                   + (mk.kernel_for(self.cs.field),))
+                                   + (mk.batch_inv_kernel_for(F), mk.kernel_for(F)))
 
 
 def canon_launches(cs, mul: str, calls: int) -> dict:
-    """Launches of ``calls`` affine_canon calls over more than 256 lanes:
-    under "classic" one mod_batch_inv each and the affine coordinates'
-    mod_mul (x·zi, y·zi, and on Edwards t = x·y); under "gemm" the JAX
-    package's chain down 256 rows, each multiply one mxu_mod_mul (255
-    forward, pow_const's square-and-multiply of p - 2, 510 backward) and
-    the coordinates', and no mod_batch_inv."""
+    """Launches of ``calls`` affine_canon calls: one batch inversion each
+    (mod_batch_inv under "classic", mxu_batch_inv under "gemm", none of
+    the other) and the affine coordinates' multiplies (x·zi, y·zi, and on
+    Edwards t = x·y: mod_mul, or mxu_mod_mul)."""
     F = cs.field
     coords = 3 if cs.kind == "edwards" else 2
+    classic = {fk.batch_inv_kernel_for(F).name: calls, fk.mul_kernel_for(F).name: coords * calls,
+               mk.batch_inv_kernel_for(F).name: 0}
     if mul == "classic":
-        return {fk.batch_inv_kernel_for(F).name: calls, fk.mul_kernel_for(F).name: coords * calls}
-    e = F.modulus - 2
-    chain = 3 * (gd.GEMM_INV_ROWS - 1) + e.bit_length() - 1 + bin(e).count("1") - 1
-    return {fk.batch_inv_kernel_for(F).name: 0, mk.kernel_for(F).name: (chain + coords) * calls}
+        return classic
+    return {fk.batch_inv_kernel_for(F).name: 0, mk.batch_inv_kernel_for(F).name: calls,
+            mk.kernel_for(F).name: coords * calls}
 
 
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
@@ -347,6 +370,15 @@ SOURCES = {
     "mod_batch_inv": ("inv_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
     "mod_batch_inv[ed25519]": ("inv_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
     "mod_batch_inv[bls12_381]": ("inv_kernels.cu", "dkg_tpu/ops/pallas_field.py:266"),
+    "mxu_batch_inv": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
+    "mxu_batch_inv[ed25519]": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
+    "mxu_batch_inv[bls12_381]": ("mxu_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:184"),
+    "pt_bucket_sum": ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
+    "pt_bucket_sum[edwards]": ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
+    "pt_bucket_sum[bls12_381]": ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
+    "pt_bucket_close": ("pippenger_kernels.cu", PDIR + ":258"),
+    "pt_bucket_close[edwards]": ("pippenger_kernels.cu", PDIR + ":258"),
+    "pt_bucket_close[bls12_381]": ("pippenger_kernels.cu", PDIR + ":258"),
 }
 # ptxas's entries of each multi-step kernel, by label: every string must
 # be in the mangled name, and none that starts with "!" (the field
@@ -367,6 +399,9 @@ PTXAS_ENTRIES = {
     "mod_batch_inv": {"": ("mod_batch_inv_kernel", "ILi0E")},
     "mod_batch_inv[ed25519]": {"": ("mod_batch_inv_kernel", "ILi2E")},
     "mod_batch_inv[bls12_381]": {"": ("mod_batch_inv_kernel", "ILi4E")},
+    "mxu_batch_inv": {"": ("mxu_batch_inv_kernel", "ILi16E")},
+    "mxu_batch_inv[ed25519]": {"": ("mxu_batch_inv_kernel", "ILi16E")},
+    "mxu_batch_inv[bls12_381]": {"": ("mxu_batch_inv_kernel", "ILi24E")},
     **{f"{op}{suffix}": {"one thread": (f"{op}_kernel", tag, "Li1EEEv"),
                          **({"group": (f"{op}_kernel", tag, "!Li1EEEv")} if group else {})}
        for op, suffix, tag, group in (
@@ -375,6 +410,14 @@ PTXAS_ENTRIES = {
            ("pt_tree_sum", "[edwards]", "Edwards25519", False), ("pt_tree_sum", "[bls12_381]", "Bls12381", True),
            ("pt_scalar_mul", "", "Secp256k1", True), ("pt_scalar_mul", "[edwards]", "Edwards25519", True),
            ("pt_scalar_mul", "[bls12_381]", "Bls12381", True))},
+    # pt_bucket_close is built at one setting a curve: groups of 4 threads on
+    # secp256k1 and BLS12-381, one thread on ristretto255
+    "pt_bucket_close": {"group": ("pt_bucket_close_kernel", "Secp256k1")},
+    "pt_bucket_close[edwards]": {"one thread": ("pt_bucket_close_kernel", "Edwards25519")},
+    "pt_bucket_close[bls12_381]": {"group": ("pt_bucket_close_kernel", "Bls12381")},
+    # pt_bucket_sum's template argument is its one-thread kind (LaneWs<curve>, LaneEd)
+    **{f"pt_bucket_sum{suffix}": {"one thread": ("pt_bucket_sum_kernel", tag)}
+       for suffix, tag in (("", "Secp256k1"), ("[edwards]", "LaneEd"), ("[bls12_381]", "Bls12381"))},
 }
 KERNELS = (*fk.KERNELS, *pk.KERNELS, *bk.KERNELS, *mk.KERNELS)
 
@@ -669,6 +712,43 @@ def bucket_fns(cs, window: int, nw: int):
             lambda p, d: bk.bucket_accumulate_plain(cs, p, d, 1 << window))
 
 
+def bucket_sum_fns(cs, window: int):
+    """(wrapper, plain) of pt_bucket_sum on ``cs`` at one window width."""
+    return (lambda p, d: bk.pt_bucket_sum(cs, p, d, window),
+            lambda p, d: bk.pt_bucket_sum_plain(cs, p, *bk.bucket_lists(d, window)))
+
+
+def bucket_close_fns(cs):
+    """(wrapper, plain) of pt_bucket_close on ``cs``."""
+    return (lambda b: bk.pt_bucket_close(cs, b), lambda b: bk.pt_bucket_close_plain(cs, b))
+
+
+def close_layouts_fns(cs):
+    """(wrapper, plain) of pt_bucket_close on ``cs`` over two layouts of
+    nb = 2**c - 1 buckets a window: ``wide`` (33, 2, nb + 1, C, L), held as
+    bucket_accumulate holds them (bucket 0 skipped by a view), and ``row``
+    (3, nb, C, L), one row of 3 windows; the plain version over all 69
+    windows at once, so that its 2 nb sequential steps run once."""
+    def wrapper(wide, row):
+        tail = wide.shape[-2:]
+        return torch.cat([bk.pt_bucket_close(cs, wide[..., 1:, :, :]).reshape((-1,) + tail),
+                          bk.pt_bucket_close(cs, row)])
+
+    def plain(wide, row):
+        nb, tail = row.shape[-3], row.shape[-2:]
+        return bk.pt_bucket_close_plain(cs, torch.cat([wide[..., 1:, :, :].reshape((-1, nb) + tail), row]))
+    return wrapper, plain
+
+
+def close_route(cs, buckets: torch.Tensor) -> torch.Tensor:
+    """The bucket close's old route: 2 (2**c - 1) pt_add launches."""
+    run = tot = gd.identity(cs, buckets.shape[:-3], device=buckets.device)
+    for e in reversed(range(buckets.shape[-3])):
+        run = pk.pt_add(cs, run, buckets[..., e, :, :])
+        tot = pk.pt_add(cs, tot, run)
+    return tot
+
+
 # random scatter passes per curve: (window, digits shared by the batch,
 # batch rows, m, nw); m = 515 crosses the kernel's 512-point digit tile at
 # window 4, nw = 30 leaves the last 8-window block part empty
@@ -826,6 +906,44 @@ def kernel_cases(rng) -> dict:
             path, *bucket_fns(cs, window, nw), bucket_rand,
             [points((t + 1, n)), pk.window_digits(rho, window)[:, :nw].contiguous()],
             add_c * (t + 1) * n * nw, plain_reps=1, plain_rows=BUCKET_PLAIN_ROWS.get(cs.name))
+        # its redesign for the RLC's shared digits, pt_bucket_sum: the same
+        # commitments held as the ceremony holds them, (n, t+1), read as
+        # (t+1, n) through strides, against its route (bucket_accumulate's
+        # buckets from 1 on); every row of every non-zero digit's bucket
+        # takes one add.  At random inputs, at c = 4 and 8: identity points
+        # (every 7th), digit-0 points, an empty bucket, all digits zero, one
+        # bucket holding every point, m = 1, B = 1 and B = 33 (not a multiple
+        # of a warp), points in either layout
+        digits_main = pk.window_digits(rho, window)[:, :nw].contiguous()
+        sum_fns = bucket_sum_fns(cs, window)
+        sum_rand = []
+        for w in (4, 8):
+            rows_m = points((37, 33))
+            d = rand_digits(rng, (37, 3), w)
+            d[:, 1] = 5  # window 1: one bucket holding every point
+            sum_rand += [(f"window {w}, (33, 37) points in the (m, B) layout, shared (37, 3) digits",
+                          *bucket_sum_fns(cs, w), [rows_m.movedim(0, 1), d]),
+                         (f"window {w}, (1, 37) points, all digits zero", *bucket_sum_fns(cs, w),
+                          [points((1, 37)), torch.zeros_like(d)]),
+                         (f"window {w}, (5, 1) points", *bucket_sum_fns(cs, w),
+                          [points((5, 1)), torch.tensor([[1, 3, 0]], dtype=torch.int32, device=DEV)])]
+        cases[bk.sum_kernel_for(cs).name] = Case(
+            path, *sum_fns, sum_rand, [points((n, t + 1)).movedim(0, 1), digits_main],
+            add_c * (t + 1) * int((digits_main != 0).sum()), plain_reps=1, plain_rows=32,
+            route=lambda p, d, cs=cs, w=window, k=nw: bk.bucket_accumulate(cs, p, d, w, k)[..., 1:, :, :])
+        # the bucket close in one launch: the t+1 columns' nw windows of
+        # 2**c - 1 buckets in pt_bucket_sum's layout, against its route (2
+        # (2**c - 1) pt_add launches) and its plain version, both at the
+        # path's full shape; at random inputs, at c = 4 and 8, identity
+        # buckets among them, B = 33 in bucket_accumulate's layout (bucket 0
+        # skipped by a view) and one row of 3 windows
+        nb = (1 << window) - 1
+        close_rand = [(f"window {w}, (33, 2) windows in bucket_accumulate's layout and one row of 3",
+                       *close_layouts_fns(cs), [points((33, 2, 1 << w)), points((3, (1 << w) - 1))])
+                      for w in (4, 8)]
+        cases[bk.close_kernel_for(cs).name] = Case(
+            path, *bucket_close_fns(cs), close_rand, [points((nw, nb, t + 1)).movedim(2, 0)],
+            add_c * (t + 1) * nw * 2 * nb, plain_reps=1, route=lambda b, cs=cs: close_route(cs, b))
         # one Horner step of eval_point_poly: acc (n,), D_l one point, x = 1..n
         x_rand = torch.from_numpy(rng.integers(0, 1 << path.index_bits, size=R).astype(np.int32)).to(DEV)
         x_main = torch.arange(1, n + 1, dtype=torch.int32, device=DEV)
@@ -906,8 +1024,32 @@ def kernel_cases(rng) -> dict:
             cases[fk.batch_inv_kernel_for(F).name + suffix] = Case(
                 path, *inv, inv_rand if not suffix else [], [nonzero_field(rng, F, (rows, m // rows))],
                 MADD_FIELD[F.name] * (3 * (m - 1) + chain_muls), plain_reps=1,
-                route=lambda x, F=F: fd.batch_inv(F, x.reshape(gd.GEMM_INV_ROWS, -1, F.limbs),
+                route=lambda x, F=F: fd.batch_inv(F, x.reshape(256, -1, F.limbs),
                                                   mul=fk.mod_mul).reshape(x.shape))
+        # mul="gemm"'s whole batch inversion in one launch, every multiply the
+        # tensor-core multiply-reduce: the n(t+1) commitments' non-zero Z as
+        # affine_canon lays them out, (GEMM_INV_ROWS, lanes / GEMM_INV_ROWS),
+        # against the route it replaces (the JAX package's 256 rows, each
+        # multiply one mxu_mod_mul launch); at random inputs the edges of
+        # mod_batch_inv's (1, p - 1, 2, p - 2 down a column, a repeated
+        # element, a zero column, k = 1) and a column count that is not a
+        # multiple of a warp (padded with ones), and 2**16 lanes
+        ginv = (lambda x, F=F: mk.mxu_batch_inv(F, x), lambda x, F=F: mk.mxu_batch_inv_plain(F, x))
+        grows = gd.GEMM_INV_ROWS
+        gcols = nonzero_field(rng, F, (grows, 40))
+        gcols[:, 1] = gcols[0, 1]
+        gcols[3, 2] = 0
+        ginv_rand = [("1, p - 1, 2, p - 2 down a column", *ginv, [ends]),
+                     (f"{grows} rows, 40 columns: a repeated element, a zero", *ginv, [gcols]),
+                     ("k = 1, 1000 columns", *ginv, [nonzero_field(rng, F, (1, 1000))]),
+                     (f"{lanes} at {grows} rows", *ginv, [nonzero_field(rng, F, (grows, R[0] // grows))])]
+        g32, g8 = mxu_ops(F)
+        gmuls = 3 * (lanes_all - 1) + chain_muls
+        cases[mk.batch_inv_kernel_for(F).name] = Case(
+            path, *ginv, ginv_rand, [nonzero_field(rng, F, (grows, -(-lanes_all // grows)))],
+            0, g32 * gmuls, g8 * gmuls, plain_reps=1,
+            route=lambda x, F=F: fd.batch_inv(F, x.reshape(256, -1, F.limbs),
+                                              mul=mk.mxu_mod_mul).reshape(x.shape))
         # every window of scalar_mul in one launch: the seal's KEM (n x n
         # scalars over the n recipients' 16-entry tables, each table read in
         # place by its n dealers) and, in their own rows, a default seal
@@ -952,7 +1094,7 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
 def check_kernels(rng) -> dict:
     out = {}
     for name, case in kernel_cases(rng).items():
-        err = 0
+        t_case, err = time.perf_counter(), 0
         for label, wrapper, plain, args in case.rand_args:
             err = max(err, held(f"{name} {label}", wrapper(*args), plain(*args)))
         ms, res = cuda_ms(lambda: case.wrapper(*case.main_args), reps=10)
@@ -990,7 +1132,8 @@ def check_kernels(rng) -> dict:
               f"plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.6f} ms "
               f"({out[name]['bound_by']})"
               + (f"; equal to its one-step route, device {route['one_step_device_ms']:.4f} ms; ptxas "
-                 + json.dumps(route["ptxas"]) if route else ""), flush=True)
+                 + json.dumps(route["ptxas"]) if route else "")
+              + f"; {time.perf_counter() - t_case:.1f} s", flush=True)
     return out
 
 
@@ -1202,9 +1345,10 @@ def digest_legs(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
 # not; "pt_add_kernel" is also inside "ed_pt_add_kernel" (and
 # "pt_window_step_kernel" inside "ed_pt_window_step_kernel"), so the
 # Edwards kernels come first, and "mod_mul_kernel" is inside "mxu_mod_mul_kernel".
-# The field kernels' names carry a field id: "madd", "mul", "mxu" and
-# "batch_inv" stand for the path's own family of mod_madd, mod_mul,
-# mxu_mod_mul and mod_batch_inv.
+# The field kernels' names carry a field id or limb count: "madd", "mul",
+# "mxu", "batch_inv" and "mxu_batch_inv" stand for the path's own family of
+# mod_madd, mod_mul, mxu_mod_mul, mod_batch_inv and
+# mxu_batch_inv.
 PROFILE_GROUPS = (
     (("ed_pt_add_kernel",), "pt_add[edwards]"), (("ed_pt_madd_kernel",), "pt_madd[edwards]"),
     (("ed_pt_double_kernel",), "pt_double[edwards]"), (("ed_pt_ladder_kernel",), "pt_ladder_mul_add[edwards]"),
@@ -1219,9 +1363,11 @@ PROFILE_GROUPS = (
     *(((f"{op}_kernel", tag), op + suffix)
       for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"), ("Edwards25519", "[edwards]"))
       for op in ("pt_fixed_base", "pt_tree_sum")),
-    *((("pt_scalar_mul_kernel", tag), "pt_scalar_mul" + suffix)
-      for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"), ("Edwards25519", "[edwards]"))),
-    (("mod_batch_inv_kernel",), "batch_inv"),
+    *(((f"{op}_kernel", tag), op + suffix)
+      for tag, suffix in (("Secp256k1", ""), ("Bls12381", "[bls12_381]"), ("Edwards25519", "[edwards]"))
+      for op in ("pt_scalar_mul", "pt_bucket_sum", "pt_bucket_close")),
+    (("pt_bucket_sum_kernel", "LaneEd"), "pt_bucket_sum[edwards]"),
+    (("mod_batch_inv_kernel",), "batch_inv"), (("mxu_batch_inv_kernel",), "mxu_batch_inv"),
     (("mxu_mod_mul_kernel",), "mxu"), (("mod_mul_kernel",), "mul"), (("mod_madd_kernel",), "madd"),
     (("mod_madd_horner_kernel",), "madd_horner"), (("mod_madd_dot_kernel",), "madd_dot"),
     (("Memcpy DtoH",), "copy to host"),
@@ -1256,7 +1402,7 @@ def profiled(path: Path, label: str, fn, kernels: tuple | None = None, calls: in
 
     F, S = path.cs.field, path.cs.scalar
     family = {"madd": fk._FIELDS[S][0].name, "mul": fk.mul_kernel_for(F).name, "mxu": mk.kernel_for(F).name,
-              "batch_inv": fk.batch_inv_kernel_for(F).name,
+              "batch_inv": fk.batch_inv_kernel_for(F).name, "mxu_batch_inv": mk.batch_inv_kernel_for(F).name,
               "madd_horner": fk.horner_kernel_for(S).name, "madd_dot": fk.dot_kernel_for(S).name}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1281,7 +1427,8 @@ def profiled(path: Path, label: str, fn, kernels: tuple | None = None, calls: in
 
 
 def profile_main_path(path: Path, seed: int) -> None:
-    """The main path twice more under torch.profiler, in one session: late
+    """The main path (its default schedule) twice more under
+    torch.profiler, in one session: late
     in the process the profiler dropped the records of the session's first
     kernels (the deal's), as it did the verify phase's."""
     c = cer.BatchedCeremony(path.curve, path.n, path.t, path.shared, random.Random(seed), device=DEV)
@@ -1513,6 +1660,10 @@ def main() -> None:
           flush=True)
 
     t0 = time.perf_counter()
+
+    def stamp(what: str) -> None:  # the command's host seconds so far, at each stage's end
+        print(f"elapsed {time.perf_counter() - t0:.1f} s: {what}", flush=True)
+
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(build.SOURCES)}", flush=True)
     for src, log in build.BUILD_LOGS.items():
@@ -1522,6 +1673,7 @@ def main() -> None:
 
     rng = np.random.default_rng(args.seed)
     numbers = check_kernels(rng)
+    stamp("kernels against their plain versions")
     launches = {}  # kernel name -> the first non-zero count a main path read, else 0
 
     def keep(path_launches: dict) -> None:
@@ -1533,10 +1685,12 @@ def main() -> None:
         c, out, path_launches = main_path(path, args.seed)
         keep(path_launches)
         digest_legs(path, c, out)
+        stamp(f"{path.curve}: Straus run and digest legs")
         keep(seal_phase(path, c, out, args.seed))
-        if path in REPEATED_PASSES:
-            profile_main_path(path, args.seed)
+        stamp(f"{path.curve}: seal")
         pip = path.pippenger()
+        if path in REPEATED_PASSES:
+            profile_main_path(pip, args.seed)
         _, pip_out, pip_launches = main_path(pip, args.seed)
         same_outputs(pip.tag, pip_out, out)
         keep(pip_launches)
@@ -1553,10 +1707,12 @@ def main() -> None:
               flush=True)
         del gemm_out
         rlc_schedules(path, c, out)
+        stamp(f"{path.curve}: Pippenger and gemm runs, RLC schedules")
         del c, out
     for i, path in enumerate(PATHS):
         for rlc in ("straus", "pippenger"):
             tampered(path.curve, args.seed + 1 + i, rlc)
+    stamp("tampered runs")
 
     rows = []
     for name, rec in numbers.items():

@@ -109,6 +109,27 @@ struct LaneEd {
   __device__ __forceinline__ bool any(bool p) const { return p; }
 };
 
+#ifdef __CUDACC__
+// The kind at group size TPI: group.cuh's over a warp group, or at
+// TPI = 1 the one-thread kinds above (the card only: WarpGroup reads
+// threadIdx).
+template <template <class, class> class Kind, class C, int TPI>
+struct KindAt {
+  using type = Kind<C, WarpGroup<TPI>>;
+  static __device__ __forceinline__ type make() { return type{WarpGroup<TPI>(threadIdx.x)}; }
+};
+template <class C>
+struct KindAt<GroupWs, C, 1> {
+  using type = LaneWs<C>;
+  static __device__ __forceinline__ type make() { return type{}; }
+};
+template <class C>
+struct KindAt<GroupEd, C, 1> {
+  using type = LaneEd;
+  static __device__ __forceinline__ type make() { return type{}; }
+};
+#endif
+
 // int32 limbs of a stored point of kind K, and 32-bit words of one in
 // shared memory
 template <class K>

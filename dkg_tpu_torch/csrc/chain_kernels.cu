@@ -110,24 +110,6 @@ __host__ __device__ constexpr int min_blocks() {
 #endif
 }
 
-// The kind at group size TPI: group.cuh's over a warp group, or at
-// TPI = 1 the one-thread kinds of chain.cuh.
-template <template <class, class> class Kind, class C, int TPI>
-struct KindAt {
-  using type = Kind<C, WarpGroup<TPI>>;
-  static __device__ __forceinline__ type make() { return type{WarpGroup<TPI>(threadIdx.x)}; }
-};
-template <class C>
-struct KindAt<GroupWs, C, 1> {
-  using type = LaneWs<C>;
-  static __device__ __forceinline__ type make() { return type{}; }
-};
-template <class C>
-struct KindAt<GroupEd, C, 1> {
-  using type = LaneEd;
-  static __device__ __forceinline__ type make() { return type{}; }
-};
-
 template <int TPI>
 struct CudaBlock {
   __device__ __forceinline__ int groups() const { return blockDim.x / TPI; }

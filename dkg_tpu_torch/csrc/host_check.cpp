@@ -16,7 +16,12 @@
 // pt_fixed_base's and pt_scalar_mul's lanes and pt_tree_sum's block
 // (whose threads also meet at a barrier for each __syncthreads), at one
 // thread a lane or, where chain_kernels.cu builds it, a group of TPI.
-// And mod_batch_inv's column (inv.cuh, inv_kernels.cu).
+// And mod_batch_inv's column (inv.cuh, inv_kernels.cu).  And the tensor-
+// core multiply-reduce of mxu_warp.cuh (alone, and in mxu_kernels.cu's
+// mxu_batch_inv column), whose warp is 32 fibers and whose mma is built
+// from the PTX ISA's fragment tables for m16n8k32; and pt_bucket_sum's and
+// pt_bucket_close's lanes (pippenger.cuh, pippenger_kernels.cu) with the
+// kernels' lane maps, the close at one thread a lane or a group of TPI.
 #include <ucontext.h>
 
 #include <functional>
@@ -28,7 +33,8 @@
 #include "group.cuh"
 #include "horner.cuh"
 #include "inv.cuh"
-#include "mxu.cuh"
+#include "mxu_warp.cuh"
+#include "pippenger.cuh"
 
 using namespace dkg;
 
@@ -534,6 +540,180 @@ int chain_at(int curve, int tpi, A... args) {
     default: return 1;
   }
 }
+
+// A warp's mma as the PTX ISA lays out its fragments (m16n8k32, .u8 A
+// row-major, .u8 B column-major, .s32 C and D; groupID g = lane / 4,
+// threadID_in_group t = lane % 4, element i of a register in its byte
+// i % 4): every lane posts its A and B registers, lane 0 assembles the
+// two tiles from the tables and multiplies them, and every lane adds its
+// four elements of the product to its d.
+struct MmaExchange {
+  Exchange ex;
+  uint32_t a[32][4], b[32][2];
+  int32_t d[16][8];
+};
+
+struct HostWarp {
+  uint32_t* buf;
+  int lane;
+  MmaExchange* x;
+  void sync() const { x->ex.sync(); }
+  void mma(uint32_t d[4], const uint32_t a[4], const uint32_t b[2]) const {
+    for (int i = 0; i < 4; ++i) x->a[lane][i] = a[i];
+    x->b[lane][0] = b[0];
+    x->b[lane][1] = b[1];
+    x->ex.sync();
+    if (lane == 0) {
+      uint32_t A[16][32], B[32][8];
+      for (int l = 0; l < 32; ++l) {
+        const int g = l >> 2, t = l & 3;
+        for (int i = 0; i < 16; ++i) {  // a_i
+          const int row = (i < 4 || (i >= 8 && i < 12)) ? g : g + 8;
+          const int col = t * 4 + (i & 3) + (i >= 8 ? 16 : 0);
+          A[row][col] = (x->a[l][i / 4] >> (8 * (i % 4))) & 0xFFu;
+        }
+        for (int i = 0; i < 8; ++i) {  // b_i
+          const int row = t * 4 + (i & 3) + (i >= 4 ? 16 : 0);
+          B[row][g] = (x->b[l][i / 4] >> (8 * (i % 4))) & 0xFFu;
+        }
+      }
+      for (int r = 0; r < 16; ++r)
+        for (int c = 0; c < 8; ++c) {
+          uint32_t sum = 0;
+          for (int k = 0; k < 32; ++k) sum += A[r][k] * B[k][c];
+          x->d[r][c] = (int32_t)sum;
+        }
+    }
+    x->ex.sync();
+    const int g = lane >> 2, t = lane & 3;
+    for (int i = 0; i < 4; ++i) d[i] += (uint32_t)x->d[i < 2 ? g : g + 8][t * 2 + (i & 1)];
+  }
+};
+
+// body(w) on each lane of a warp of 32 fibers, sharing one staging buffer.
+template <int L, class Body>
+void on_mxu_warp(Body body) {
+  MmaExchange x;
+  x.ex.threads = 32;
+  std::vector<uint32_t> buf(MxuTiles<L>::kWords);
+  std::vector<std::function<void()>> threads;
+  for (int l = 0; l < 32; ++l) threads.emplace_back([&, l] { body(HostWarp{buf.data(), l, &x}); });
+  Fibers().run(std::move(threads));
+}
+
+// mxu_warp.cuh's multiply-reduce, the one that mxu_batch_inv's column runs,
+// a warp of 32 lanes at a time (a lane past n runs lane n - 1 and stores
+// nothing).  mode 0: (a, b) -> a * b mod p;
+// mode 1: 2L columns at a -> their value mod p (steps 2 to 8).
+template <int L>
+void mxu_warp_lanes(int mode, const int32_t* a, const int32_t* b, int32_t* out, int64_t n,
+                    const uint32_t* foldm, const MulRed& k) {
+  for (int64_t base = 0; base < n; base += 32) {
+    on_mxu_warp<L>([&](const HostWarp& w) {
+      MxuFrags<L> fr;
+      mxu_load_frags<L>(fr, foldm, w.lane);
+      const int64_t i = base + w.lane, own = i < n ? i : n - 1;
+      uint32_t r[L];
+      if (mode == 0) {
+        uint32_t x[L], y[L];
+        load_limbs<L>(a + own * L, x);
+        load_limbs<L>(b + own * L, y);
+        mxu_warp_mul<L>(w, x, y, r, k, fr);
+      } else {
+        uint32_t col[2 * L];
+        for (int j = 0; j < 2 * L; ++j) col[j] = (uint32_t)a[own * 2 * L + j];
+        mxu_warp_reduce<L>(w, col, r, k, fr);
+      }
+      if (i < n) store_limbs<L>(out + i * L, r);
+    });
+  }
+}
+
+// mxu_kernels.cu's mxu_batch_inv_kernel, a warp of 32 columns at a time.
+template <int L>
+void mxu_batch_inv_warps(const int32_t* x, int32_t* out, int64_t rows, int64_t cols,
+                         const uint32_t* foldm, const MulRed& k, const int32_t* chain,
+                         int chain_len, int npow) {
+  for (int64_t base = 0; base < cols; base += 32) {
+    on_mxu_warp<L>([&](const HostWarp& w) {
+      MxuFrags<L> fr;
+      mxu_load_frags<L>(fr, foldm, w.lane);
+      const int64_t col = base + w.lane;
+      mxu_batch_inv_column<L>(w, x + col * L, out + col * L, rows, cols * L, chain, chain_len,
+                              npow, k, fr);
+    });
+  }
+}
+
+// pippenger_kernels.cu's pt_bucket_sum_kernel, a lane at a time: lane
+// ((w nb + e - 1) bp + b) over batch rows padded to bp, a multiple of a
+// warp's 32.
+template <template <class, class> class Kind, class C>
+void bucket_sum_lanes(const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
+                      const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw,
+                      int nb) {
+  using K = typename HostKind<Kind, C, 1>::type;
+  const int64_t bp = (batch + 31) / 32 * 32;
+  for (int64_t lane = 0; lane < (int64_t)nw * nb * bp; ++lane) {
+    const int64_t b = lane % bp, bucket = lane / bp;
+    const int w = (int)(bucket / nb), e = (int)(bucket % nb) + 1;
+    const int32_t* st = starts + (int64_t)w * (nb + 2);
+    const int64_t own = b < batch ? b : batch - 1;
+    bucket_sum_lane(K{}, pts + own * sb, sj, order + (int64_t)w * m, st[e], st[e + 1] - st[e],
+                    b < batch ? out + (bucket * batch + b) * stored_limbs<K>() : nullptr);
+  }
+}
+
+// pippenger_kernels.cu's pt_bucket_close_kernel: lane (w bp + b).
+template <template <class, class> class Kind, class C, int TPI>
+void bucket_close_lanes(const int32_t* src, int64_t sb, int64_t sw, int64_t se, int32_t* out,
+                        int64_t batch, int nw, int nb) {
+  using K = typename HostKind<Kind, C, TPI>::type;
+  constexpr int kGroups = 32 / TPI;
+  const int64_t bp = (batch + kGroups - 1) / kGroups * kGroups;
+  auto run = [&](const K& kind, int64_t lane) {
+    const int64_t b = lane % bp, own = b < batch ? b : batch - 1;
+    const int w = (int)(lane / bp);
+    bucket_close_lane(kind, src + own * sb + w * sw, se, nb,
+                      b < batch ? out + (b * nw + w) * stored_limbs<K>() : nullptr);
+  };
+  const int64_t lanes = (int64_t)nw * bp;
+  if constexpr (TPI == 1) {
+    for (int64_t lane = 0; lane < lanes; ++lane) run(K{}, lane);
+  } else {
+    for (int64_t lane0 = 0; lane0 < lanes; lane0 += kGroups)
+      on_warp<K, TPI>(kGroups, [&](const K& kind, int q) { run(kind, lane0 + q); });
+  }
+}
+
+// The bucket close at group size tpi: 1, or where pippenger_kernels.cu
+// builds a group variant of it (kGroups) 2, 4, or on the 8-word fields 8;
+// returns 1 for another size.
+template <template <class, class> class Kind, class C, bool kGroups, class... A>
+int close_tpi(int tpi, A... args) {
+  switch (tpi) {
+    case 1: bucket_close_lanes<Kind, C, 1>(args...); return 0;
+    case 2:
+      if constexpr (kGroups) {
+        bucket_close_lanes<Kind, C, 2>(args...);
+        return 0;
+      }
+      return 1;
+    case 4:
+      if constexpr (kGroups) {
+        bucket_close_lanes<Kind, C, 4>(args...);
+        return 0;
+      }
+      return 1;
+    case 8:
+      if constexpr (kGroups && C::N % 8 == 0) {
+        bucket_close_lanes<Kind, C, 8>(args...);
+        return 0;
+      }
+      return 1;
+    default: return 1;
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -753,6 +933,66 @@ int host_pt_tree_sum(int curve, int tpi, int threads, const int32_t* src, int64_
   if (threads < tpi || threads > 32 || threads % tpi != 0 || m < 1 || levels < 0) return 1;
   return chain_at(curve, tpi, true, src, sb, sj, digits, dsb, dsj, out, cols, m, levels, 0, 0, 0,
                   threads);
+}
+
+// The tensor-core multiply-reduce over warps of 32 fibers: mode 0 a * b,
+// mode 1 columns at a (as host_mxu_mod_mul); the constants as
+// dkg_mxu_mod_mul takes them.  Returns 1 for another limb count.
+int host_mxu_warp_mod_mul(int mode, const int32_t* a, const int32_t* b, int32_t* out, int64_t n,
+                          int limbs, const void* foldm, const uint32_t* qtable, const uint32_t* c,
+                          const uint32_t* np, int n_split, int shift_e) {
+  const MulRed k{nullptr, qtable, c, np, n_split, shift_e};
+  const uint32_t* f = (const uint32_t*)foldm;
+  switch (limbs) {
+    case 16: mxu_warp_lanes<16>(mode, a, b, out, n, f, k); return 0;
+    case 24: mxu_warp_lanes<24>(mode, a, b, out, n, f, k); return 0;
+    default: return 1;
+  }
+}
+
+// x, out (rows, cols, limbs), cols a multiple of 32; the constants and
+// chain as dkg_mxu_batch_inv takes them.  Returns 1 for another shape.
+int host_mxu_batch_inv(const int32_t* x, int32_t* out, int64_t rows, int64_t cols, int limbs,
+                       const void* foldm, const uint32_t* qtable, const uint32_t* c,
+                       const uint32_t* np, int n_split, int shift_e, const int32_t* chain,
+                       int chain_len, int npow) {
+  if (rows < 1 || cols % 32 != 0 || chain_len < 1 || npow < 1 || npow > kInvMaxPowers) return 1;
+  const MulRed k{nullptr, qtable, c, np, n_split, shift_e};
+  const uint32_t* f = (const uint32_t*)foldm;
+  switch (limbs) {
+    case 16: mxu_batch_inv_warps<16>(x, out, rows, cols, f, k, chain, chain_len, npow); return 0;
+    case 24: mxu_batch_inv_warps<24>(x, out, rows, cols, f, k, chain, chain_len, npow); return 0;
+    default: return 1;
+  }
+}
+
+// curve: 0 secp256k1, 1 BLS12-381 G1, 2 edwards25519.  Points: row b's
+// point j at pts + b sb + j sj; order (nw, m), starts (nw, nb + 2); out
+// (nw, nb, batch, C, L).
+int host_pt_bucket_sum(int curve, const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
+                       const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw,
+                       int nb) {
+  if (batch < 1 || nw < 1 || nb < 1) return 1;
+  switch (curve) {
+    case 0: bucket_sum_lanes<GroupWs, Secp256k1>(pts, sb, sj, order, starts, out, batch, m, nw, nb); return 0;
+    case 1: bucket_sum_lanes<GroupWs, Bls12381>(pts, sb, sj, order, starts, out, batch, m, nw, nb); return 0;
+    case 2: bucket_sum_lanes<GroupEd, Edwards25519>(pts, sb, sj, order, starts, out, batch, m, nw, nb); return 0;
+    default: return 1;
+  }
+}
+
+// curve as above; tpi as close_tpi takes it (no group on edwards25519).
+// Buckets: row b's bucket e (1 .. nb) of window w at src + b sb + w sw +
+// (e - 1) se; out (batch, nw, C, L).
+int host_pt_bucket_close(int curve, int tpi, const int32_t* src, int64_t sb, int64_t sw, int64_t se,
+                         int32_t* out, int64_t batch, int nw, int nb) {
+  if (batch < 1 || nw < 1 || nb < 1) return 1;
+  switch (curve) {
+    case 0: return close_tpi<GroupWs, Secp256k1, true>(tpi, src, sb, sw, se, out, batch, nw, nb);
+    case 1: return close_tpi<GroupWs, Bls12381, true>(tpi, src, sb, sw, se, out, batch, nw, nb);
+    case 2: return close_tpi<GroupEd, Edwards25519, false>(tpi, src, sb, sw, se, out, batch, nw, nb);
+    default: return 1;
+  }
 }
 
 }  // extern "C"

@@ -70,13 +70,11 @@ __device__ __forceinline__ void mxu_columns(const uint32_t a[L], const uint32_t 
   }
 }
 
-// Steps 2 to 6: v[0..L] <- L + 1 normalized limbs congruent to the
-// columns' value mod p.
+// Step 2: dg <- the 3L + 1 digits of the columns, four bytes a word (the
+// words past the last digit's zero).
 template <int L>
-__device__ __forceinline__ void mxu_fold(const uint32_t col[2 * L], uint32_t v[L + 1],
-                                         const MulRed& k) {
+__device__ __forceinline__ void mxu_digits(const uint32_t col[2 * L], uint32_t dg[]) {
   constexpr int K4 = mulred_words<L>();
-  uint32_t dg[K4];
 #pragma unroll
   for (int w = 0; w < K4; ++w) dg[w] = 0;
 #pragma unroll
@@ -93,17 +91,18 @@ __device__ __forceinline__ void mxu_fold(const uint32_t col[2 * L], uint32_t v[L
     }
     dg[i / 4] |= d << (8 * (i % 4));
   }
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    uint32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int w = 0; w < K4; ++w) {
-      lo = dot4(k.foldm[(2 * j) * K4 + w], dg[w], lo);
-      hi = dot4(k.foldm[(2 * j + 1) * K4 + w], dg[w], hi);
-    }
-    const uint32_t keep = j < L - 1 ? col[j] : (col[L - 1] & 0xFFFFu);
-    v[j] = keep + lo + (hi << 8);
-  }
+}
+
+// Step 4's kept part of limb j: the low columns, P_{L-1} without its spill.
+template <int L>
+__device__ __forceinline__ uint32_t mxu_keep(const uint32_t col[2 * L], int j) {
+  return j < L - 1 ? col[j] : (col[L - 1] & 0xFFFFu);
+}
+
+// Steps 5 and 6: v[0..L) (step 4's limbs) <- L + 1 normalized limbs of
+// the same value mod p.
+template <int L>
+__device__ __forceinline__ void mxu_settle(uint32_t v[L + 1], const MulRed& k) {
   for (int it = 0; it < k.n_split; ++it) {
     const uint32_t top = v[L - 1] >> 16;
     uint32_t prev = 0;
@@ -122,6 +121,27 @@ __device__ __forceinline__ void mxu_fold(const uint32_t col[2 * L], uint32_t v[L
     carry = s >> 16;
   }
   v[L] = carry;
+}
+
+// Steps 2 to 6: v[0..L] <- L + 1 normalized limbs congruent to the
+// columns' value mod p, the fold by __dp4a.
+template <int L>
+__device__ __forceinline__ void mxu_fold(const uint32_t col[2 * L], uint32_t v[L + 1],
+                                         const MulRed& k) {
+  constexpr int K4 = mulred_words<L>();
+  uint32_t dg[K4];
+  mxu_digits<L>(col, dg);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int w = 0; w < K4; ++w) {
+      lo = dot4(k.foldm[(2 * j) * K4 + w], dg[w], lo);
+      hi = dot4(k.foldm[(2 * j + 1) * K4 + w], dg[w], hi);
+    }
+    v[j] = mxu_keep<L>(col, j) + lo + (hi << 8);
+  }
+  mxu_settle<L>(v, k);
 }
 
 // Steps 7 and 8: out[0..L) <- v mod p, for v below the bound the quotient
@@ -152,30 +172,39 @@ __device__ __forceinline__ void mxu_quotient(const uint32_t v[L + 1], uint32_t o
   for (int j = 0; j < L; ++j) out[j] = carry ? d[j] : w[j];
 }
 
-// One lane: out <- (a * b) mod p, L stored limbs each.
+// x[0..L) <- the L stored limbs at a, four at a time.
 template <int L>
-__device__ __forceinline__ void mxu_mul_lane(const int32_t* a, const int32_t* b, int32_t* out,
-                                             const MulRed& k) {
-  uint32_t x[L], y[L], col[2 * L], v[L + 1], r[L];
+__device__ __forceinline__ void load_limbs(const int32_t* a, uint32_t x[L]) {
   const Limbs4* av = reinterpret_cast<const Limbs4*>(a);
-  const Limbs4* bv = reinterpret_cast<const Limbs4*>(b);
 #pragma unroll
   for (int q = 0; q < L / 4; ++q) {
-    const Limbs4 s = av[q], t = bv[q];
+    const Limbs4 s = av[q];
     x[4 * q] = (uint32_t)s.x, x[4 * q + 1] = (uint32_t)s.y;
     x[4 * q + 2] = (uint32_t)s.z, x[4 * q + 3] = (uint32_t)s.w;
-    y[4 * q] = (uint32_t)t.x, y[4 * q + 1] = (uint32_t)t.y;
-    y[4 * q + 2] = (uint32_t)t.z, y[4 * q + 3] = (uint32_t)t.w;
   }
-  mxu_columns<L>(x, y, col);
-  mxu_fold<L>(col, v, k);
-  mxu_quotient<L>(v, r, k);
+}
+
+template <int L>
+__device__ __forceinline__ void store_limbs(int32_t* out, const uint32_t r[L]) {
   Limbs4* ov = reinterpret_cast<Limbs4*>(out);
 #pragma unroll
   for (int q = 0; q < L / 4; ++q) {
     ov[q] = Limbs4{(int32_t)r[4 * q], (int32_t)r[4 * q + 1], (int32_t)r[4 * q + 2],
                    (int32_t)r[4 * q + 3]};
   }
+}
+
+// One lane: out <- (a * b) mod p, L stored limbs each.
+template <int L>
+__device__ __forceinline__ void mxu_mul_lane(const int32_t* a, const int32_t* b, int32_t* out,
+                                             const MulRed& k) {
+  uint32_t x[L], y[L], col[2 * L], v[L + 1], r[L];
+  load_limbs<L>(a, x);
+  load_limbs<L>(b, y);
+  mxu_columns<L>(x, y, col);
+  mxu_fold<L>(col, v, k);
+  mxu_quotient<L>(v, r, k);
+  store_limbs<L>(out, r);
 }
 
 }  // namespace dkg

@@ -14,8 +14,8 @@ randomizers.  State is struct-of-arrays over all parties at once:
   transcript, folded with BLAKE2b, then n BLAKE2b randomizers; on the
   device leg (the default) the commitments are made canonical affine
   (``affine_canon``: the batch inversion one ``mod_batch_inv`` launch and
-  the affine coordinates ``mod_mul``'s, or under ``mul="gemm"`` every
-  multiply one ``mxu_mod_mul`` launch) and the Merkle rows hashed where
+  the affine coordinates ``mod_mul``'s, or under ``mul="gemm"`` one
+  ``mxu_batch_inv`` launch and ``mxu_mod_mul``'s) and the Merkle rows hashed where
   the tensors are (``crypto/device_hash.py``), only the (n, 8) row
   digests crossing to the host; the host leg does both on the host;
 * ``verify_batch`` — with randomizers rho_j each recipient i checks
@@ -23,7 +23,7 @@ randomizers.  State is struct-of-arrays over all parties at once:
   scalar RLCs (``_field_dot``, one ``mod_madd_dot`` launch each), the
   point RLC by Straus (``pt_add`` table builds, one ``pt_tree_sum`` and
   one ``pt_window_step`` per 4-bit window), by Pippenger
-  (``bucket_accumulate``, then ``pt_add`` bucket closes and window steps)
+  (one ``pt_bucket_sum``, one ``pt_bucket_close``, then window steps)
   or bit at a time, the right side by point Horner (``eval_point_poly``,
   one ``pt_ladder_horner`` launch), the left by two ``pt_fixed_base``;
 * ``verify_pairwise`` — the direct per-(dealer, recipient) check, run
@@ -146,8 +146,9 @@ def _point_rlc(cs: gd.CurveSpec, weights: torch.Tensor, points: torch.Tensor, nb
       window step;
     * ``"pippenger"``: :func:`groups.device.msm_pippenger` with the m axis
       moved to -3 and the weights shared by every column: the points
-      scatter into buckets (``bucket_accumulate``), which are closed and
-      combined per window;
+      scatter into buckets (one ``pt_bucket_sum`` launch, the points read
+      in place), which are closed (one ``pt_bucket_close``) and combined
+      per window;
     * ``"bits"``: bit at a time, per bit row from the top one doubling,
       then a select of the points whose bit is set, a tree sum, one add.
 
@@ -179,7 +180,7 @@ def _point_rlc(cs: gd.CurveSpec, weights: torch.Tensor, points: torch.Tensor, nb
 
 
 def verify_batch(cfg: CeremonyConfig, e_comm, shares, hidings, rho, rho_bits: int, g_table, h_table,
-                 rlc: str = "straus"):
+                 rlc: str = "pippenger"):
     """RLC batch share verification -> (n,) bool per recipient.
 
     e_comm (n, t+1, C, L), shares/hidings (n, n, L) with [j, i] as
@@ -428,7 +429,7 @@ class BatchedCeremony:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, rho_bits: int = 128, tamper=None, rlc: str = "straus", digest: str = "device",
+    def run(self, rho_bits: int = 128, tamper=None, rlc: str = "pippenger", digest: str = "device",
             mul: str = "classic") -> dict:
         """The whole ceremony, blame path included.
 
@@ -440,11 +441,14 @@ class BatchedCeremony:
         under ``"error"``.
 
         ``tamper(a, e, s, r) -> (a, e, s, r)`` runs after dealing, to
-        inject faults.  ``rlc`` is the point RLC's schedule (``"straus"``,
-        ``"pippenger"`` or ``"bits"``), ``digest`` the transcript digest's
+        inject faults.  ``rlc`` is the point RLC's schedule (``"pippenger"``,
+        the fastest of the three on the H100 at every path's shape since its
+        scatter and close are one launch each, ``"straus"``, the JAX
+        package's default on its accelerator, or ``"bits"``), ``digest`` the transcript digest's
         leg (``"device"``, the JAX package's own choice on its accelerator,
         or ``"host"``) and ``mul`` the multiply of its canonical affine form
-        (``"classic"``, ``mod_mul``, or ``"gemm"``, ``mxu_mod_mul``); every
+        (``"classic"``, ``mod_mul``, or ``"gemm"``, the fused multiply-reduce
+        of ``mxu_batch_inv`` and ``mxu_mod_mul``); every
         output but the timings is the same under each.  Returns tensors (``bare``, ``randomized``,
         ``shares``, ``hidings``, ``rho``, ``ok``, ``qualified``,
         ``final_shares``, ``master``), ``complaints`` as 1-based (recipient,

@@ -292,23 +292,27 @@ def msm_pippenger(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, nb
 def _msm_pippenger_core(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, nbits: int) -> torch.Tensor:
     """Three passes, batched over the leading axes and all windows at once:
 
-    1. scatter: ``bucket_accumulate`` (kernel or plain version) sums each
-       window's points into 2**c buckets, digit-0 points into bucket 0;
+    1. scatter: each window's points summed into buckets 1 .. 2**c - 1 (a
+       digit-0 point into none), each bucket in order of j: scalars (m, L)
+       shared by the batch (the point RLC's weights) take one
+       ``pt_bucket_sum`` launch over their sorted lists; per-row scalars
+       take ``bucket_accumulate`` (which also forms bucket 0, dropped);
     2. bucket close: a descending suffix sum over buckets 2**c - 1 .. 1,
        ``run = run + B_b; tot = tot + run``, gives Σ_b b·B_b per window in
-       two adds a bucket;
-    3. window combine: MSB first, ``window_step`` (c doublings, one add)."""
+       two adds a bucket, one ``pt_bucket_close`` launch;
+    3. window combine: MSB first, ``window_step`` (c doublings, one add).
+
+    On CPU tensors each pass runs its plain version."""
     m = points.shape[-3]
     batch = points.shape[:-3]
     window = pippenger_window(m, cs.name)
-    entries = 1 << window
     nw = min(n_windows(cs, window), -(-nbits // window))
     digits = pk.window_digits(scalars, window)[..., :nw]  # (..., m, nw)
-    buckets = bk.bucket_accumulate(cs, points, digits, window, nw)  # (..., nw, entries, C, L)
-    run = tot = identity(cs, batch + (nw,), device=points.device)
-    for b in reversed(range(1, entries)):
-        run = add(cs, run, buckets[..., b, :, :])
-        tot = add(cs, tot, run)
+    if digits.dim() == 2:  # shared by the batch
+        buckets = bk.pt_bucket_sum(cs, points, digits, window)  # (..., nw, 2**c - 1, C, L)
+    else:
+        buckets = bk.bucket_accumulate(cs, points, digits, window, nw)[..., 1:, :, :]
+    tot = bk.pt_bucket_close(cs, buckets)  # (..., nw, C, L)
     acc = identity(cs, batch, device=points.device)
     for w in reversed(range(nw)):
         acc = window_step(cs, acc, tot[..., w, :, :], window)
@@ -348,10 +352,14 @@ def field_mul(mode: str):
 # over each path's calls on the H100 (a ceremony's two, the unchunked
 # seal's, and the default-chunk seal's 256 or 16 chunks of 4096 lanes);
 # 64 was faster at 1,048,576 lanes and on BLS12-381 at 350,208
-# (ops/inv_bench.py; PERF.md).  mul="gemm" keeps the JAX package's 256
-# rows, each multiply one mxu_mod_mul launch.
+# (ops/inv_bench.py; PERF.md).  GEMM_INV_ROWS is the same choice for
+# mul="gemm"'s one mxu_batch_inv launch (a warp of 32 columns): of 64, 16,
+# 8 and 4 rows, 16 took the least device time summed over the three
+# paths' canonical forms (4.51 ms against 5.08 at 64 and 6.28 at 8; 64 was
+# 9 % faster on secp256k1 alone, 4 14 % on ristretto255's 22,016 lanes:
+# ops/inv_bench.py --gemm).
 INV_ROWS = 16
-GEMM_INV_ROWS = 256
+GEMM_INV_ROWS = 16
 
 
 def affine_canon(cs: CurveSpec, pts: torch.Tensor, *, mul: str = "classic") -> torch.Tensor:
@@ -363,9 +371,9 @@ def affine_canon(cs: CurveSpec, pts: torch.Tensor, *, mul: str = "classic") -> t
 
     The lanes (padded with ones to a multiple of the rows) invert in one
     Montgomery-trick batch inversion down the rows: under ``"classic"``
-    one ``mod_batch_inv`` launch over INV_ROWS rows, under ``"gemm"`` the
-    JAX package's shape, 256 rows, each multiply one ``mxu_mod_mul``
-    launch over a row; then x·zi, y·zi (and t = x·y) over all lanes.  The
+    one ``mod_batch_inv`` launch over INV_ROWS rows, under ``"gemm"`` one
+    ``mxu_batch_inv`` launch over GEMM_INV_ROWS rows; then x·zi, y·zi (and
+    t = x·y) over all lanes, each one launch of the mode's multiply.  The
     selects and the padding are plain tensor ops, as the JAX package
     leaves them to XLA."""
     f = cs.field
@@ -380,10 +388,7 @@ def affine_canon(cs: CurveSpec, pts: torch.Tensor, *, mul: str = "classic") -> t
     if pad:
         flat = torch.cat([flat, fd.ones(f, (pad,), device=z.device)])
     flat = flat.reshape(k, -1, f.limbs)
-    if mul == "classic":
-        zi = fk.mod_batch_inv(f, flat)
-    else:
-        zi = fd.batch_inv(f, flat, axis=0, mul=mulf)
+    zi = fk.mod_batch_inv(f, flat) if mul == "classic" else mk.mxu_batch_inv(f, flat)
     zi = zi.reshape(-1, f.limbs)[:n_lanes].reshape(z.shape)
     x_a = mulf(f, pts[..., 0, :], zi)
     y_a = mulf(f, pts[..., 1, :], zi)

@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 )
 SOURCES = ("field_kernels.cu", "point_kernels.cu", "edwards_kernels.cu", "double_kernels.cu",
            "bucket_kernels.cu", "bls_kernels.cu", "mxu_kernels.cu", "ladder_kernels.cu", "chain_kernels.cu",
-           "inv_kernels.cu")
+           "inv_kernels.cu", "pippenger_kernels.cu")
 
 _LOCK = threading.Lock()
 _LIBS: dict[tuple, ctypes.CDLL] = {}

@@ -138,6 +138,17 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: pk.pt_scalar_mul(tgd.SECP256K1, _meta((3, 16, 3, 16)), _meta((2, 3, 16))),
     lambda: pk.pt_scalar_mul(ED, _meta((16, 4, 16)), _meta((5, 16))),
     lambda: pk.pt_scalar_mul(BLS, _meta((3, 16, 3, 24)), _meta((3, 16))),
+    lambda: mk.mxu_batch_inv(SECP256K1_P, _meta((16, 3, 16))),
+    lambda: mk.mxu_batch_inv(P25519, _meta((16, 3, 16))),
+    lambda: mk.mxu_batch_inv(BLS12_381_P, _meta((16, 3, 24))),
+    lambda: tgd.affine_canon(tgd.SECP256K1, _meta((2, 3, 16)), mul="gemm"),
+    lambda: bk.pt_bucket_sum(tgd.SECP256K1, _meta((2, 5, 3, 16)), _meta((5, 3)), 8),
+    lambda: bk.pt_bucket_sum(ED, _meta((2, 5, 4, 16)), _meta((5, 3)), 4),
+    lambda: bk.pt_bucket_sum(BLS, _meta((2, 5, 3, 24)), _meta((5, 3)), 8),
+    lambda: bk.pt_bucket_close(tgd.SECP256K1, _meta((2, 3, 255, 3, 16))),
+    lambda: bk.pt_bucket_close(ED, _meta((2, 3, 15, 4, 16))),
+    lambda: bk.pt_bucket_close(BLS, _meta((2, 3, 255, 3, 24))),
+    lambda: tgd.msm_pippenger(tgd.SECP256K1, _meta((2, 5, 16)), _meta((2, 5, 3, 16)), 128),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -151,7 +162,9 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "mod_madd_dot_bls", "bls_field_dot", "pt_fixed_base", "ed_pt_fixed_base", "bls_pt_fixed_base",
         "bls_fixed_base_mul", "pt_tree_sum", "ed_pt_tree_sum_gathered", "bls_pt_tree_sum", "bls_tree_reduce",
         "ed_msm_straus", "mod_batch_inv", "mod_batch_inv_ed", "mod_batch_inv_bls", "pt_scalar_mul",
-        "ed_pt_scalar_mul_shared", "bls_pt_scalar_mul"])
+        "ed_pt_scalar_mul_shared", "bls_pt_scalar_mul", "mxu_batch_inv", "mxu_batch_inv_ed", "mxu_batch_inv_bls",
+        "affine_canon_gemm", "pt_bucket_sum", "ed_pt_bucket_sum", "bls_pt_bucket_sum", "pt_bucket_close",
+        "ed_pt_bucket_close", "bls_pt_bucket_close", "msm_pippenger_per_row"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -173,9 +186,14 @@ def test_wrappers_raise_instead_of_falling_back(call):
     lambda: pk.pt_tree_sum(tgd.SECP256K1, _meta((2, 5, 16, 1, 16)), _meta((2, 5))),
     lambda: fk.mod_batch_inv(SECP256K1_P, _meta((16, 3, 1))),
     lambda: pk.pt_scalar_mul(tgd.SECP256K1, _meta((3, 16, 1, 16)), _meta((2, 3, 16))),
+    lambda: mk.mxu_batch_inv(SECP256K1_P, _meta((16, 3, 1))),
+    lambda: bk.pt_bucket_sum(tgd.SECP256K1, _meta((2, 5, 1, 16)), _meta((5, 3)), 4),
+    lambda: bk.pt_bucket_sum(tgd.SECP256K1, _meta((2, 5, 3, 16)), _meta((4, 3)), 4),
+    lambda: bk.pt_bucket_close(tgd.SECP256K1, _meta((2, 3, 15, 1, 16))),
 ], ids=["limbs", "coords", "too_few_axes", "bucket_coords", "bucket_digits", "horner_coords", "horner_limbs",
         "dot_limbs", "fixed_base_coords", "tree_coords", "tree_table_coords", "batch_inv_limbs",
-        "scalar_mul_table_coords"])
+        "scalar_mul_table_coords", "mxu_batch_inv_limbs", "bucket_sum_coords", "bucket_sum_digits",
+        "bucket_close_coords"])
 def test_wrappers_reject_operands_of_the_wrong_shape(call):
     """A tail that would broadcast (a size-1 limb or coordinate axis)
     is refused before any pointer reaches a kernel."""
@@ -252,8 +270,8 @@ def test_unported_variants_raise():
         assert all(pk.kernel_for(op, cs) in pk.KERNELS for op in pk._VARIANTS)
 
 
-@pytest.mark.parametrize("variants", [*pk._VARIANTS.values(), bk._VARIANTS],
-                         ids=[*pk._VARIANTS, "bucket_accumulate"])
+@pytest.mark.parametrize("variants", [*pk._VARIANTS.values(), bk._VARIANTS, bk._SUM_VARIANTS, bk._CLOSE_VARIANTS],
+                         ids=[*pk._VARIANTS, "bucket_accumulate", "pt_bucket_sum", "pt_bucket_close"])
 def test_variants_of_an_op_share_one_calling_convention(variants):
     """Every curve's variant of an op is its own C entry, with its own
     launch count, taking the same arguments: the wrapper passes them alike
