@@ -117,18 +117,40 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    pt_add (the KEM's table build), 1 pt_scalar_mul and 0 pt_window_step
    (the KEM), 1 mod_batch_inv and 2 mod_mul (3 on ristretto255: the KEM
    points' canonical affine form).
-6. On each Straus path's tensors: the point RLC D of verify_batch under
+6. Threshold signing (dkg_tpu_torch.sign) on each Straus run's final
+   shares, quorum Q1 the parties 1 .. t + 1 (342 signers on secp256k1
+   and BLS12-381, 86 on ristretto255), Q2 the last t + 1, each stage with
+   every launch count set to 0 just before and read just after and its
+   host seconds printed: 256 messages hashed to the curve, Q1's public keys
+   (one pt_fixed_base), the partial grid (256 x 342 lanes in one
+   pt_scalar_mul, each message's table read in place by its signers), the
+   aggregate (λ_i(0) on the card as mod_mul launches, one pt_bucket_sum and
+   one pt_bucket_close), the folded signature of SignCache's sigma (one
+   pt_scalar_mul); the aggregate equals the folded signature, Q2's
+   aggregate (as group elements: limb for limb on the Weierstrass curves,
+   by encoding on ristretto255) and, on messages 0, 127 and 255,
+   secret·H(m) by the host ladder.  Then a proved grid of 16 messages
+   (5472 cells, 1376 on ristretto255): proofs (the announcements one
+   pt_scalar_mul), verify_partials (one per-row m = 2 gd.msm) all true,
+   rlc_verify one pass; one forged response rejected by verify_partials at
+   its cell alone and blamed alone by rlc_verify within its pass bound;
+   rlc_verify_convoy over the grid and Q2's in one pass.  The exact counts
+   the shapes fix are checked, no plain multiply may reach the card, and
+   gd.msm's Straus and Pippenger schedules are timed (CUDA events) and
+   held equal at verify_partials's and rlc_verify's MSM shapes.
+7. On each Straus path's tensors: the point RLC D of verify_batch under
    the three schedules (straus, bits, pippenger), equal in canonical
    affine form and timed; and the verify phase under Straus and under
    Pippenger, profiled for device time by kernel and the busy share (two
    calls in one session, the numbers a call's mean).
-7. Runs a tampered (n=16, t=5) ceremony on each curve under each of the
+8. Runs a tampered (n=16, t=5) ceremony on each curve under each of the
    Straus and Pippenger schedules: one corrupted share must fail its
    recipient's batch check, blame its dealer, and leave the master key of
    the qualified set.
-8. Prints one JSON line of per-kernel numbers (launches: the count the
+9. Prints one JSON line of per-kernel numbers (launches: the count the
    first main path that launched the kernel read, Straus before the seal
-   before Pippenger before gemm, or the 0 every path read; device_ms: a wrapper
+   before signing before Pippenger before gemm, or the 0 every path read
+   (a signing phase's count is its stages' sum); device_ms: a wrapper
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
    for all of them; for the multi-step kernels also the one-step route's
@@ -154,6 +176,8 @@ import time
 import numpy as np
 import torch
 
+from dkg_tpu_torch import sign as ts
+from dkg_tpu_torch.crypto import dleq_batch
 from dkg_tpu_torch.crypto import device_hash as dh
 from dkg_tpu_torch.crypto.blake2s import row_digests_np
 from dkg_tpu_torch.dkg import ceremony as cer
@@ -168,6 +192,9 @@ from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
+from dkg_tpu_torch.poly import device as pd
+from dkg_tpu_torch.sign import partial as tsp
+from dkg_tpu_torch.sign import verify as sv
 
 DEV = "cuda"  # every tensor of the script lives here
 
@@ -1622,6 +1649,204 @@ def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict
     return launches
 
 
+# ---------------------------------------------------------------------------
+# threshold signing over the ceremony's shares
+# ---------------------------------------------------------------------------
+
+SIGN_B = 256  # the unproved batch: partial_sign's default message chunk
+SIGN_PROVED_B = 16  # the proved grid's messages
+SIGN_SAMPLES = (0, 127, 255)  # messages held to secret·H(m) on the host ladder
+SIGN_FORGED = {"secp256k1": (5, 100), "ristretto255": (5, 40), "bls12_381_g1": (5, 100)}  # the forged cell
+
+
+def staged(record: dict, name: str, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after (a device synchronise ends it): its result; ``record[name]`` gets
+    (host seconds, {kernel: launches})."""
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    record[name] = (time.perf_counter() - t0, {k.name: k.launches for k in KERNELS if k.launches})
+    return res
+
+
+def lagrange_launches(fs, m: int) -> int:
+    """mod_mul launches of poly.device.lagrange_at_zero_coeffs over m nodes:
+    two products of m - 1 steps, a batch inversion (m - 1 forward, 2 (m -
+    1) back, and pow_const's Fermat chain of p - 2: a squaring a bit below
+    the top and a multiply a set bit below it), and one last product."""
+    e = fs.modulus - 2
+    return 5 * (m - 1) + (e.bit_length() - 1) + (bin(e).count("1") - 1) + 1
+
+
+def sign_exact(path: Path, m: int) -> dict:
+    """Launch counts the signing stages must read exactly, over m signers:
+    public keys one pt_fixed_base; a grid or a folded batch its table's 14
+    pt_add and one pt_scalar_mul; prove two of each (the grid, the
+    announcements); the aggregate λ_i(0)'s mod_mul, one pt_bucket_sum, one
+    pt_bucket_close and a pt_window_step a window; each leaves in one
+    canonical affine form (one mod_batch_inv, 2 or 3 mod_mul).
+    verify_partials's per-row m = 2 MSM under gd.msm's default: Straus
+    (the 14 table adds, a pt_tree_sum and a pt_window_step a window) on
+    the Weierstrass curves, Pippenger on ristretto255 (one
+    bucket_accumulate, one pt_bucket_close, a pt_window_step a window)."""
+    cs = path.cs
+    name = {op: pk.kernel_for(op, cs).name for op in ("pt_add", "pt_scalar_mul", "pt_window_step", "pt_fixed_base",
+                                                       "pt_madd", "pt_tree_sum")}
+    bsum, bclose, bacc = bk.sum_kernel_for(cs).name, bk.close_kernel_for(cs).name, bk.kernel_for(cs).name
+    mul = fk.mul_kernel_for(cs.field).name
+    canon = canon_launches(cs, "classic", 1)
+    grid = {name["pt_add"]: 14, name["pt_scalar_mul"]: 1, name["pt_window_step"]: 0, **canon}
+    c = gd.pippenger_window(m, cs.name)
+    agg = {bsum: 1, bclose: 1, bacc: 0, name["pt_window_step"]: gd.n_windows(cs, c), **canon}
+    agg[mul] += lagrange_launches(cs.scalar, m)
+    nw = gd.n_windows(cs, gd.WINDOW)
+    if cs.kind == "edwards":
+        verify = {bacc: 1, bclose: 1, bsum: 0, name["pt_tree_sum"]: 0, name["pt_window_step"]: nw}
+    else:
+        verify = {name["pt_add"]: 14, name["pt_tree_sum"]: nw, name["pt_window_step"]: nw, bacc: 0}
+    return {"hash": {}, "public keys": {name["pt_fixed_base"]: 1, name["pt_madd"]: 0, **canon}, "partials": grid,
+            "aggregate": agg, "folded": grid,
+            "prove": {name["pt_add"]: 28, name["pt_scalar_mul"]: 2, name["pt_window_step"]: 0, **canon},
+            "verify_partials": verify}
+
+
+def z_tampered(ps, bi: int, si: int):
+    """Cell (bi, si)'s DLEQ response z + 1: the forgery the hash screen lets
+    through, for the group check to find."""
+    q = gd.ALL_CURVES[ps.curve].scalar.modulus
+    m = len(ps.indices)
+    proofs = list(ps.proofs)
+    cell = proofs[bi * m + si]
+    proofs[bi * m + si] = dataclasses.replace(cell, response=(cell.response + 1) % q)
+    return dataclasses.replace(ps, proofs=proofs)
+
+
+def same_element(cs, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two canonical affine batches hold the same group elements: limb for
+    limb on the Weierstrass curves; by encoding on ristretto255, whose
+    Edwards representatives may differ by torsion (H(m)'s, times two
+    integer scalars equal mod the group order only)."""
+    if cs.kind != "edwards":
+        return torch.equal(a, b)
+    return np.array_equal(gd.encode_batch(cs, a), gd.encode_batch(cs, b))
+
+
+def sign_schedules(path: Path, psp) -> None:
+    """gd.msm's two schedules at the two MSM shapes of the proved grid's
+    checks, timed by CUDA events (a warm-up call, then the mean of 3) and
+    equal in canonical affine form: verify_partials's per-row (k, 2, m =
+    2) MSM and rlc_verify's one (5k + 1)-point MSM."""
+    cs, group = path.cs, gh.ALL_GROUPS[path.curve]
+    shapes = {"verify_partials": dleq_batch.msm_operands(group, cs, psp.proofs, tsp.verify_statements(psp), DEV)}
+    scalars, points = sv._combine(group, sv._cell_rows(psp), random.Random(0))
+    shapes["rlc_verify"] = (fh.to_tensor(fh.encode(cs.scalar, scalars), DEV), gd.from_host(cs, points, device=DEV))
+    for label, (sc, pts) in shapes.items():
+        ms, canon = {}, {}
+        for mode in ("straus", "pippenger"):
+            ms[mode], res = cuda_ms(lambda: gd.msm(cs, sc, pts, mode), reps=3)
+            canon[mode] = gd.affine_canon(cs, res)
+        check(torch.equal(canon["straus"], canon["pippenger"]), f"{path.curve} {label}: the MSM schedules disagree")
+        print(f"sign {path.curve}: gd.msm at {label}'s shape (scalars {tuple(sc.shape)}), ms (CUDA events, a call) "
+              + json.dumps(ms) + f"; equal in canonical affine form; default "
+              + ("pippenger" if cs.kind == "edwards" else "straus"), flush=True)
+
+
+def sign_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict:
+    """Threshold signing on the ceremony's own final shares: quorum Q1 the
+    parties 1 .. t + 1, Q2 the last t + 1.  The unproved batch of SIGN_B
+    messages (hash, public keys, partials, aggregate with λ_i(0) derived on
+    the card, the folded signature), held to the folded signature, to Q2's
+    aggregate and, on three messages, to secret·H(m) on the host ladder;
+    then the proved grid of SIGN_PROVED_B messages: prove, verify_partials
+    and rlc_verify honest (all true, one pass), one forged response (the
+    only cell verify_partials rejects, the only one rlc_verify blames
+    within its pass bound), and rlc_verify_convoy over it and a second
+    honest grid (one pass).  Each stage with every launch count set to 0
+    just before and read just after; no plain multiply on the card.
+    Returns the stages' launches, summed."""
+    cs, n, t = path.cs, path.n, path.t
+    group, q = gh.ALL_GROUPS[path.curve], cs.scalar.modulus
+    tag = f"sign {path.curve} n={n} t={t}"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    finals = [int(v) for v in fh.decode(cs.scalar, fh.from_tensor(out["final_shares"]))]
+    a = fh.decode(cs.scalar, fh.from_tensor(c.coeffs_a))
+    secret = sum(int(v) for v in a[:, 0]) % q
+    q1, q2 = list(range(1, t + 2)), list(range(n - t, n + 1))
+    m = len(q1)
+    msgs = [b"chip-smoke sign message %04d" % i for i in range(SIGN_B)]
+    rec: dict = {}
+    exact = sign_exact(path, m)
+    forged_cell = SIGN_FORGED[path.curve]
+    with PlainMuls() as plain:
+        pts, h_dev = staged(rec, "hash", lambda: ts.hash_to_curve_batch(path.curve, msgs, device=DEV))
+        pks = staged(rec, "public keys", lambda: ts.public_keys(path.curve, [finals[i - 1] for i in q1], device=DEV))
+        ps = staged(rec, "partials", lambda: ts.partial_sign(path.curve, [finals[i - 1] for i in q1], q1, pts, pks=pks,
+                                                             device=DEV))
+        agg = staged(rec, "aggregate", lambda: ts.aggregate(ps))
+        cache = ts.SignCache()
+        mat = cache.ceremony("chip-smoke", 0, path.curve, out["final_shares"])
+        folded = staged(rec, "folded", lambda: ts.folded_collect(
+            path.curve, [ts.sign_folded(path.curve, cache.fold_limbs(mat, q1), h_dev)]))
+        lam_ms, _ = cuda_ms(lambda: pd.lagrange_at_zero_coeffs(cs.scalar, fh.to_tensor(fh.encode(cs.scalar, q1), DEV)),
+                            reps=1)
+        check(tuple(agg.shape) == (SIGN_B, cs.ncoords, cs.field.limbs), f"{tag}: aggregate shape {tuple(agg.shape)}")
+        check(same_element(cs, folded, agg), f"{tag}: sign_folded != the aggregate")
+        ps2 = ts.partial_sign(path.curve, [finals[i - 1] for i in q2], q2, pts, device=DEV)
+        check(same_element(cs, ts.aggregate(ps2), agg), f"{tag}: Q2's aggregate != Q1's")
+        enc = ts.signature_encode(path.curve, agg)
+        agg_host = gd.to_host(cs, agg[list(SIGN_SAMPLES)])
+        for i, p in zip(SIGN_SAMPLES, agg_host):
+            check(enc[i] == group.encode(group.scalar_mul(secret, pts[i])), f"{tag}: signature {i} != secret·H(m)")
+            check(enc[i] == group.encode(p), f"{tag}: signature_encode {i} != the group's encoding")
+        del ps, ps2
+
+        sub = pts[:SIGN_PROVED_B]
+        rng = random.Random(f"{seed}-sign-{path.curve}")
+        psp = staged(rec, "prove", lambda: ts.partial_sign(path.curve, [finals[i - 1] for i in q1], q1, sub, rng=rng,
+                                                           prove=True, pks=pks, device=DEV))
+        ok = staged(rec, "verify_partials", lambda: ts.verify_partials(psp))
+        check(ok.shape == (SIGN_PROVED_B, m) and bool(ok.all()), f"{tag}: verify_partials rejected an honest cell")
+        honest = staged(rec, "RLC honest", lambda: ts.rlc_verify(psp, rng=rng))
+        check(honest.ok and honest.passes == 1 and honest.grid == SIGN_PROVED_B * m, f"{tag}: rlc_verify {honest}")
+        forged = z_tampered(psp, *forged_cell)
+        bad = ts.verify_partials(forged)
+        check(not bad[forged_cell] and int((~bad).sum()) == 1, f"{tag}: verify_partials on the forged grid")
+        blame = staged(rec, "RLC blame", lambda: ts.rlc_verify(forged, rng=rng))
+        check(blame.bad_cells == (forged_cell,) and blame.passes <= blame.pass_bound(), f"{tag}: rlc_verify {blame}")
+        psp2 = ts.partial_sign(path.curve, [finals[i - 1] for i in q2], q2, sub, rng=rng, prove=True, device=DEV)
+        convoy = staged(rec, "RLC convoy", lambda: ts.rlc_verify_convoy([psp, psp2], rng=rng))
+        check(convoy.ok and convoy.passes == 1 and convoy.grid_ok == (True, True), f"{tag}: convoy {convoy}")
+        sync()
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag}: stages (host s) " + json.dumps({k: round(v[0], 6) for k, v in rec.items()})
+          + f"; peak device memory {peak_gib:.2f} GiB", flush=True)
+    print(f"{tag}: launches " + json.dumps({k: v[1] for k, v in rec.items()}), flush=True)
+    for stage, want in exact.items():
+        got = rec[stage][1]
+        check(all(got.get(k, 0) == v for k, v in want.items()) and (want or not got),
+              f"{tag} {stage}: launch counts {got}, want {want}")
+    for k in (pk.kernel_for("pt_scalar_mul", cs), pk.kernel_for("pt_fixed_base", cs), bk.sum_kernel_for(cs),
+              bk.close_kernel_for(cs), fk.mul_kernel_for(cs.scalar)):
+        check(sum(v[1].get(k.name, 0) for v in rec.values()) > 0, f"kernel {k.name} was not launched in the {tag} phase")
+    print(f"{tag}: {SIGN_B} messages x {m} signers ({SIGN_B * m} lanes) aggregate = folded = Q2's aggregate; "
+          f"messages {list(SIGN_SAMPLES)} = secret·H(m); λ_i(0) on the card {lagrange_launches(cs.scalar, m)} mod_mul "
+          f"launches, {lam_ms:.3f} ms (CUDA events); proved grid {SIGN_PROVED_B} x {m}: all verified, rlc_verify one "
+          f"pass, forged cell {forged_cell} the only one rejected and blamed in {blame.passes} passes (bound "
+          f"{blame.pass_bound()}), convoy one pass; exact counts " + json.dumps(exact)
+          + f"; no plain multiply on the card; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    sign_schedules(path, psp)
+    totals: dict = {}
+    for _, launches in rec.values():
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
 def tampered(curve: str, seed: int, rlc: str) -> None:
     n, t, dealer, recipient = TAMPER_N, TAMPER_T, 3, 7
     cs = gd.ALL_CURVES[curve]
@@ -1688,6 +1913,8 @@ def main() -> None:
         stamp(f"{path.curve}: Straus run and digest legs")
         keep(seal_phase(path, c, out, args.seed))
         stamp(f"{path.curve}: seal")
+        keep(sign_phase(path, c, out, args.seed))
+        stamp(f"{path.curve}: signing")
         pip = path.pippenger()
         if path in REPEATED_PASSES:
             profile_main_path(pip, args.seed)

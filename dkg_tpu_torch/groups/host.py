@@ -14,6 +14,9 @@ oracles are public, but a recipient's secret key goes through it in
 ``dkg/hybrid_batch.open_share`` and ``crypto/elgamal.py``'s opens, so
 those are for tests and public replays until a constant-time ladder is
 ported.  ``random_scalar`` draws a scalar from the caller's ``rng``.
+The public-scalar API the signing path verifies with (``neg``, ``sub``,
+``scalar_mul_vartime``, ``msm``, ``is_identity``) is the JAX package's
+``HostGroup``'s, and ``_person`` its BLAKE2b personalisation.
 """
 
 from __future__ import annotations
@@ -207,6 +210,11 @@ def ws_add(p: WsPoint, q: WsPoint, prime: int, b3: int) -> WsPoint:
     return (x_out, y_out, z_out)
 
 
+def ws_neg(p: WsPoint, prime: int) -> WsPoint:
+    x, y, z = p
+    return (x, (prime - y) % prime, z)
+
+
 def ws_eq(p: WsPoint, q: WsPoint, prime: int) -> bool:
     """Projective equality by cross-multiplication (identity-correct)."""
     x1, y1, z1 = p
@@ -233,6 +241,41 @@ def _ladder(group, k: int, p):
     return r0
 
 
+def _person(domain: bytes) -> bytes:
+    """BLAKE2b personalisation from a domain tag (its first 16 bytes)."""
+    return domain[:16]
+
+
+class _PublicOps:
+    """The operations on public scalars both groups share (the JAX
+    package's ``HostGroup``): variable-time double-and-add, so for
+    verification data only, never a secret."""
+
+    def sub(self, p, q):
+        return self.add(p, self.neg(q))
+
+    def scalar_mul_vartime(self, k: int, p):
+        """k·P by double-and-add from the low bit, k reduced mod n."""
+        k %= self.scalar_field.modulus
+        acc, base = self.identity(), p
+        while k:
+            if k & 1:
+                acc = self.add(acc, base)
+            base = self.add(base, base)
+            k >>= 1
+        return acc
+
+    def msm(self, scalars, points):
+        """Σ k_j·P_j, one :meth:`scalar_mul_vartime` a term, added in order."""
+        acc = self.identity()
+        for k, p in zip(scalars, points):
+            acc = self.add(acc, self.scalar_mul_vartime(k, p))
+        return acc
+
+    def is_identity(self, p) -> bool:
+        return self.eq(p, self.identity())
+
+
 def _sqrt_mod(a: int, p: int) -> Optional[int]:
     """Square root mod p for p % 4 == 3 (secp256k1, BLS12-381)."""
     if p % 4 != 3:
@@ -242,7 +285,7 @@ def _sqrt_mod(a: int, p: int) -> Optional[int]:
 
 
 @dataclass(frozen=True)
-class WeierstrassGroup:
+class WeierstrassGroup(_PublicOps):
     """y^2 = x^3 + b over F_p (a = 0), the group of prime order n generated
     by (gen_x, gen_y), with the compressed SEC-style encoding (parity byte
     || big-endian x).  ``cofactor`` is the curve's order over n: 1 for
@@ -273,6 +316,9 @@ class WeierstrassGroup:
 
     def add(self, p, q):
         return ws_add(p, q, self.prime, self.b3)
+
+    def neg(self, p):
+        return ws_neg(p, self.prime)
 
     def eq(self, p, q) -> bool:
         return ws_eq(p, q, self.prime)
@@ -356,7 +402,7 @@ class WeierstrassGroup:
             h = hashlib.blake2b(
                 data + ctr.to_bytes(4, "little"),
                 digest_size=self.base_field.nbytes + 16,
-                person=domain[:16],
+                person=_person(domain),
             ).digest()
             x = int.from_bytes(h, "little") % self.prime
             y = self.lift_x(x, 0)
@@ -368,7 +414,7 @@ class WeierstrassGroup:
 
 
 @dataclass(frozen=True)
-class Ristretto255:
+class Ristretto255(_PublicOps):
     """The ristretto255 prime-order group over edwards25519, extended
     coordinates (X, Y, Z, T), identity (0, 1, 1, 0)."""
 
@@ -406,7 +452,7 @@ class Ristretto255:
     def hash_to_group(self, data: bytes, domain: bytes = b"") -> EdPoint:
         """One-way map: BLAKE2b-512 -> two field elements -> MAP -> add
         (RFC 9496 §4.3.4)."""
-        h = hashlib.blake2b(data, digest_size=64, person=domain[:16]).digest()
+        h = hashlib.blake2b(data, digest_size=64, person=_person(domain)).digest()
         mask = (1 << 255) - 1
         t0 = (int.from_bytes(h[:32], "little") & mask) % P
         t1 = (int.from_bytes(h[32:], "little") & mask) % P

@@ -1,18 +1,25 @@
-"""Batched polynomial evaluation over limb tensors.
+"""Batched polynomial evaluation and Lagrange interpolation over limb
+tensors.
 
-Counterpart of ``dkg_tpu/poly/device.py`` ``eval_many``, its Horner leg,
-``acc <- acc·x + c`` over the coefficients: one ``mod_madd_horner``
+Counterpart of ``dkg_tpu/poly/device.py``.  ``eval_many`` is its Horner
+leg, ``acc <- acc·x + c`` over the coefficients: one ``mod_madd_horner``
 launch, which composes ``mod_madd``'s step T times.  (On a TPU the JAX
 package takes an int8 Vandermonde matmul instead; both legs give the
-canonical residue, so the values are the same.)
+canonical residue, so the values are the same.)  ``powers`` and the
+Lagrange pair chain ``mod_mul``: every product is one launch (its plain
+version on CPU tensors), and the denominators invert in one
+``fields.device.batch_inv`` whose steps are ``mod_mul`` launches too, as
+no one-launch batch inversion is built over the scalar fields.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..fields import device as fd
 from ..fields.spec import FieldSpec
 from ..ops import field_kernels as fk
+from .host import DuplicateEvaluationPoints
 
 
 def eval_many(fs: FieldSpec, coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
@@ -21,3 +28,66 @@ def eval_many(fs: FieldSpec, coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Te
     coeffs (..., T, L) low-order first, xs (..., N, L) -> (..., N, L);
     batch axes broadcast."""
     return fk.mod_madd_horner(fs, coeffs, xs)
+
+
+def powers(fs: FieldSpec, x: torch.Tensor, count: int) -> torch.Tensor:
+    """(1, x, x^2, ..., x^(count-1)): x (..., L) -> (..., count, L), one
+    ``mod_mul`` launch a power above the first."""
+    out = [fd.ones(fs, x.shape[:-1], device=x.device)]
+    for _ in range(count - 1):
+        out.append(fk.mod_mul(fs, out[-1], x))
+    return torch.stack(out[:count], dim=-2)
+
+
+def _check_distinct_nodes_device(fs: FieldSpec, xs: torch.Tensor) -> None:
+    """Raise :class:`~dkg_tpu_torch.poly.host.DuplicateEvaluationPoints`
+    if two nodes of a batch row are equal.  Comparing limb rows is exact
+    for canonical limbs (every field op emits values < p)."""
+    m = xs.shape[-2]
+    if m <= 1:
+        return
+    flat = xs.reshape(-1, m, xs.shape[-1])
+    for b in range(flat.shape[0]):
+        if torch.unique(flat[b], dim=0).shape[0] != m:
+            raise DuplicateEvaluationPoints(f"duplicate evaluation point among {m} Lagrange nodes (batch {b})")
+
+
+def _prod_axis(fs: FieldSpec, terms: torch.Tensor) -> torch.Tensor:
+    """The product over axis -2 of (..., M, M, L): M - 1 ``mod_mul``
+    launches, each over every row at once."""
+    acc = terms[..., 0, :]
+    for j in range(1, terms.shape[-2]):
+        acc = fk.mod_mul(fs, acc, terms[..., j, :])
+    return acc
+
+
+def lagrange_at_zero_coeffs(fs: FieldSpec, xs: torch.Tensor) -> torch.Tensor:
+    """Lagrange coefficients λ_i(0) = Π_{j≠i} x_j / (x_j − x_i) for nodes
+    xs: (..., M, L) -> the same shape.
+
+    The numerators and denominators are products over the masked (M, M)
+    grid of x_j and x_j − x_i (ones on the diagonal), 2 (M − 1) ``mod_mul``
+    launches; the denominators invert in one Montgomery-trick
+    ``fields.device.batch_inv`` down the M nodes (3 (M − 1) launches and a
+    Fermat chain), and one launch multiplies.  Duplicate nodes would put a
+    zero in a denominator, so they raise up front."""
+    _check_distinct_nodes_device(fs, xs)
+    m = xs.shape[-2]
+    xi = xs[..., :, None, :]
+    xj = xs[..., None, :, :]
+    diff = fd.sub(fs, xj, xi)  # (..., M, M, L): x_j - x_i
+    eye = torch.eye(m, dtype=torch.bool, device=xs.device)
+    one = fd.ones(fs, device=xs.device)
+    nums = _prod_axis(fs, fd.select(eye, one, xj.expand(diff.shape)))
+    dens = _prod_axis(fs, fd.select(eye, one, diff))
+    return fk.mod_mul(fs, nums, fd.batch_inv(fs, dens, axis=-2, mul=fk.mod_mul))
+
+
+def lagrange_at_zero(fs: FieldSpec, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Interpolate through (xs, ys) and evaluate at 0: (..., M, L) ->
+    (..., L), batched over the leading axes."""
+    terms = fk.mod_mul(fs, lagrange_at_zero_coeffs(fs, xs), ys)
+    acc = terms[..., 0, :]
+    for j in range(1, terms.shape[-2]):
+        acc = fd.add(fs, acc, terms[..., j, :])
+    return acc

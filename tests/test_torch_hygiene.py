@@ -12,6 +12,7 @@ import sys
 import pytest
 import torch
 
+from dkg_tpu_torch import sign as ts
 from dkg_tpu_torch.dkg import ceremony as tce
 from dkg_tpu_torch.dkg import hybrid_batch as hb
 from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
@@ -21,6 +22,7 @@ from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
+from dkg_tpu_torch.poly import device as tpd
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "dkg_tpu_torch"
@@ -35,7 +37,8 @@ def _modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"dkg_tpu_torch.dkg.hybrid_batch", "dkg_tpu_torch.crypto.chacha", "dkg_tpu_torch.crypto.blake2",
-            "dkg_tpu_torch.crypto.elgamal"} <= set(_modules())
+            "dkg_tpu_torch.crypto.elgamal", "dkg_tpu_torch.crypto.dleq_batch", "dkg_tpu_torch.poly.host",
+            "dkg_tpu_torch.sign.verify"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -149,6 +152,12 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: bk.pt_bucket_close(ED, _meta((2, 3, 15, 4, 16))),
     lambda: bk.pt_bucket_close(BLS, _meta((2, 3, 255, 3, 24))),
     lambda: tgd.msm_pippenger(tgd.SECP256K1, _meta((2, 5, 16)), _meta((2, 5, 3, 16)), 128),
+    lambda: tpd.powers(SECP256K1_N, _meta((3, 16)), 3),
+    lambda: ts.sign_folded("secp256k1", _meta((16,)), _meta((2, 3, 16))),
+    lambda: ts.folded_collect("bls12_381_g1", [_meta((2, 3, 24))]),
+    lambda: ts.aggregate(ts.PartialSignatures("ristretto255", (1, 2), [], _meta((2, 2, 4, 16)), []),
+                         lam=_meta((2, 16))),
+    lambda: tgd.msm(ED, _meta((3, 2, 2, 16)), _meta((3, 2, 2, 4, 16))),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -164,7 +173,8 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "ed_msm_straus", "mod_batch_inv", "mod_batch_inv_ed", "mod_batch_inv_bls", "pt_scalar_mul",
         "ed_pt_scalar_mul_shared", "bls_pt_scalar_mul", "mxu_batch_inv", "mxu_batch_inv_ed", "mxu_batch_inv_bls",
         "affine_canon_gemm", "pt_bucket_sum", "ed_pt_bucket_sum", "bls_pt_bucket_sum", "pt_bucket_close",
-        "ed_pt_bucket_close", "bls_pt_bucket_close", "msm_pippenger_per_row"])
+        "ed_pt_bucket_close", "bls_pt_bucket_close", "msm_pippenger_per_row", "powers", "sign_folded",
+        "bls_folded_collect", "ed_aggregate", "ed_msm_per_row_pairs"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):

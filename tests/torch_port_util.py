@@ -6,13 +6,19 @@ the CPU for ``dkg_tpu_torch``.  The arithmetic is exact modular, so the
 tests compare by exact equality.
 """
 
+import dataclasses
 import random
 
 import numpy as np
+import pytest
 import torch
 
+from dkg_tpu.crypto import dleq as jdleq
 from dkg_tpu.fields import host as jfh
 from dkg_tpu.groups import host as jgh
+from dkg_tpu.sign import partial as jsp
+from dkg_tpu_torch.crypto import dleq as tdleq
+from dkg_tpu_torch.sign import partial as tsp
 
 
 def field_ints(fs, seed: int, n: int) -> list:
@@ -114,3 +120,63 @@ def to_np(t: torch.Tensor) -> np.ndarray:
 def same(got: torch.Tensor, want) -> bool:
     """An int32 port result equal, limb for limb, to a JAX package one."""
     return got.dtype == torch.int32 and np.array_equal(to_np(got), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# signing: the JAX package's test_sign.py shape, and grids carried across
+# ---------------------------------------------------------------------------
+
+SIGN_N, SIGN_T = 5, 2
+MESSAGES = [b"dkg_tpu sign test message 0", b"dkg_tpu sign test message 1"]
+QUORUM, QUORUM2 = [1, 2, 3], [2, 3, 4]
+
+
+def sharing(curve: str, seed: int = 0x516E) -> tuple[int, list[int]]:
+    """The seeded (SIGN_N, SIGN_T) Shamir sharing of the JAX package's
+    signing test: (secret, shares at nodes 1..SIGN_N)."""
+    fs = jgh.ALL_GROUPS[curve].scalar_field
+    rng = random.Random(seed)
+    coeffs = [fs.rand_int(rng) for _ in range(SIGN_T + 1)]
+
+    def horner(x: int) -> int:
+        acc = 0
+        for c in reversed(coeffs):
+            acc = (acc * x + c) % fs.modulus
+        return acc
+
+    return coeffs[0], [horner(i) for i in range(1, SIGN_N + 1)]
+
+
+def to_port(ps):
+    """A JAX package grid as the port's: the same fields, sigs as a CPU tensor."""
+    return tsp.PartialSignatures(ps.curve, ps.indices, ps.h_points, to_torch(ps.sigs), ps.pks,
+                                 [tdleq.DleqZkp(p.challenge, p.response) for p in ps.proofs], ps.announcements)
+
+
+def to_jax(ps):
+    """A port grid as the JAX package's: sigs as uint32 numpy."""
+    return jsp.PartialSignatures(ps.curve, ps.indices, ps.h_points, to_np(ps.sigs), ps.pks,
+                                 [jdleq.DleqZkp(p.challenge, p.response) for p in ps.proofs], ps.announcements)
+
+
+def z_tampered(ps, bi: int, si: int):
+    """Cell (bi, si)'s response z + 1, the forgery that survives the hash
+    screen (z is not hashed), on either package's grid."""
+    q = jgh.ALL_GROUPS[ps.curve].scalar_field.modulus
+    m = len(ps.indices)
+    proofs = list(ps.proofs)
+    cell = proofs[bi * m + si]
+    proofs[bi * m + si] = dataclasses.replace(cell, response=(cell.response + 1) % q)
+    return dataclasses.replace(ps, proofs=proofs)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for a module's plain versions: their tensors are
+    small, and under the 6-worker suite a multi-threaded op waits on threads
+    that other workers have descheduled (a test ran 10-40x its idle time).
+    Imported by a test module, it applies to that module only."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
