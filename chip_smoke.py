@@ -147,10 +147,40 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    Straus and Pippenger schedules: one corrupted share must fail its
    recipient's batch check, blame its dealer, and leave the master key of
    the qualified set.
-9. Prints one JSON line of per-kernel numbers (launches: the count the
+9. The committee wire protocol (dkg.committee, committee_batch,
+   complaints_batch), each stage with every launch count set to 0 just
+   before and read just after, its host seconds printed beside the card's
+   name and power limit, and the path's kernels each launched:
+   - W1, ristretto255 n = 256, t = 85 (BASELINE.md config 2):
+     batched_dealing for every member (65,536 pairs sealed); one dealer's
+     share ciphertexts to three recipients get a flipped byte, one dealer
+     seals shares off its commitments to two, one goes silent; then
+     batched_share_verification for all 256 parties (one scalar_mul of
+     65,025 KEM recoveries, a table a lane; one re-check over 65,025 x 86
+     per-lane coefficients).  Exactly the tampered pairs complain, each
+     with the kind the serial DkgPhase1.proceed gives on a deep copy of
+     the party's phase, and the batch court upholds them; the silent
+     dealer is out everywhere; every other pair holds the dealt share.
+     The KEM recovery's scalar_mul and the re-check's pt_ladder_horner
+     are timed alone (device ms) on the path's own inputs and held exact
+     against their plain versions on 4 of those lanes (plain_rows; the
+     plain versions on the host, where their small ops run faster); the
+     exact launch counts of both rounds are held;
+   - W2, the court under a storm at n = 1024, t = 341
+     (scripts/storm_bench.py's shape, built by
+     dkg_tpu_torch/dkg/storm_bench.py as that script builds it): 341
+     genuine complaints and one false one, adjudicate_round1_batch's
+     verdicts [True] * 341 + [False], the serial court agreeing on 17 of
+     them; complaints per second and the court's three stages;
+   - W3, phases 1-5 at n = 8, t = 3 on each curve: a round-2 cheat
+     disqualified, a round-3 liar's secret reconstructed, every honest
+     master key equal and reproduced by the secret interpolated from
+     t + 1 final shares.
+10. Prints one JSON line of per-kernel numbers (launches: the count the
    first main path that launched the kernel read, Straus before the seal
-   before signing before Pippenger before gemm, or the 0 every path read
-   (a signing phase's count is its stages' sum); device_ms: a wrapper
+   before signing before Pippenger before gemm before the committee phase,
+   or the 0 every path read (a signing or committee phase's count is its
+   stages' sum); device_ms: a wrapper
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
    for all of them; for the multi-step kernels also the one-step route's
@@ -166,6 +196,7 @@ so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import random
@@ -177,11 +208,18 @@ import numpy as np
 import torch
 
 from dkg_tpu_torch import sign as ts
-from dkg_tpu_torch.crypto import dleq_batch
 from dkg_tpu_torch.crypto import device_hash as dh
+from dkg_tpu_torch.crypto import dleq_batch
 from dkg_tpu_torch.crypto.blake2s import row_digests_np
+from dkg_tpu_torch.crypto.elgamal import seal_pair
+from dkg_tpu_torch.dkg import broadcast as bc
 from dkg_tpu_torch.dkg import ceremony as cer
+from dkg_tpu_torch.dkg import committee as cm
+from dkg_tpu_torch.dkg import committee_batch as cmb
+from dkg_tpu_torch.dkg import complaints_batch as court
 from dkg_tpu_torch.dkg import hybrid_batch as hb
+from dkg_tpu_torch.dkg.storm_bench import build_storm, committee_keys, flip_byte
+from dkg_tpu_torch.dkg.errors import DkgErrorKind
 from dkg_tpu_torch.fields import device as fd
 from dkg_tpu_torch.fields import host as fh
 from dkg_tpu_torch.groups import device as gd
@@ -193,8 +231,10 @@ from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
 from dkg_tpu_torch.poly import device as pd
+from dkg_tpu_torch.poly.host import lagrange_interpolation
 from dkg_tpu_torch.sign import partial as tsp
 from dkg_tpu_torch.sign import verify as sv
+from dkg_tpu_torch.utils.tracing import CeremonyTrace
 
 DEV = "cuda"  # every tensor of the script lives here
 
@@ -1873,6 +1913,383 @@ def tampered(curve: str, seed: int, rlc: str) -> None:
           f"{dealer + 1} blamed, master key of the qualified set matches", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the committee wire protocol: batched rounds 1-2, the court, phases 1-5
+# ---------------------------------------------------------------------------
+
+W1_N, W1_T = 256, 85  # BASELINE.md config 2 (the ristretto255 path's committee), STORM.json's committee
+W1_LOCAL = 256  # parties verified on this host: all of them (64 would be the sharded deployment's cut)
+W1_FLIPPED, W1_FLIPPED_TO = 7, (1, 100, 200)  # a flipped ciphertext byte to three recipients
+W1_CHEAT, W1_CHEAT_TO = 40, (2, 256)  # shares inconsistent with the commitments, to two recipients
+W1_SILENT = 150  # a dealer that goes silent
+W1_SAMPLES = 64  # dealt shares held to the host Horner
+W1_PLAIN_ROWS = 4  # lanes of the KEM recovery and the re-check held against their plain versions
+W2_N, W2_T = 1024, 341  # scripts/storm_bench.py's default shape: t genuine complaints and one false
+W2_SERIAL = 16  # leading genuine triples the serial court re-adjudicates (with the false one)
+W3_N, W3_T = 8, 3  # the whole protocol, phases 1-5, on each curve
+W3_CHEAT, W3_CHEAT_TO, W3_BARE_LIAR = 3, (1, 6), 5
+
+
+def committee_kernels(cs) -> tuple:
+    """The kernels batched_dealing and batched_share_verification launch on
+    a curve: the deal's commitments and share matrix, the seal's KEM and its
+    encoding, the KEM recovery, its encoding and the commitment re-check."""
+    return (pk.kernel_for("pt_fixed_base", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_scalar_mul", cs),
+            pk.kernel_for("pt_ladder_horner", cs), fk.horner_kernel_for(cs.scalar), fk.batch_inv_kernel_for(cs.field),
+            fk.mul_kernel_for(cs.field))
+
+
+def plain_scalar_mul(cs, k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """gd.scalar_mul's plain version: each lane's 16-entry table by plain
+    adds, its windows by pt_scalar_mul_plain."""
+    entries = [pk.identity_plain(cs, p.shape[:-2], p.device), p]
+    for _ in range(14):
+        entries.append(pk.pt_add_plain(cs, entries[-1], p))
+    return pk.pt_scalar_mul_plain(cs, torch.stack(entries, dim=-3), k)
+
+
+def dealing_exact(cs, chunks: int) -> dict:
+    """Launch counts batched_dealing must read: ceremony.deal's two
+    fixed_base_mul (one pt_fixed_base each), E = A + B (one pt_add) and
+    two eval_many (one mod_madd_horner each), then the seal in ``chunks``
+    chunks (:func:`seal_exact`)."""
+    want = seal_exact(cs, chunks)
+    fixed, add = pk.kernel_for("pt_fixed_base", cs).name, pk.kernel_for("pt_add", cs).name
+    want[fixed] += 2
+    want[add] += 1
+    want[fk.horner_kernel_for(cs.scalar).name] = 2
+    want[pk.kernel_for("pt_ladder_mul_add", cs).name] = 0
+    return want
+
+
+def verification_exact(cs) -> dict:
+    """Launch counts batched_share_verification must read: the KEM recovery
+    one scalar_mul (14 pt_add for the per-lane tables, one pt_scalar_mul)
+    and one canonical affine form; the re-check two pt_fixed_base, one
+    pt_add, one pt_ladder_horner and gd.eq's four mod_mul."""
+    want = canon_launches(cs, "classic", 1)
+    want[fk.mul_kernel_for(cs.field).name] += 4
+    return {**want, pk.kernel_for("pt_add", cs).name: 15, pk.kernel_for("pt_scalar_mul", cs).name: 1,
+            pk.kernel_for("pt_window_step", cs).name: 0, pk.kernel_for("pt_fixed_base", cs).name: 2,
+            pk.kernel_for("pt_madd", cs).name: 0, pk.kernel_for("pt_ladder_horner", cs).name: 1,
+            pk.kernel_for("pt_ladder_mul_add", cs).name: 0}
+
+
+def court_exact(cs) -> dict:
+    """Launch counts adjudicate_round1_batch must read on ristretto255:
+    dleq_batch.verify_batch's per-row m = 2 MSM under gd.msm's default
+    there, Pippenger (one bucket_accumulate, one pt_bucket_close, a
+    pt_window_step a window); the re-check two pt_fixed_base and one
+    pt_ladder_horner."""
+    return {bk.kernel_for(cs).name: 1, bk.close_kernel_for(cs).name: 1, bk.sum_kernel_for(cs).name: 0,
+            pk.kernel_for("pt_window_step", cs).name: gd.n_windows(cs, gd.WINDOW),
+            pk.kernel_for("pt_fixed_base", cs).name: 2, pk.kernel_for("pt_ladder_horner", cs).name: 1}
+
+
+def held_launches(tag: str, got: dict, want: dict) -> None:
+    check(all(got.get(k, 0) == v for k, v in want.items()), f"{tag}: launch counts "
+          f"{({k: got.get(k, 0) for k in want})}, want {want}")
+
+
+def cheating_broadcast(group, pks, victims, b: bc.BroadcastPhase1, rng) -> bc.BroadcastPhase1:
+    """``b`` with random but decodable shares sealed to the victims under
+    the dealer's own commitments (tests/test_committee_batch.py's
+    ``_cheating_broadcast``)."""
+    fs = group.scalar_field
+    enc = list(b.encrypted_shares)
+    for v in victims:
+        share_ct, rand_ct = seal_pair(group, pks[v - 1].point, int(fs.rand_int(rng)).to_bytes(fs.nbytes, "little"),
+                                      int(fs.rand_int(rng)).to_bytes(fs.nbytes, "little"), rng)
+        enc[v - 1] = bc.EncryptedShares(v, share_ct, rand_ct)
+    return bc.BroadcastPhase1(b.committed_coefficients, tuple(enc))
+
+
+def complaints_of(result) -> list:
+    """(accused, kind) of a round-2 result's complaints, in order."""
+    b = result[1]
+    return [] if b is None else [(m.accused_index, m.error) for m in b.misbehaving_parties]
+
+
+def dealt_matrix(cs, cfg, state, t: int, m: int) -> tuple:
+    """The (m, n) share and hiding ints batched_dealing dealt from
+    ``rng`` state ``state``: its coefficient draws replayed, the matrix by
+    ceremony.deal_shares on the card."""
+    rng = random.Random()
+    rng.setstate(state)
+    fs = cs.scalar
+    a = [[fs.rand_int(rng) for _ in range(t + 1)] for _ in range(m)]
+    b = [[fs.rand_int(rng) for _ in range(t + 1)] for _ in range(m)]
+    s, r = cer.deal_shares(cfg, fh.to_tensor(fh.encode(fs, a), DEV), fh.to_tensor(fh.encode(fs, b), DEV))
+    return a, fh.decode(fs, fh.from_tensor(s)), fh.decode(fs, fh.from_tensor(r))
+
+
+def rounds_1_2(card: str, seed: int) -> dict:
+    """W1: ristretto255 at n = 256, t = 85.  batched_dealing deals for every
+    member (65,536 pairs sealed); dealer W1_FLIPPED's share ciphertexts to
+    three recipients get a flipped byte, dealer W1_CHEAT seals shares
+    inconsistent with its commitments to two, dealer W1_SILENT goes
+    silent; batched_share_verification then runs for the W1_LOCAL parties
+    (all 255 other dealers each).  Exactly the tampered pairs complain,
+    each with the kind the serial DkgPhase1.proceed gives on a deep copy of
+    the party's phase (fetched: the tampered dealer), and the batch court
+    upholds each; the silent dealer is disqualified by every party, every
+    other pair's received share equals the dealt matrix's entry (which
+    itself equals the host Horner on W1_SAMPLES pairs).  Returns the
+    stages' launches, summed."""
+    group, cs = gh.RISTRETTO255, gd.RISTRETTO255
+    n, t = W1_N, W1_T
+    tag = f"committee W1 ristretto255 n={n} t={t}"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = random.Random(f"{seed}-committee-w1")
+    env = cm.Environment.init(group, t, n, b"chip-smoke-committee")
+    keys, pks, sorted_keys = committee_keys(group, n, rng)
+    trace = CeremonyTrace(meta={"n": n, "t": t})
+    rec: dict = {}
+    before_deal = rng.getstate()
+    with PlainMuls() as plain:
+        dealt = staged(rec, "dealing", lambda: cmb.batched_dealing(env, rng, keys, trace=trace, device=DEV))
+        broadcasts = [b for _, b in dealt]
+        broadcasts[W1_FLIPPED - 1] = flip_byte(broadcasts[W1_FLIPPED - 1], W1_FLIPPED_TO)
+        broadcasts[W1_CHEAT - 1] = cheating_broadcast(group, pks, W1_CHEAT_TO, broadcasts[W1_CHEAT - 1], rng)
+        broadcasts[W1_SILENT - 1] = None
+        fetched = [cm.FetchedPhase1.from_broadcast(env, j + 1, broadcasts[j]) for j in range(n)]
+        local = [p for p, _ in dealt[:W1_LOCAL]]
+        tampered = {(v, W1_FLIPPED) for v in W1_FLIPPED_TO} | {(v, W1_CHEAT) for v in W1_CHEAT_TO}
+        serial = {(v, j): copy.deepcopy(local[v - 1]) for v, j in tampered if v <= W1_LOCAL}
+        results = staged(rec, "verification", lambda: cmb.batched_share_verification(
+            local, fetched, random.Random(f"{seed}-w1-proofs"), device=DEV, trace=trace))
+        # the KEM recovery's scalar_mul and the re-check's Horner, alone at their
+        # shapes, each output kept at W1_PLAIN_ROWS lanes spread over the
+        # parties (x from 1 to n) and dealers, with those lanes' inputs, on the
+        # host: the plain versions' small ops run faster there than as launches
+        lanes = [(p._state.index, j) for p in local for j in range(1, n + 1)
+                 if j != p._state.index and broadcasts[j - 1] is not None]
+        rows = torch.linspace(0, len(lanes) - 1, W1_PLAIN_ROWS, device=DEV).long()
+        nbits = max(2, n.bit_length())
+        sk_limbs = fh.to_tensor(fh.encode(cs.scalar, [sorted_keys[i - 1].sk for i, _ in lanes]), DEV)
+        e1 = gd.from_host(cs, [broadcasts[j - 1].shares_for(i).share_ct.e1 for i, j in lanes], device=DEV)
+        kem_ms = device_ms(lambda: gd.scalar_mul(cs, sk_limbs, e1), reps=1)
+        kem_got = gd.scalar_mul(cs, sk_limbs, e1).index_select(0, rows).cpu()
+        kem_in = (sk_limbs.index_select(0, rows).cpu(), e1.index_select(0, rows).cpu())
+        del sk_limbs, e1
+        dealers = sorted({j for _, j in lanes})
+        comm = gd.from_host(cs, [c for j in dealers for c in broadcasts[j - 1].committed_coefficients],
+                            device=DEV).reshape(len(dealers), t + 1, cs.ncoords, cs.field.limbs)
+        row = {j: r for r, j in enumerate(dealers)}
+        cpts = comm.index_select(0, torch.tensor([row[j] for _, j in lanes], device=DEV))
+        xs = torch.tensor([i for i, _ in lanes], dtype=torch.int32, device=DEV)
+        horner_ms = device_ms(lambda: gd.eval_point_poly(cs, cpts, xs, nbits), reps=1)
+        horner_got = gd.eval_point_poly(cs, cpts, xs, nbits).index_select(0, rows).cpu()
+        horner_in = (cpts.index_select(0, rows).cpu(), xs.index_select(0, rows).cpu())
+        del cpts, comm
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        sync()
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    # both launches at the path's shapes against their plain versions on those lanes, exact
+    t0 = time.perf_counter()
+    held(f"{tag} KEM recovery scalar_mul ({len(lanes)} lanes)", kem_got, plain_scalar_mul(cs, *kem_in))
+    kem_plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held(f"{tag} re-check pt_ladder_horner ({len(lanes)} lanes)", horner_got,
+         pk.pt_ladder_horner_plain(cs, *horner_in, nbits))
+    horner_plain_s = time.perf_counter() - t0
+    held_launches(f"{tag} dealing", rec["dealing"][1], dealing_exact(cs, -(-n // max(1, 4096 // n))))
+    held_launches(f"{tag} verification", rec["verification"][1], verification_exact(cs))
+
+    # exactly the tampered pairs complain, each with the serial kind
+    got = {}
+    for p, res in zip(local, results):
+        check(isinstance(res[0], cm.DkgPhase2), f"{tag}: party {p._state.index} got {res[0]}")
+        for j, kind in complaints_of(res):
+            got[(p._state.index, j)] = kind
+    want_pairs = {x for x in tampered if x[0] <= W1_LOCAL}
+    check(set(got) == want_pairs, f"{tag}: complaints at {sorted(got)}, want {sorted(want_pairs)}")
+    for (v, j), phase in serial.items():
+        s_res = phase.proceed([fetched[j - 1]], random.Random(0))
+        check(complaints_of(s_res) == [(j, got[(v, j)])], f"{tag}: party {v} on dealer {j}: batched kind "
+              f"{got[(v, j)]}, serial {complaints_of(s_res)}")
+        if j == W1_CHEAT:
+            check(got[(v, j)] == DkgErrorKind.SHARE_VALIDITY_FAILED, f"{tag}: the cheat's kind {got[(v, j)]}")
+    triples = [(p._state.index, pks[p._state.index - 1], m) for p, res in zip(local, results)
+               if res[1] is not None for m in res[1].misbehaving_parties]
+    verdicts = court.adjudicate_round1_batch(group, cs, env.commitment_key, triples,
+                                                {j + 1: broadcasts[j] for j in range(n)}, device=DEV)
+    check(verdicts == [True] * len(triples), f"{tag}: the court's verdicts on the complaints {verdicts}")
+
+    # the silent dealer is out everywhere; every other pair holds the dealt share
+    coeffs, dealt_s, dealt_h = dealt_matrix(cs, cer.CeremonyConfig("ristretto255", n, t), before_deal, t, n)
+    smp = random.Random(seed)
+    for _ in range(W1_SAMPLES):
+        j, i = smp.randrange(n), smp.randrange(n)
+        check(int(dealt_s[j, i]) == eval_host(cs.scalar.modulus, coeffs[j], i + 1), f"{tag}: dealt s[{j}, {i}]")
+    for p in local:
+        st = p._state
+        i = st.index
+        check(st.qualified[W1_SILENT - 1] == 0 or i == W1_SILENT, f"{tag}: party {i} kept the silent dealer")
+        for j in range(1, n + 1):
+            if j == W1_SILENT and i != j:
+                check(j not in st.received_shares, f"{tag}: party {i} holds a share of the silent dealer")
+                continue
+            if (i, j) in tampered:
+                check(j not in st.received_shares and st.qualified[j - 1] == 0, f"{tag}: party {i} kept {j}")
+                continue
+            check(st.received_shares.get(j) == (int(dealt_s[j - 1, i - 1]), int(dealt_h[j - 1, i - 1])),
+                  f"{tag}: party {i}'s share from dealer {j} != the dealt matrix's")
+    stages = {"deal": trace.timings_s["deal"], "seal": trace.timings_s["seal"],
+              **{f"verify {k}": v for k, v in trace.subtimings_s["verify"].items()}}
+    print(f"{tag} ({card}): stages (host s) " + json.dumps({k: round(v, 6) for k, v in stages.items()})
+          + f"; dealing {rec['dealing'][0]:.6f} s, verification {rec['verification'][0]:.6f} s for {len(local)} "
+          f"parties ({len(lanes)} pairs); KEM recovery scalar_mul {kem_ms:.3f} device ms ({len(lanes)} lanes, a table "
+          f"a lane); re-check pt_ladder_horner {horner_ms:.3f} device ms ({len(lanes)} x {t + 1} per-lane "
+          f"coefficients); both exact against their plain versions on plain_rows = {W1_PLAIN_ROWS} of those lanes "
+          f"(x = {horner_in[1].tolist()}; on the host, plain scalar_mul {kem_plain_s:.3f} s, plain "
+          f"pt_ladder_horner {horner_plain_s:.3f} s); peak device memory {peak_gib:.2f} GiB", flush=True)
+    print(f"{tag}: launches " + json.dumps({k: v[1] for k, v in rec.items()}), flush=True)
+    print(f"{tag}: complaints exactly at the tampered pairs " + json.dumps(
+        {f"{v}<-{j}": got[(v, j)].name for v, j in sorted(got)}) + ", the serial kinds, all upheld by the batch "
+          f"court; dealer {W1_SILENT} disqualified by every party; every other pair holds the dealt share; no plain "
+          f"multiply on the card; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rec
+
+
+def storm(card: str, seed: int) -> dict:
+    """W2: the complaint court under a storm at n = 1024, t = 341
+    (scripts/storm_bench.py's default shape): t genuine complaints and one
+    false, adjudicated by adjudicate_round1_batch (a warm-up call, then the
+    timed one); verdicts [True] * t + [False], and the serial court agrees
+    on the first W2_SERIAL triples and the false one."""
+    group, cs = gh.RISTRETTO255, gd.RISTRETTO255
+    n, t = W2_N, W2_T
+    tag = f"committee W2 storm ristretto255 n={n} t={t}"
+    rng = random.Random(f"{seed}-committee-w2")
+    env = cm.Environment.init(group, t, n, b"chip-smoke-storm")
+    t0 = time.perf_counter()
+    keys, pks, sorted_keys = committee_keys(group, n, rng)
+    keys_s = time.perf_counter() - t0
+    rec: dict = {}
+    with PlainMuls() as plain:
+        t0 = time.perf_counter()
+        tampered, triples = build_storm(env, keys, pks, sorted_keys, rng, t, device=DEV)
+        build_s = time.perf_counter() - t0
+        by_sender = {1: tampered}
+        court.adjudicate_round1_batch(group, cs, env.commitment_key, triples, by_sender, device=DEV)
+        timings: dict = {}
+        verdicts = staged(rec, "court", lambda: court.adjudicate_round1_batch(
+            group, cs, env.commitment_key, triples, by_sender, timings, device=DEV))
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    held_launches(f"{tag} court", rec["court"][1], court_exact(cs))
+    check(verdicts == [True] * t + [False], f"{tag}: verdicts {verdicts.count(True)} upheld, last {verdicts[-1]}")
+    sub = triples[:W2_SERIAL] + triples[-1:]
+    t0 = time.perf_counter()
+    serial = court.adjudicate_round1_serial(group, env.commitment_key, sub, by_sender)
+    serial_s = time.perf_counter() - t0
+    check(serial == verdicts[:W2_SERIAL] + verdicts[-1:], f"{tag}: the serial court's verdicts {serial}")
+    court_s = rec["court"][0]
+    print(f"{tag} ({card}): {len(triples)} complaints adjudicated in {court_s:.6f} s, "
+          f"{len(triples) / court_s:.2f} complaints per s (the JAX package's STORM.json, a CPU run at n = 256, "
+          f"t = 85: 1.5 per s batched, 37.75 serial); stages (host s) "
+          + json.dumps({k: round(v, 6) for k, v in timings.items()})
+          + f"; keys {keys_s:.3f} s, deal and {len(triples)} proofs {build_s:.3f} s; the serial court on "
+          f"{len(sub)} triples {serial_s:.3f} s ({len(sub) / serial_s:.2f} per s), the same verdicts; launches "
+          + json.dumps(rec["court"][1]), flush=True)
+    return rec
+
+
+def whole_protocol(curve: str, card: str, seed: int) -> dict:
+    """W3: phases 1-5 at n = 8, t = 3 on ``curve``: batched_dealing,
+    batched_share_verification with dealer W3_CHEAT cheating two parties,
+    DkgPhase2.proceed (the complaints upheld, the cheat disqualified by
+    everyone), DkgPhase3 with dealer W3_BARE_LIAR publishing wrong bare
+    commitments (every other party's round-4 complaint upheld), its secret
+    reconstructed from disclosed shares in DkgPhase5.finalise.  Every
+    honest party's master key is equal and reproduced by the secret
+    interpolated from t + 1 final shares on the host."""
+    group, cs = gh.ALL_GROUPS[curve], gd.ALL_CURVES[curve]
+    n, t = W3_N, W3_T
+    tag = f"committee W3 {curve} n={n} t={t}"
+    rng = random.Random(f"{seed}-committee-w3-{curve}")
+    env = cm.Environment.init(group, t, n, b"chip-smoke-w3")
+    keys, pks, _ = committee_keys(group, n, rng)
+    rec: dict = {}
+    seconds: dict = {}
+
+    def timed(name: str, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        seconds[name] = time.perf_counter() - t0
+        return res
+
+    with PlainMuls() as plain:
+        dealt = staged(rec, "dealing", lambda: cmb.batched_dealing(env, rng, keys, device=DEV))
+        b1 = [b for _, b in dealt]
+        b1[W3_CHEAT - 1] = cheating_broadcast(group, pks, W3_CHEAT_TO, b1[W3_CHEAT - 1], rng)
+        fetched = [cm.FetchedPhase1.from_broadcast(env, j + 1, b1[j]) for j in range(n)]
+        round2 = staged(rec, "verification", lambda: cmb.batched_share_verification([p for p, _ in dealt], fetched,
+                                                                                   rng, device=DEV))
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    check([i + 1 for i, r in enumerate(round2) if r[1] is not None] == list(W3_CHEAT_TO)
+          and all(complaints_of(round2[v - 1]) == [(W3_CHEAT, DkgErrorKind.SHARE_VALIDITY_FAILED)]
+                  for v in W3_CHEAT_TO), f"{tag}: round-2 complaints {[complaints_of(r) for r in round2]}")
+    c2 = [cm.FetchedComplaints2(i + 1, r[1]) for i, r in enumerate(round2)]
+    phase2 = timed("phase 2", lambda: [r[0].proceed(c2, fetched) for r in round2])
+    check(all(isinstance(p[0], cm.DkgPhase3) and p[0]._state.qualified[W3_CHEAT - 1] == 0 for p in phase2),
+          f"{tag}: the cheat stayed qualified")
+    b3 = [b for _, b in phase2]
+    liar = b3[W3_BARE_LIAR - 1].committed_coefficients
+    b3[W3_BARE_LIAR - 1] = bc.BroadcastPhase3((group.add(liar[0], group.generator()),) + tuple(liar[1:]))
+    f3 = [cm.FetchedPhase3.from_broadcast(env, j + 1, b3[j]) for j in range(n)]
+    phase3 = timed("phase 3", lambda: [p.proceed(f3) for p, _ in phase2])
+    accusers = [i + 1 for i, (_, b) in enumerate(phase3) if b is not None]
+    want_accusers = [i for i in range(1, n + 1) if i != W3_BARE_LIAR]
+    check(accusers == want_accusers and all(
+        [m.accused_index for m in phase3[i - 1][1].misbehaving_parties] == [W3_BARE_LIAR] for i in accusers),
+        f"{tag}: round-4 complaints from {accusers}")
+    c4 = [cm.FetchedComplaints4(i + 1, b) for i, (_, b) in enumerate(phase3)]
+    phase4 = timed("phase 4", lambda: [p.proceed(c4) for p, _ in phase3])
+    honest = [i for i in want_accusers if i != W3_CHEAT]
+    check(all(isinstance(phase4[i - 1][0], cm.DkgPhase5)
+              and phase4[i - 1][0]._state.reconstructable == {W3_BARE_LIAR} for i in honest),
+          f"{tag}: the liar is not to be reconstructed everywhere")
+    f5 = [cm.FetchedPhase5(i + 1, b) for i, (_, b) in enumerate(phase4)]
+    final = timed("phase 5", lambda: [p.finalise(f5)[0] for p, _ in phase4])
+    masters = [final[i - 1][0] for i in honest]
+    check(masters[0].check_consistent(group, masters[1:]) is None, f"{tag}: the honest master keys differ")
+    xs = honest[: t + 1]
+    secret = lagrange_interpolation(group.scalar_field, 0, [final[i - 1][1].value for i in xs], xs)
+    check(masters[0].check_reproduced_by(group, secret) is None, f"{tag}: g·(interpolated secret) != the master key")
+    print(f"{tag} ({card}): stages (host s) " + json.dumps(
+        {"dealing": round(rec["dealing"][0], 6), "verification": round(rec["verification"][0], 6),
+         **{k: round(v, 6) for k, v in seconds.items()}}) + f"; round-2 complaints of {list(W3_CHEAT_TO)} upheld, "
+          f"dealer {W3_CHEAT} disqualified; dealer {W3_BARE_LIAR}'s round-4 complaints upheld, its secret "
+          f"reconstructed; {len(honest)} honest master keys equal, reproduced by the secret interpolated from parties "
+          f"{xs}; launches " + json.dumps({k: v[1] for k, v in rec.items()}), flush=True)
+    held_launches(f"{tag} dealing", rec["dealing"][1], dealing_exact(cs, 1))
+    held_launches(f"{tag} verification", rec["verification"][1], verification_exact(cs))
+    return rec
+
+
+def committee_phase(seed: int) -> dict:
+    """The wire protocol on the card, W1 to W3, with every launch count set
+    to 0 just before each stage and read just after: every kernel of the
+    path must be launched.  Returns the stages' launches, summed."""
+    card = card_line()
+    totals: dict = {}
+    recs = [rounds_1_2(card, seed), storm(card, seed)]
+    recs += [whole_protocol(curve, card, seed) for curve in (p.curve for p in PATHS)]
+    for rec in recs:
+        for _, launches in rec.values():
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+    r255 = gd.RISTRETTO255
+    path_kernels = [k for p in PATHS for k in committee_kernels(p.cs)]
+    path_kernels += [bk.kernel_for(r255), bk.close_kernel_for(r255), pk.kernel_for("pt_window_step", r255)]
+    for k in path_kernels:
+        check(totals.get(k.name, 0) > 0, f"kernel {k.name} was not launched in the committee phase")
+    print("committee phase: launches, W1-W3 summed " + json.dumps(totals), flush=True)
+    return totals
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1940,6 +2357,8 @@ def main() -> None:
         for rlc in ("straus", "pippenger"):
             tampered(path.curve, args.seed + 1 + i, rlc)
     stamp("tampered runs")
+    keep(committee_phase(args.seed))
+    stamp("committee wire protocol")
 
     rows = []
     for name, rec in numbers.items():

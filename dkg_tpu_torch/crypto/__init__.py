@@ -1,1 +1,1 @@
-"""BLAKE2s Merkle rows of the transcript, and the Pedersen commitment key."""
+"""Hashes and ciphers, ElGamal and the hybrid share encryption, Pedersen commitments, DLEQ proofs."""

@@ -1,13 +1,13 @@
-"""Hybrid (KEM + DEM) encryption of shares over a host group: the
-ElGamal KEM to a group element, a BLAKE2b KDF to a ChaCha20 key and
-nonce, and the stream-cipher DEM.
+"""ElGamal over a host group: key pairs, lifted homomorphic ElGamal, and
+the hybrid (KEM + DEM) encryption of shares: the ElGamal KEM to a group
+element, a BLAKE2b KDF to a ChaCha20 key and nonce, and the
+stream-cipher DEM.
 
-Counterpart of the hybrid half of ``dkg_tpu/crypto/elgamal.py``, the
-same bytes on the wire.  ``group`` is a ``groups.host`` group.  A
+A JAX-free copy of ``dkg_tpu/crypto/elgamal.py``, the same values and
+the same bytes on the wire.  ``group`` is a ``groups.host`` group.  A
 (share, hiding) pair is sealed under one KEM point with two KDF
 personalisations (:data:`PERSON_SHARE`, :data:`PERSON_RAND`); the
-batched dealing round is ``dkg/hybrid_batch.py``.  Plain lifted ElGamal
-and key pairs are not ported.
+batched dealing round is ``dkg/hybrid_batch.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,104 @@ import hashlib
 from dataclasses import dataclass
 
 from .chacha import chacha20_xor
+
+
+@dataclass(frozen=True)
+class Keypair:
+    """sk, pk = g·sk."""
+
+    sk: int
+    pk: tuple
+
+    @classmethod
+    def generate(cls, group, rng) -> "Keypair":
+        sk = group.random_scalar(rng)
+        return cls(sk, group.scalar_mul(sk, group.generator()))
+
+    @classmethod
+    def from_secret(cls, group, sk: int) -> "Keypair":
+        return cls(sk, group.scalar_mul(sk, group.generator()))
+
+
+@dataclass(frozen=True)
+class Ciphertext:
+    """Lifted-ElGamal ciphertext (e1, e2) = (r·G, m·G + r·PK).
+
+    It carries its group (left out of equality), so ``a + b``, ``a - b``,
+    ``a * k`` and ``k * a`` work on it; ``add``, ``sub`` and
+    ``mul_scalar`` take the group for a ciphertext without one."""
+
+    e1: tuple
+    e2: tuple
+    group: object = None
+
+    def add(self, group, other: "Ciphertext") -> "Ciphertext":
+        """The homomorphic sum."""
+        return Ciphertext(group.add(self.e1, other.e1), group.add(self.e2, other.e2), group)
+
+    def sub(self, group, other: "Ciphertext") -> "Ciphertext":
+        return Ciphertext(group.sub(self.e1, other.e1), group.sub(self.e2, other.e2), group)
+
+    def mul_scalar(self, group, k: int) -> "Ciphertext":
+        """The homomorphic scalar multiple."""
+        return Ciphertext(group.scalar_mul(k, self.e1), group.scalar_mul(k, self.e2), group)
+
+    def _require_group(self):
+        if self.group is None:
+            raise TypeError("operator form needs a group-carrying Ciphertext; use "
+                            ".add/.sub/.mul_scalar(group, ...) or dataclasses.replace(ct, group=g)")
+        return self.group
+
+    def __add__(self, other):
+        if not isinstance(other, Ciphertext):
+            return NotImplemented
+        return self.add(self._require_group(), other)
+
+    def __sub__(self, other):
+        if not isinstance(other, Ciphertext):
+            return NotImplemented
+        return self.sub(self._require_group(), other)
+
+    def __mul__(self, k):
+        if not isinstance(k, int):
+            return NotImplemented
+        return self.mul_scalar(self._require_group(), k)
+
+    __rmul__ = __mul__
+
+    def __eq__(self, other):  # the group is context, not content
+        if not isinstance(other, Ciphertext):
+            return NotImplemented
+        return self.e1 == other.e1 and self.e2 == other.e2
+
+    def __hash__(self):
+        return hash((self.e1, self.e2))
+
+
+def encrypt_point(group, pk: tuple, m_point: tuple, rng) -> Ciphertext:
+    """ElGamal on a group element, r drawn from ``rng``."""
+    return encrypt_point_with_random(group, pk, m_point, group.random_scalar(rng))
+
+
+def encrypt_point_with_random(group, pk: tuple, m_point: tuple, r: int) -> Ciphertext:
+    e1 = group.scalar_mul(r, group.generator())
+    e2 = group.add(m_point, group.scalar_mul(r, pk))
+    return Ciphertext(e1, e2, group)
+
+
+def encrypt(group, pk: tuple, m: int, rng) -> Ciphertext:
+    """Lifted ElGamal: encrypts m·G."""
+    return encrypt_point(group, pk, group.scalar_mul(m, group.generator()), rng)
+
+
+def decrypt_point(group, sk: int, c: Ciphertext) -> tuple:
+    """m·G = e2 − sk·e1."""
+    return group.sub(c.e2, group.scalar_mul(sk, c.e1))
+
+
+# ---------------------------------------------------------------------------
+# hybrid encryption: the share-delivery scheme
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -49,6 +147,11 @@ def keystream_from_kem_bytes(kem_bytes: bytes, person: bytes) -> tuple[bytes, by
 
 def _keystream_params(group, kem_point: tuple, person: bytes = PERSON_SHARE) -> tuple[bytes, bytes]:
     return keystream_from_kem_bytes(group.encode(kem_point), person)
+
+
+def hybrid_encrypt(group, pk: tuple, message: bytes, rng) -> HybridCiphertext:
+    """KEM pk·r, DEM ChaCha20, r drawn from ``rng``."""
+    return hybrid_encrypt_with_random(group, pk, message, group.random_scalar(rng))
 
 
 def hybrid_encrypt_with_random(group, pk: tuple, message: bytes, r: int,

@@ -1,1 +1,1 @@
-"""The batched ceremony engine and its error taxonomy."""
+"""The batched ceremony engine, the committee wire protocol (phases 1-5, batched rounds 1-2 and the complaint court) and the error taxonomy."""

@@ -1,8 +1,11 @@
-"""Protocol error taxonomy: a copy of ``dkg_tpu/dkg/errors.py``'s
-``DkgErrorKind`` and ``DkgError`` (the reference crate's src/errors.rs).
+"""Protocol error taxonomy: a copy of ``dkg_tpu/dkg/errors.py``
+(``DkgErrorKind``, ``DkgError``, ``ProofError``; the reference crate's
+src/errors.rs).
 
-Errors are returned, not raised, by the ceremony: ``BatchedCeremony.run``
-puts a ``DkgError`` under ``"error"`` when it aborts."""
+Errors are returned, not raised: ``BatchedCeremony.run`` puts a
+``DkgError`` under ``"error"`` when it aborts, and a phase transition of
+``dkg/committee.py`` returns one in place of the next phase, since a
+failing party may still have complaint evidence to publish."""
 
 from __future__ import annotations
 
@@ -36,3 +39,15 @@ class DkgError(Exception):
     def __str__(self) -> str:
         where = f" (party {self.index})" if self.index is not None else ""
         return f"{self.kind.value}{where}{': ' + self.detail if self.detail else ''}"
+
+    @classmethod
+    def from_proof(cls, err: "ProofError") -> "DkgError":
+        """A ZKP failure as a DKG error."""
+        return cls(DkgErrorKind.ZKP_VERIFICATION_FAILED, detail=err.detail)
+
+
+@dataclass(frozen=True)
+class ProofError(Exception):
+    """A zero-knowledge proof failed to verify."""
+
+    detail: str = ""

@@ -18,7 +18,9 @@ form where the points are, one transfer), one BLAKE2b batch a tag
 (``crypto.chacha.chacha20_xor_batch``).  :func:`seal_shares` is the
 per-pair reference leg; both legs give the same bytes.
 :func:`seal_shares_pipeline` chunks KEM and DEM over dealers so the host
-DEM of chunk k overlaps the device work of chunk k+1.  The JAX package's
+DEM of chunk k overlaps the device work of chunk k+1, and
+:func:`broadcasts_from_batch` packages a dealing round's commitments and
+sealed pairs as the wire protocol's round-1 messages.  The JAX package's
 ``DKG_TPU_DEM`` and ``DKG_TPU_DEM_CHUNK`` are the ``dem=`` and ``chunk=``
 arguments here.
 
@@ -38,6 +40,7 @@ from ..crypto.chacha import chacha20_xor, chacha20_xor_batch
 from ..crypto.elgamal import PERSON_RAND, PERSON_SHARE, HybridCiphertext, keystream_from_kem_bytes
 from ..fields import host as fh
 from ..groups import device as gd
+from .broadcast import BroadcastPhase1, EncryptedShares
 from .ceremony import resolve_device
 
 DEM_MODES = ("scalar", "batch")
@@ -202,3 +205,17 @@ def open_shares_batch(group, cfg, sk: int, pairs: list[tuple[HybridCiphertext, H
             v = int.from_bytes(pt[r].tobytes(), "little")
             vals[i][col] = v if v < fs.modulus else None
     return [(a, b) for a, b in vals]
+
+
+def broadcasts_from_batch(group, cfg, randomized, sealed: list[list[tuple[HybridCiphertext, HybridCiphertext]]]
+                          ) -> list[BroadcastPhase1]:
+    """A dealing round as wire messages: one ``BroadcastPhase1`` a dealer,
+    its randomized commitments ``randomized`` (n_d, t+1, C, L) as host
+    points and its row of sealed pairs, recipient i + 1 the row's i-th."""
+    cs = cfg.cs
+    comm = _host(randomized)
+    out = []
+    for d, row in enumerate(sealed):
+        enc = tuple(EncryptedShares(i + 1, share_ct, hiding_ct) for i, (share_ct, hiding_ct) in enumerate(row))
+        out.append(BroadcastPhase1(tuple(_host_points(cs, comm[d])), enc))
+    return out

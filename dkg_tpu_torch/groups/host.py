@@ -15,7 +15,9 @@ oracles are public, but a recipient's secret key goes through it in
 those are for tests and public replays until a constant-time ladder is
 ported.  ``random_scalar`` draws a scalar from the caller's ``rng``.
 The public-scalar API the signing path verifies with (``neg``, ``sub``,
-``scalar_mul_vartime``, ``msm``, ``is_identity``) is the JAX package's
+``scalar_mul_vartime``, ``msm``, ``is_identity``) and the scalar codec
+the wire protocol seals shares with (``scalar_to_bytes``,
+``scalar_from_bytes``, ``hash_to_scalar``) are the JAX package's
 ``HostGroup``'s, and ``_person`` its BLAKE2b personalisation.
 """
 
@@ -247,9 +249,27 @@ def _person(domain: bytes) -> bytes:
 
 
 class _PublicOps:
-    """The operations on public scalars both groups share (the JAX
-    package's ``HostGroup``): variable-time double-and-add, so for
-    verification data only, never a secret."""
+    """What both groups share with the JAX package's ``HostGroup``: the
+    scalar byte codec and hash, and the operations on public scalars
+    (variable-time double-and-add, so for verification data only, never
+    a secret)."""
+
+    def hash_to_scalar(self, data: bytes, domain: bytes = b"") -> int:
+        """BLAKE2b-512 of ``data`` reduced mod the group order."""
+        h = hashlib.blake2b(data, digest_size=64, person=_person(domain)).digest()
+        return int.from_bytes(h, "little") % self.scalar_field.modulus
+
+    def scalar_to_bytes(self, s: int) -> bytes:
+        """s mod the order as ``scalar_field.nbytes`` little-endian bytes."""
+        return int(s % self.scalar_field.modulus).to_bytes(self.scalar_field.nbytes, "little")
+
+    def scalar_from_bytes(self, data: bytes) -> Optional[int]:
+        """The scalar of :meth:`scalar_to_bytes`; None for a wrong length
+        or a value not below the order."""
+        if len(data) != self.scalar_field.nbytes:
+            return None
+        x = int.from_bytes(data, "little")
+        return x if x < self.scalar_field.modulus else None
 
     def sub(self, p, q):
         return self.add(p, self.neg(q))

@@ -13,10 +13,16 @@ import pytest
 import torch
 
 from dkg_tpu_torch import sign as ts
+from dkg_tpu_torch.crypto import elgamal as tel
 from dkg_tpu_torch.dkg import ceremony as tce
+from dkg_tpu_torch.dkg import committee as tcm
+from dkg_tpu_torch.dkg import committee_batch as tcmb
+from dkg_tpu_torch.dkg import complaints_batch as tcb
+from dkg_tpu_torch.dkg import procedure_keys as tpk
 from dkg_tpu_torch.dkg import hybrid_batch as hb
 from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
+from dkg_tpu_torch.groups import host as tgh
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
@@ -38,7 +44,10 @@ def _modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"dkg_tpu_torch.dkg.hybrid_batch", "dkg_tpu_torch.crypto.chacha", "dkg_tpu_torch.crypto.blake2",
             "dkg_tpu_torch.crypto.elgamal", "dkg_tpu_torch.crypto.dleq_batch", "dkg_tpu_torch.poly.host",
-            "dkg_tpu_torch.sign.verify"} <= set(_modules())
+            "dkg_tpu_torch.sign.verify", "dkg_tpu_torch.crypto.commitment", "dkg_tpu_torch.crypto.correct_decryption",
+            "dkg_tpu_torch.dkg.errors", "dkg_tpu_torch.dkg.procedure_keys", "dkg_tpu_torch.dkg.broadcast",
+            "dkg_tpu_torch.dkg.committee", "dkg_tpu_torch.dkg.committee_batch", "dkg_tpu_torch.dkg.complaints_batch",
+            "dkg_tpu_torch.dkg.storm_bench", "dkg_tpu_torch.utils.tracing"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -310,6 +319,18 @@ def test_entry_points_default_to_cuda():
         tce.BatchedCeremony("secp256k1", 4, 1, b"x", None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tce.resolve_device("cuda")
+    group = tgh.RISTRETTO255
+    env = tcm.Environment.init(group, 1, 3, b"x")
+    keys = [tpk.MemberCommunicationKey(tel.Keypair.from_secret(group, k)) for k in (2, 3, 5)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcmb.batched_dealing(env, None, keys)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcmb.batched_share_verification([None], [], None)
+    for court in (tcb.adjudicate_round1, tcb.adjudicate_round1_batch):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            court(group, tgd.RISTRETTO255, env.commitment_key, [], {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcb.check_randomized_shares_batch(group, tgd.RISTRETTO255, env.commitment_key, [1], [1], [1], [()])
     assert tce.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -2,11 +2,14 @@
 
 Every value comes from a seed and is handed to both packages as the
 same uint32 limb array: jnp.asarray for ``dkg_tpu``, an int32 tensor on
-the CPU for ``dkg_tpu_torch``.  The arithmetic is exact modular, so the
-tests compare by exact equality.
+the CPU for ``dkg_tpu_torch``; wire objects cross packages through
+:func:`to_port` and :func:`to_jax`.  The arithmetic is exact modular, so
+the tests compare by exact equality.
 """
 
 import dataclasses
+import enum
+import importlib
 import random
 
 import numpy as np
@@ -18,6 +21,7 @@ from dkg_tpu.fields import host as jfh
 from dkg_tpu.groups import host as jgh
 from dkg_tpu.sign import partial as jsp
 from dkg_tpu_torch.crypto import dleq as tdleq
+from dkg_tpu_torch.groups import host as tgh
 from dkg_tpu_torch.sign import partial as tsp
 
 
@@ -147,16 +151,52 @@ def sharing(curve: str, seed: int = 0x516E) -> tuple[int, list[int]]:
     return coeffs[0], [horner(i) for i in range(1, SIGN_N + 1)]
 
 
-def to_port(ps):
-    """A JAX package grid as the port's: the same fields, sigs as a CPU tensor."""
-    return tsp.PartialSignatures(ps.curve, ps.indices, ps.h_points, to_torch(ps.sigs), ps.pks,
-                                 [tdleq.DleqZkp(p.challenge, p.response) for p in ps.proofs], ps.announcements)
+def _counterpart(cls, src: str, dst: str):
+    """The class of package ``dst`` with ``cls``'s name, in the module of
+    the same path."""
+    mod = cls.__module__
+    assert mod.startswith(src + "."), mod
+    return getattr(importlib.import_module(dst + mod[len(src):]), cls.__name__)
 
 
-def to_jax(ps):
-    """A port grid as the JAX package's: sigs as uint32 numpy."""
-    return jsp.PartialSignatures(ps.curve, ps.indices, ps.h_points, to_np(ps.sigs), ps.pks,
-                                 [jdleq.DleqZkp(p.challenge, p.response) for p in ps.proofs], ps.announcements)
+def _carry(obj, src: str, dst: str, groups: dict):
+    """``obj`` rebuilt in package ``dst``'s types, field by field: each
+    dataclass as its same-named counterpart, enum members by name, host
+    groups by name, containers element by element; ints, bytes and
+    strings as they are."""
+    if obj is None or isinstance(obj, (int, bytes, str, float)):
+        return obj
+    if isinstance(obj, enum.Enum):
+        return _counterpart(type(obj), src, dst)[obj.name]
+    if isinstance(obj, (tuple, list, set, frozenset)):
+        return type(obj)(_carry(x, src, dst, groups) for x in obj)
+    if isinstance(obj, dict):
+        return {_carry(k, src, dst, groups): _carry(v, src, dst, groups) for k, v in obj.items()}
+    if type(obj).__module__ == f"{src}.groups.host":
+        return groups[obj.name]
+    if dataclasses.is_dataclass(obj):
+        cls = _counterpart(type(obj), src, dst)
+        return cls(**{f.name: _carry(getattr(obj, f.name), src, dst, groups) for f in dataclasses.fields(obj)})
+    raise TypeError(f"cannot carry a {type(obj).__name__} across packages")
+
+
+def to_port(obj):
+    """A JAX package object as the port's: a signing grid with its sigs as
+    a CPU tensor; wire objects (broadcasts, complaints, proofs, keys,
+    environments) rebuilt in the port's same-named types field by field."""
+    if isinstance(obj, jsp.PartialSignatures):
+        return tsp.PartialSignatures(obj.curve, obj.indices, obj.h_points, to_torch(obj.sigs), obj.pks,
+                                     [tdleq.DleqZkp(p.challenge, p.response) for p in obj.proofs], obj.announcements)
+    return _carry(obj, "dkg_tpu", "dkg_tpu_torch", tgh.ALL_GROUPS)
+
+
+def to_jax(obj):
+    """A port object as the JAX package's: a signing grid with its sigs as
+    uint32 numpy; wire objects rebuilt in the JAX package's types."""
+    if isinstance(obj, tsp.PartialSignatures):
+        return jsp.PartialSignatures(obj.curve, obj.indices, obj.h_points, to_np(obj.sigs), obj.pks,
+                                     [jdleq.DleqZkp(p.challenge, p.response) for p in obj.proofs], obj.announcements)
+    return _carry(obj, "dkg_tpu_torch", "dkg_tpu", jgh.ALL_GROUPS)
 
 
 def z_tampered(ps, bi: int, si: int):
