@@ -115,8 +115,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    its share, and no plain multiply on the card; each chunk of a seal
    (one unchunked) launches exactly 1 pt_fixed_base (c1), 0 pt_madd, 14
    pt_add (the KEM's table build), 1 pt_scalar_mul and 0 pt_window_step
-   (the KEM), 1 mod_batch_inv and 2 mod_mul (3 on ristretto255: the KEM
-   points' canonical affine form).
+   (the KEM), and the KEM points' encodings: on the Weierstrass curves 1
+   mod_batch_inv and 2 mod_mul (their canonical affine form), on
+   ristretto255 526 mod_mul (the batched ristretto255 encoding,
+   groups/ristretto_device.py) and no mod_batch_inv.
 6. Threshold signing (dkg_tpu_torch.sign) on each Straus run's final
    shares, quorum Q1 the parties 1 .. t + 1 (342 signers on secp256k1
    and BLS12-381, 86 on ristretto255), Q2 the last t + 1, each stage with
@@ -176,10 +178,39 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
      disqualified, a round-3 liar's secret reconstructed, every honest
      master key equal and reproduced by the secret interpolated from
      t + 1 final shares.
-10. Prints one JSON line of per-kernel numbers (launches: the count the
+10. Epochs (dkg_tpu_torch.epoch), each stage with every launch count set
+   to 0 just before and read just after, its exact counts held:
+   - E1, the in-process lane on each Straus run's own final shares:
+     refresh_shares (one mod_madd_horner), reshare_shares to n' = n/2,
+     t' = (n' - 1) // 3 (one mod_madd_horner, λ_i(0)'s mod_mul and one
+     more); the secret interpolated on the host from random (t+1)- and
+     (t'+1)-subsets is the ceremony's, g times it the master; t' + 1
+     reshared shares sign 16 messages, each aggregate secret·H(m);
+   - E2, the dealing legs at W1's committee (ristretto255 n = 256, t =
+     85) on the ristretto255 path's epoch 0: 256 refresh deals
+     (deal_epoch_poly, 65,536 sealed pairs, each deal encoded and decoded),
+     one resealed share flagged by check_bare_shares alone; members 1, 86,
+     171 and 256 open and check all 256 rows, their new shares lie on the
+     new aggregate, which keeps the master; 86 reshare deals, one forged
+     constant flagged by check_reshare_constants alone,
+     combine_reshare_commitments over 86 x 86 points keeps the master and
+     holds member 1's reshared share;
+   - E3, the EpochManager at n = 8, t = 3 on each curve: genesis from the
+     committee phases 1-5, every party a thread over one InProcessChannel
+     with a PartyWal, a refresh and a reshare with one leaver and one
+     joiner; every master the ceremony's, the leaver without state, the
+     rest at epoch 2 agreeing on the commitments; one party rebuilt from
+     its WAL replays both operations to the same states;
+   - encode_batch's card leg (default on a card tensor) against its host
+     leg at 65,536 ristretto255 points: byte-equal, the identities all
+     zero, the card the faster (both timed); ristretto_decode_batch on
+     the card against the host's validity and points; W1's seal and DEM
+     seconds beside them.
+11. Prints one JSON line of per-kernel numbers (launches: the count the
    first main path that launched the kernel read, Straus before the seal
-   before signing before Pippenger before gemm before the committee phase,
-   or the 0 every path read (a signing or committee phase's count is its
+   before signing before Pippenger before gemm before the committee and
+   epoch phases, or the 0 every path read (a signing, committee or epoch
+   phase's count is its
    stages' sum); device_ms: a wrapper
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
@@ -196,13 +227,20 @@ so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import dataclasses
+import functools
 import json
+import multiprocessing
+import os
 import random
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -220,11 +258,18 @@ from dkg_tpu_torch.dkg import complaints_batch as court
 from dkg_tpu_torch.dkg import hybrid_batch as hb
 from dkg_tpu_torch.dkg.storm_bench import build_storm, committee_keys, flip_byte
 from dkg_tpu_torch.dkg.errors import DkgErrorKind
+from dkg_tpu_torch.epoch import KIND_REFRESH, KIND_RESHARE, EpochManager, EpochState, genesis_from_party_result
+from dkg_tpu_torch.epoch import dealing, inprocess
+from dkg_tpu_torch.epoch import messages as em
+from dkg_tpu_torch.epoch import state as est
 from dkg_tpu_torch.fields import device as fd
 from dkg_tpu_torch.fields import host as fh
+from dkg_tpu_torch.fields.spec import int_to_limbs
 from dkg_tpu_torch.groups import device as gd
 from dkg_tpu_torch.groups import host as gh
 from dkg_tpu_torch.groups import precompute as gp
+from dkg_tpu_torch.groups import ristretto_device as rd
+from dkg_tpu_torch.net import InProcessChannel, wal_path
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
@@ -331,6 +376,26 @@ def canon_launches(cs, mul: str, calls: int) -> dict:
         return classic
     return {fk.batch_inv_kernel_for(F).name: 0, mk.batch_inv_kernel_for(F).name: calls,
             mk.kernel_for(F).name: coords * calls}
+
+
+def ristretto_encode_launches() -> int:
+    """mod_mul launches of one ristretto_encode_batch: the inverse square
+    root's power (p - 5)/8, a squaring a bit below the top and a multiply
+    a set bit below it, and the 25 other products of the encoding."""
+    e = (gh.P - 5) // 8
+    return (e.bit_length() - 1) + (bin(e).count("1") - 1) + 25
+
+
+def encode_launches(cs, calls: int) -> dict:
+    """Launches of ``calls`` encode_batch calls on the card: on Edwards the
+    batched ristretto255 encoding (ristretto_encode_launches() mod_mul
+    each, no batch inversion); on Weierstrass one canonical affine form
+    each (:func:`canon_launches`)."""
+    if cs.kind != "edwards":
+        return canon_launches(cs, "classic", calls)
+    F = cs.field
+    return {fk.batch_inv_kernel_for(F).name: 0, fk.mul_kernel_for(F).name: ristretto_encode_launches() * calls,
+            mk.batch_inv_kernel_for(F).name: 0}
 
 
 SECP = Path("secp256k1", 1024, 341, b"chip-smoke",  # BASELINE.md config 3
@@ -1569,20 +1634,21 @@ class HostSeconds:
 
 def seal_kernels(cs) -> tuple:
     """The kernels one seal launches: c1's fixed-base windows, scalar_mul's
-    table adds and windows, and the KEM encoding's canonical affine form
-    (its batch inversion and affine coordinates)."""
+    table adds and windows, and the KEM encoding's multiplies (with, on
+    Weierstrass, its canonical affine form's batch inversion)."""
+    inv = () if cs.kind == "edwards" else (fk.batch_inv_kernel_for(cs.field),)
     return (pk.kernel_for("pt_fixed_base", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_scalar_mul", cs),
-            fk.batch_inv_kernel_for(cs.field), fk.mul_kernel_for(cs.field))
+            *inv, fk.mul_kernel_for(cs.field))
 
 
 def seal_exact(cs, chunks: int) -> dict:
     """Launch counts a seal in ``chunks`` chunks must read exactly: a chunk's
     c1 one pt_fixed_base (no pt_madd), its KEM one pt_scalar_mul (no
-    pt_window_step), and its encoding one canonical affine form; the KEM's
+    pt_window_step), and its encoding :func:`encode_launches`; the KEM's
     per-key table 14 pt_add (built once a chunk, over the same keys)."""
     return {pk.kernel_for("pt_fixed_base", cs).name: chunks, pk.kernel_for("pt_madd", cs).name: 0,
             pk.kernel_for("pt_add", cs).name: 14 * chunks, pk.kernel_for("pt_scalar_mul", cs).name: chunks,
-            pk.kernel_for("pt_window_step", cs).name: 0, **canon_launches(cs, "classic", chunks)}
+            pk.kernel_for("pt_window_step", cs).name: 0, **encode_launches(cs, chunks)}
 
 
 def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict:
@@ -1614,10 +1680,10 @@ def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict
         # pass (the first pass at these sizes also grows the allocator)
         c1_ms, c1 = cuda_ms(lambda: gd.fixed_base_mul(cs, c.g_table, r_enc), reps=1)
         kem_ms, kem = cuda_ms(lambda: gd.scalar_mul(cs, r_enc, pks), reps=1)
-        canon_ms, _ = cuda_ms(lambda: gd.affine_canon(cs, kem), reps=1)
+        canon_ms, _ = cuda_ms(lambda: gd.encode_batch_device(cs, kem), reps=1)
         kem_dev = device_ms(lambda: gd.scalar_mul(cs, r_enc, pks), reps=2)
         print(f"{tag}: KEM of {n * n} pairs, CUDA events (ms): c1 = fixed_base_mul {c1_ms:.3f}, "
-              f"scalar_mul {kem_ms:.3f} (device {kem_dev:.3f}), encode_batch's affine_canon {canon_ms:.3f}",
+              f"scalar_mul {kem_ms:.3f} (device {kem_dev:.3f}), encode_batch's device leg {canon_ms:.3f}",
               flush=True)
         sealed, wall = {}, {}
         for chunk in (None, 0):
@@ -1933,10 +1999,11 @@ W3_CHEAT, W3_CHEAT_TO, W3_BARE_LIAR = 3, (1, 6), 5
 def committee_kernels(cs) -> tuple:
     """The kernels batched_dealing and batched_share_verification launch on
     a curve: the deal's commitments and share matrix, the seal's KEM and its
-    encoding, the KEM recovery, its encoding and the commitment re-check."""
+    encoding, the KEM recovery, its encoding and the commitment re-check
+    (the encodings' batch inversion on Weierstrass only)."""
     return (pk.kernel_for("pt_fixed_base", cs), pk.kernel_for("pt_add", cs), pk.kernel_for("pt_scalar_mul", cs),
-            pk.kernel_for("pt_ladder_horner", cs), fk.horner_kernel_for(cs.scalar), fk.batch_inv_kernel_for(cs.field),
-            fk.mul_kernel_for(cs.field))
+            pk.kernel_for("pt_ladder_horner", cs), fk.horner_kernel_for(cs.scalar), fk.mul_kernel_for(cs.field),
+            *seal_kernels(cs)[3:-1])
 
 
 def plain_scalar_mul(cs, k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -1949,7 +2016,8 @@ def plain_scalar_mul(cs, k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def dealing_exact(cs, chunks: int) -> dict:
-    """Launch counts batched_dealing must read: ceremony.deal's two
+    """Launch counts batched_dealing (and, at one chunk, one
+    epoch.dealing.deal_epoch_poly) must read: ceremony.deal's two
     fixed_base_mul (one pt_fixed_base each), E = A + B (one pt_add) and
     two eval_many (one mod_madd_horner each), then the seal in ``chunks``
     chunks (:func:`seal_exact`)."""
@@ -1965,9 +2033,9 @@ def dealing_exact(cs, chunks: int) -> dict:
 def verification_exact(cs) -> dict:
     """Launch counts batched_share_verification must read: the KEM recovery
     one scalar_mul (14 pt_add for the per-lane tables, one pt_scalar_mul)
-    and one canonical affine form; the re-check two pt_fixed_base, one
+    and one encoding (:func:`encode_launches`); the re-check two pt_fixed_base, one
     pt_add, one pt_ladder_horner and gd.eq's four mod_mul."""
-    want = canon_launches(cs, "classic", 1)
+    want = encode_launches(cs, 1)
     want[fk.mul_kernel_for(cs.field).name] += 4
     return {**want, pk.kernel_for("pt_add", cs).name: 15, pk.kernel_for("pt_scalar_mul", cs).name: 1,
             pk.kernel_for("pt_window_step", cs).name: 0, pk.kernel_for("pt_fixed_base", cs).name: 2,
@@ -2150,7 +2218,7 @@ def rounds_1_2(card: str, seed: int) -> dict:
         {f"{v}<-{j}": got[(v, j)].name for v, j in sorted(got)}) + ", the serial kinds, all upheld by the batch "
           f"court; dealer {W1_SILENT} disqualified by every party; every other pair holds the dealt share; no plain "
           f"multiply on the card; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return rec
+    return rec, stages
 
 
 def storm(card: str, seed: int) -> dict:
@@ -2269,13 +2337,15 @@ def whole_protocol(curve: str, card: str, seed: int) -> dict:
     return rec
 
 
-def committee_phase(seed: int) -> dict:
+def committee_phase(seed: int) -> tuple[dict, dict]:
     """The wire protocol on the card, W1 to W3, with every launch count set
     to 0 just before each stage and read just after: every kernel of the
-    path must be launched.  Returns the stages' launches, summed."""
+    path must be launched.  Returns the stages' launches, summed, and W1's
+    stage seconds."""
     card = card_line()
     totals: dict = {}
-    recs = [rounds_1_2(card, seed), storm(card, seed)]
+    w1, w1_stages = rounds_1_2(card, seed)
+    recs = [w1, storm(card, seed)]
     recs += [whole_protocol(curve, card, seed) for curve in (p.curve for p in PATHS)]
     for rec in recs:
         for _, launches in rec.values():
@@ -2287,6 +2357,565 @@ def committee_phase(seed: int) -> dict:
     for k in path_kernels:
         check(totals.get(k.name, 0) > 0, f"kernel {k.name} was not launched in the committee phase")
     print("committee phase: launches, W1-W3 summed " + json.dumps(totals), flush=True)
+    return totals, w1_stages
+
+
+# ---------------------------------------------------------------------------
+# epochs: the in-process lane, the dealing legs, the EpochManager; and the
+# two legs of the ristretto255 encodings
+# ---------------------------------------------------------------------------
+
+EPOCH_SIGN_B = 16  # messages the reshared quorum signs
+E2_OPENERS = (1, 86, 171, 256)  # members who open and check every deal of W1's committee
+E2_TAMPERED = (40, 86)  # (dealer, recipient): a share sealed off the dealer's commitments
+E2_BAD_CONSTANT = 30  # the reshare dealer whose constant term is wrong
+E3_N, E3_T = 8, 3  # W3's committee: the EpochManager end to end on each curve
+E3_LEAVER, E3_RESUMED = 2, 3  # the party that leaves at the reshare; the party rebuilt from its WAL
+ENCODE_POINTS = 1 << 16  # W1's 65,536 sealed pairs: the shape the two encode_batch legs are timed at
+
+
+@dataclasses.dataclass(frozen=True)
+class Epoch0:
+    """A path's ceremony as epoch 0: the final shares (ints, party i + 1's
+    at i), the aggregate bare commitments (host points) and the secret."""
+
+    finals: list
+    commitments: tuple
+    secret: int
+
+
+def epoch0(path: Path, c: cer.BatchedCeremony, out: dict) -> Epoch0:
+    """The Straus run's epoch-0 state: the commitments the pointwise sum of
+    the qualified dealers' A (one pt_tree_sum on the card, outside every
+    counted stage), A_0 of it the master key."""
+    cs = path.cs
+    q = cs.scalar.modulus
+    qual = out["qualified"].cpu().tolist()
+    a = fh.decode(cs.scalar, fh.from_tensor(c.coeffs_a))
+    secret = sum(int(a[j, 0]) for j in range(path.n) if qual[j]) % q
+    bare = out["bare"][torch.tensor(qual, device=out["bare"].device)]
+    agg = tuple(gd.to_host(cs, pk.pt_tree_sum(cs, bare.transpose(0, 1).contiguous())))
+    check(gh.ALL_GROUPS[path.curve].eq(agg[0], host_point(cs, out["master"])), f"{path.tag}: Σ A_j0 != the master key")
+    finals = [int(v) for v in fh.decode(cs.scalar, fh.from_tensor(out["final_shares"]))]
+    return Epoch0(finals, agg, secret)
+
+
+def merged(*counts: dict) -> dict:
+    out: dict = {}
+    for d in counts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def scaled(counts: dict, times: int) -> dict:
+    return {k: v * times for k, v in counts.items()}
+
+
+def held_exactly(tag: str, got: dict, want: dict) -> None:
+    """``got`` holds exactly the non-zero counts of ``want``: no other
+    kernel was launched."""
+    want = {k: v for k, v in want.items() if v}
+    check(got == want, f"{tag}: launch counts {got}, want {want}")
+
+
+def open_exact(cs) -> dict:
+    """One open_my_shares: the KEM recovery's scalar_mul (14 table adds, one
+    pt_scalar_mul) and its encode_batch."""
+    return merged({pk.kernel_for("pt_add", cs).name: 14, pk.kernel_for("pt_scalar_mul", cs).name: 1},
+                  encode_launches(cs, 1))
+
+
+def check_exact(cs, fixed: bool = True) -> dict:
+    """One check_bare_shares (fixed: g·s by one pt_fixed_base) or
+    check_reshare_constants: one pt_ladder_horner and gd.eq's four
+    mod_mul."""
+    return {pk.kernel_for("pt_fixed_base", cs).name: int(fixed), pk.kernel_for("pt_ladder_horner", cs).name: 1,
+            fk.mul_kernel_for(cs.field).name: 4}
+
+
+def combine_exact(cs, m: int) -> dict:
+    """combine_reshare_commitments over m dealers: one scalar_mul (14 table
+    adds, one pt_scalar_mul), then m - 1 pt_add."""
+    return {pk.kernel_for("pt_add", cs).name: 14 + m - 1, pk.kernel_for("pt_scalar_mul", cs).name: 1}
+
+
+def epoch_lane(path: Path, e0: Epoch0, card: str, seed: int) -> dict:
+    """E1: the in-process lane on the path's own final shares:
+    refresh_shares, then reshare_shares to n' = n/2, t' = (n' - 1) // 3.
+    The secret interpolated on the host at 0 from a random (t+1)-subset of
+    the refreshed shares and from a random (t'+1)-subset of the reshared
+    ones is the ceremony's, and g times it the master key; t' + 1 reshared
+    shares sign EPOCH_SIGN_B messages, and each Lagrange aggregate is
+    secret·H(m) on the host: it verifies under the unchanged master key
+    g·secret.  Exact launches: one
+    mod_madd_horner an eval_many, λ_i(0)'s lagrange_launches mod_mul and
+    the weights' one."""
+    cs, n, t = path.cs, path.n, path.t
+    fs, group = cs.scalar, gh.ALL_GROUPS[path.curve]
+    n2 = n // 2
+    t2 = (n2 - 1) // 3
+    tag = f"epoch E1 {path.curve} n={n} t={t} -> n'={n2} t'={t2}"
+    rng = random.Random(f"{seed}-epoch-lane-{path.curve}")
+    rec: dict = {}
+    q1 = list(range(1, t2 + 2))
+    msgs = [b"chip-smoke epoch message %02d" % i for i in range(EPOCH_SIGN_B)]
+    with PlainMuls() as plain:
+        refreshed = staged(rec, "refresh", lambda: inprocess.refresh_shares(fs, n, t, e0.finals, rng, device=DEV))
+        reshared = staged(rec, "reshare", lambda: inprocess.reshare_shares(fs, n, t, refreshed, n2, t2, rng,
+                                                                           device=DEV))
+        shares = [reshared[i - 1] for i in q1]
+        pts, _ = staged(rec, "hash", lambda: ts.hash_to_curve_batch(path.curve, msgs, device=DEV))
+        ps = staged(rec, "partials", lambda: ts.partial_sign(path.curve, shares, q1, pts, device=DEV))
+        agg = staged(rec, "aggregate", lambda: ts.aggregate(ps))
+        enc = ts.signature_encode(path.curve, agg)
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    horner, mul = fk.horner_kernel_for(fs).name, fk.mul_kernel_for(fs).name
+    held_exactly(f"{tag} refresh", rec["refresh"][1], {horner: 1})
+    held_exactly(f"{tag} reshare", rec["reshare"][1], {horner: 1, mul: lagrange_launches(fs, n) + 1})
+    exact = sign_exact(path, len(q1))
+    # partial_sign with no public keys given derives them: one more pt_fixed_base and canonical form
+    exact["partials"] = merged(exact["public keys"], exact["partials"])
+    for stage in ("hash", "partials", "aggregate"):
+        got = rec[stage][1]
+        check(all(got.get(k, 0) == v for k, v in exact[stage].items()) and (exact[stage] or not got),
+              f"{tag} {stage}: launch counts {got}, want {exact[stage]}")
+    check(sum(a != b for a, b in zip(refreshed, e0.finals)) == n, f"{tag}: a refresh left a share as it was")
+    pick = random.Random(f"{seed}-epoch-subsets-{path.curve}")
+    xs_old = sorted(pick.sample(range(1, n + 1), t + 1))
+    xs_new = sorted(pick.sample(range(1, n2 + 1), t2 + 1))
+    s_old = lagrange_interpolation(fs, 0, [refreshed[i - 1] for i in xs_old], xs_old)
+    s_new = lagrange_interpolation(fs, 0, [reshared[i - 1] for i in xs_new], xs_new)
+    check(s_old == e0.secret and s_new == e0.secret, f"{tag}: the interpolated secrets differ from the ceremony's")
+    check(group.eq(group.scalar_mul(s_new, group.generator()), e0.commitments[0]), f"{tag}: g·secret != the master")
+    for i in range(EPOCH_SIGN_B):
+        check(enc[i] == group.encode(group.scalar_mul(e0.secret, pts[i])), f"{tag}: signature {i} != secret·H(m)")
+    print(f"{tag} ({card}): stages (host s) " + json.dumps({k: round(v[0], 6) for k, v in rec.items()})
+          + "; launches " + json.dumps({k: v[1] for k, v in rec.items()}) + f"; every share changed; the secret "
+          f"from {t + 1} refreshed shares and from {t2 + 1} reshared ones is the ceremony's, g·secret the master; "
+          f"{len(q1)} reshared shares signed {EPOCH_SIGN_B} messages, each aggregate "
+          "secret·H(m); exact launch counts; no plain multiply on the card", flush=True)
+    return rec
+
+
+def deal_codec(curve: str, deal: em.EpochDeal) -> tuple:
+    """A deal through its wire codec, in a worker process: (the payload,
+    the decoded EpochDeal, encode s, decode s)."""
+    group = gh.ALL_GROUPS[curve]
+    t0 = time.perf_counter()
+    payload = em.encode_epoch_deal(group, deal)
+    t1 = time.perf_counter()
+    decoded = em.decode_epoch_deal(group, payload)
+    return payload, decoded, t1 - t0, time.perf_counter() - t1
+
+
+def codec_pool() -> concurrent.futures.ProcessPoolExecutor:
+    """A few worker processes (spawned) for the deals' codec, which encodes
+    and decodes every point on the host, an inverse square root each: off
+    the dealer loop it hides behind the card's deals.  The driving process
+    keeps two of its cores, since the workers slow its launches."""
+    return concurrent.futures.ProcessPoolExecutor(max_workers=max(1, min(4, len(os.sched_getaffinity(0)) - 2)),
+                                                  mp_context=multiprocessing.get_context("spawn"))
+
+
+def seal_deals(group, cfg, kind: int, epoch: int, constants: dict, pks: list, seed: str, prev: tuple,
+               seconds: dict, pool: concurrent.futures.Executor) -> dict:
+    """One deal_epoch_poly a dealer (``constants``: dealer -> constant term,
+    its rng seeded from ``seed`` and the dealer), in turn on the card, each
+    deal encoded with encode_epoch_deal and decoded with decode_epoch_deal
+    in ``pool`` while the next deals: {dealer: the decoded EpochDeal}.
+    ``seconds`` gains the deals' host seconds, the codec's (summed over the
+    workers) and the wait for the last codec after the last deal; the
+    first payload is decoded and encoded again here."""
+    futures = {}
+    for j, const in constants.items():
+        t0 = time.perf_counter()
+        comm, enc = dealing.deal_epoch_poly(group, cfg, const, random.Random(f"{seed}-{j}"), pks, device=DEV)
+        seconds["deal"] = seconds.get("deal", 0.0) + time.perf_counter() - t0
+        futures[j] = pool.submit(deal_codec, group.name, em.EpochDeal(kind, epoch, comm, enc, prev))
+    t0 = time.perf_counter()
+    deals = {}
+    for j, fut in futures.items():
+        payload, deals[j], enc_s, dec_s = fut.result()
+        seconds["encode"] = seconds.get("encode", 0.0) + enc_s
+        seconds["decode"] = seconds.get("decode", 0.0) + dec_s
+        if "bytes" not in seconds:  # the first deal's bytes round-trip here too
+            check(em.encode_epoch_deal(group, em.decode_epoch_deal(group, payload)) == payload,
+                  "an epoch deal's bytes do not round-trip")
+            seconds["bytes"] = len(payload)
+    seconds["codec wait"] = time.perf_counter() - t0
+    return deals
+
+
+def epoch_dealing(e0: Epoch0, card: str, seed: int) -> dict:
+    """E2: the dealing legs at W1's committee (ristretto255 n = 256,
+    t = 85), on the ristretto255 path's epoch 0 and 256 seeded keys.
+    Refresh: every member deals a zero-constant polynomial (256
+    deal_epoch_poly calls, 65,536 sealed pairs), each deal encoded and
+    decoded (in worker processes while the card deals on); dealer E2_TAMPERED[0]'s share to member E2_TAMPERED[1] is
+    resealed off its commitments.  Members E2_OPENERS open all 256 deals
+    and check their 256 rows: only the tampered row is flagged.  Their new
+    shares (old + the included dealers' shares) lie on the new aggregate
+    commitments, which give one confirm digest and keep the master.  The
+    script takes members 1 .. t + 1's refreshed shares from the dealers'
+    replayed coefficients (one eval_many), the openers' equal to what they
+    opened.  Reshare: those t + 1 members deal shares of their shares to
+    the same keys; check_reshare_constants over the 86 dealers flags
+    exactly E2_BAD_CONSTANT's forged constant; combine_reshare_commitments
+    over the honest deals keeps the master; member 1 opens the reshare
+    deals and its Lagrange-combined share lies on the combined
+    commitments.  Each stage with exact launch counts."""
+    group, cs, n, t = gh.RISTRETTO255, gd.RISTRETTO255, R255.n, R255.t
+    fs, q = cs.scalar, cs.scalar.modulus
+    tag = f"epoch E2 ristretto255 n={n} t={t}"
+    t_phase = time.perf_counter()
+    rng = random.Random(f"{seed}-epoch-e2")
+    _, pks, keys = committee_keys(group, n, rng)
+    cfg = dealing.epoch_cfg(group, n, t)
+    rec: dict = {}
+    refresh_s: dict = {}
+    reshare_s: dict = {}
+    bad_j, victim = E2_TAMPERED
+    with PlainMuls() as plain, codec_pool() as pool:
+        deals = staged(rec, "refresh deals", lambda: seal_deals(
+            group, cfg, KIND_REFRESH, 1, {j: 0 for j in range(1, n + 1)}, pks, f"{seed}-e2-refresh", (), refresh_s,
+            pool))
+        es = list(deals[bad_j].encrypted_shares)
+        share_ct, rand_ct = seal_pair(group, pks[victim - 1].point, group.scalar_to_bytes(fs.rand_int(rng)),
+                                      group.scalar_to_bytes(0), rng)
+        es[victim - 1] = bc.EncryptedShares(victim, share_ct, rand_ct)
+        deals[bad_j] = dataclasses.replace(deals[bad_j], encrypted_shares=tuple(es))
+        js = sorted(deals)
+        opened, flagged = {}, {}
+        for m in E2_OPENERS:
+            opened[m] = staged(rec, f"open {m}", lambda: dealing.open_my_shares(group, cfg, keys[m - 1].sk, deals, m,
+                                                                               device=DEV))
+            check(all(opened[m][j] is not None for j in js), f"{tag}: member {m} could not open a share")
+            ok = staged(rec, f"check {m}", lambda: dealing.check_bare_shares(
+                group, [m] * n, [opened[m][j] for j in js], [deals[j].commitments for j in js], device=DEV))
+            flagged[m] = [j for j, good in zip(js, ok) if not good]
+        included = [j for j in js if j != bad_j]
+        new_comm = tuple(functools.reduce(group.add, [e0.commitments[lvl]] + [deals[j].commitments[lvl]
+                                                                             for j in included])
+                         for lvl in range(t + 1))
+        new_shares = {m: (e0.finals[m - 1] + sum(opened[m][j] for j in included)) % q for m in E2_OPENERS}
+        on_comm = staged(rec, "confirm check", lambda: dealing.check_bare_shares(
+            group, list(E2_OPENERS), [new_shares[m] for m in E2_OPENERS], [new_comm] * len(E2_OPENERS), device=DEV))
+        digest = est.confirm_digest(group, KIND_REFRESH, 1, n, t, new_comm)
+        # members 1 .. t + 1's refreshed shares from the dealers' replayed coefficients
+        coeffs = []
+        for j in included:
+            r = random.Random(f"{seed}-e2-refresh-{j}")
+            coeffs.append([0] + [fs.rand_int(r) for _ in range(t)])
+        xs = fh.to_tensor(fh.encode(fs, list(range(1, t + 2))), DEV)
+        deltas = fh.decode(fs, fh.from_tensor(pd.eval_many(fs, fh.to_tensor(fh.encode(fs, coeffs), DEV), xs)))
+        refreshed = {i: (e0.finals[i - 1] + sum(int(v) for v in deltas[:, i - 1])) % q for i in range(1, t + 2)}
+        check(all(refreshed[m] == new_shares[m] for m in E2_OPENERS if m <= t + 1),
+              f"{tag}: an opener's refreshed share != the replayed dealers' sum")
+
+        rdeals = staged(rec, "reshare deals", lambda: seal_deals(
+            group, cfg, KIND_RESHARE, 2, refreshed, pks, f"{seed}-e2-reshare", new_comm, reshare_s, pool))
+        idxs = sorted(rdeals)
+        claimed = [rdeals[i].commitments[0] for i in idxs]
+        claimed[idxs.index(E2_BAD_CONSTANT)] = group.add(claimed[idxs.index(E2_BAD_CONSTANT)], group.generator())
+        ok_c = staged(rec, "reshare constants", lambda: dealing.check_reshare_constants(group, new_comm, idxs, claimed,
+                                                                                       device=DEV))
+        xs_old = fh.to_tensor(fh.encode(fs, idxs), DEV)
+        lam = staged(rec, "lagrange", lambda: pd.lagrange_at_zero_coeffs(fs, xs_old))
+        comm2 = staged(rec, "combine", lambda: dealing.combine_reshare_commitments(
+            group, lam, [rdeals[i].commitments for i in idxs]))
+        opened2 = staged(rec, "reshare open 1", lambda: dealing.open_my_shares(group, cfg, keys[0].sk, rdeals, 1,
+                                                                              device=DEV))
+        lam_h = [int(v) for v in fh.decode(fs, fh.from_tensor(lam))]
+        share2 = sum(l_i * opened2[i] for l_i, i in zip(lam_h, idxs)) % q
+        on_comm2 = dealing.check_bare_shares(group, [1], [share2], [comm2], device=DEV)
+        sync()
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    check(all(flagged[m] == ([bad_j] if m == victim else []) for m in E2_OPENERS),
+          f"{tag}: flagged rows {flagged}, want dealer {bad_j} at member {victim} alone")
+    check(bool(on_comm.all()) and group.eq(new_comm[0], e0.commitments[0]),
+          f"{tag}: an opener's refreshed share is off the new aggregate, or it moved the master")
+    check([i for i, good in zip(idxs, ok_c) if not good] == [E2_BAD_CONSTANT], f"{tag}: reshare constants {ok_c}")
+    check(group.eq(comm2[0], e0.commitments[0]) and bool(on_comm2.all()),
+          f"{tag}: the combined commitments moved the master or member 1's reshared share is off them")
+    held_exactly(f"{tag} refresh deals", rec["refresh deals"][1], scaled(dealing_exact(cs, 1), n))
+    held_exactly(f"{tag} reshare deals", rec["reshare deals"][1], scaled(dealing_exact(cs, 1), t + 1))
+    for m in E2_OPENERS:
+        held_exactly(f"{tag} open {m}", rec[f"open {m}"][1], open_exact(cs))
+        held_exactly(f"{tag} check {m}", rec[f"check {m}"][1], check_exact(cs))
+    held_exactly(f"{tag} reshare open 1", rec["reshare open 1"][1], open_exact(cs))
+    held_exactly(f"{tag} confirm check", rec["confirm check"][1], check_exact(cs))
+    held_exactly(f"{tag} reshare constants", rec["reshare constants"][1], check_exact(cs, fixed=False))
+    held_exactly(f"{tag} lagrange", rec["lagrange"][1], {fk.mul_kernel_for(fs).name: lagrange_launches(fs, t + 1)})
+    held_exactly(f"{tag} combine", rec["combine"][1], combine_exact(cs, t + 1))
+    print(f"{tag} ({card}): stages (host s) " + json.dumps({k: round(v[0], 6) for k, v in rec.items()})
+          + "; refresh deals' steps (host s) " + json.dumps({k: round(v, 6) for k, v in refresh_s.items()})
+          + "; reshare deals' steps " + json.dumps({k: round(v, 6) for k, v in reshare_s.items()}), flush=True)
+    print(f"{tag}: launches " + json.dumps({k: v[1] for k, v in rec.items()}), flush=True)
+    print(f"{tag}: {n} refresh deals ({n * n} sealed pairs) encoded and decoded; members {list(E2_OPENERS)} opened "
+          f"and checked all {n} rows, dealer {bad_j}'s resealed share flagged at member {victim} alone; their new "
+          f"shares lie on the new aggregate (confirm digest {digest.hex()}), the master kept; {t + 1} reshare deals, dealer "
+          f"{E2_BAD_CONSTANT}'s forged constant flagged alone, the combined commitments ({t + 1} x {t + 1} points) "
+          f"keep the master and hold member 1's reshared share; exact launch counts; no plain multiply on the "
+          f"card; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rec
+
+
+class TurnTaking:
+    """An InProcessChannel whose parties take turns: each party's thread
+    holds ``lock`` while it computes and lets it go only while it waits in
+    a fetch.  Threads of one process that all run many small tensor ops
+    hand the interpreter lock back and forth at every op, which made each
+    several times slower than the same work done in turn."""
+
+    def __init__(self, chan: InProcessChannel):
+        self.chan, self.lock = chan, threading.Lock()
+
+    def publish(self, round_no: int, sender: int, payload: bytes) -> None:
+        self.chan.publish(round_no, sender, payload)
+
+    def fetch(self, round_no: int, expected: int, timeout: float = 30.0) -> dict:
+        self.lock.release()
+        try:
+            return self.chan.fetch(round_no, expected, timeout)
+        finally:
+            self.lock.acquire()
+
+
+def genesis(env, keys: list, rng) -> list:
+    """Phases 1-5 of the committee protocol on the card (batched_dealing,
+    batched_share_verification, then phases 2-5 on the host), no faults:
+    one duck-typed party result each, with the aggregate commitments the
+    pointwise sum of the qualified dealers' bare_coeffs (net/party.py's
+    rule) and the master key."""
+    group, n = env.group, env.nr_members
+    dealt = cmb.batched_dealing(env, rng, keys, device=DEV)
+    fetched = [cm.FetchedPhase1.from_broadcast(env, j + 1, b) for j, (_, b) in enumerate(dealt)]
+    round2 = cmb.batched_share_verification([p for p, _ in dealt], fetched, rng, device=DEV)
+    c2 = [cm.FetchedComplaints2(i + 1, b) for i, (_, b) in enumerate(round2)]
+    phase2 = [p.proceed(c2, fetched) for p, _ in round2]
+    f3 = [cm.FetchedPhase3.from_broadcast(env, j + 1, b) for j, (_, b) in enumerate(phase2)]
+    phase3 = [p.proceed(f3) for p, _ in phase2]
+    c4 = [cm.FetchedComplaints4(i + 1, b) for i, (_, b) in enumerate(phase3)]
+    phase4 = [p.proceed(c4) for p, _ in phase3]
+    f5 = [cm.FetchedPhase5(i + 1, b) for i, (_, b) in enumerate(phase4)]
+    results = []
+    for i, (p, _) in enumerate(phase4):
+        (master, share), _ = p.finalise(f5)
+        st = p._state
+        qual = [j for j in range(1, n + 1) if st.qualified[j - 1]]
+        agg = tuple(functools.reduce(group.add, [st.bare_coeffs[j][lvl] for j in qual])
+                    for lvl in range(env.threshold + 1))
+        results.append(types.SimpleNamespace(ok=True, index=i + 1, share=share, commitments=agg, master=master))
+    return results
+
+
+def manager_exact(cs, n_old: int, n_new: int, reshare: bool) -> dict:
+    """Launches of one EpochManager operation over the whole committee:
+    n_old deals; for each of the n_new new members one open and one
+    check_bare_shares, and on a reshare check_reshare_constants, λ_i(0)
+    twice over the n_old included dealers (lagrange_at_zero_coeffs and
+    lagrange_at_zero, which adds one product) and the combine."""
+    per_member = merged(open_exact(cs), check_exact(cs))
+    if reshare:
+        mul = fk.mul_kernel_for(cs.scalar).name
+        per_member = merged(per_member, check_exact(cs, fixed=False), combine_exact(cs, n_old),
+                            {mul: 2 * lagrange_launches(cs.scalar, n_old) + 1})
+    return merged(scaled(dealing_exact(cs, 1), n_old), scaled(per_member, n_new))
+
+
+def epoch_manager_run(curve: str, card: str, seed: int) -> dict:
+    """E3: the EpochManager end to end at W3's size (n = 8, t = 3) on
+    ``curve``: genesis from the committee phases 1-5, then every party a
+    thread over one shared InProcessChannel (in turn, TurnTaking), each
+    with its PartyWal in a temporary directory: one refresh, then a reshare
+    with party E3_LEAVER leaving and one joiner.  Every master observed is
+    the ceremony's, the leaver ends with no state, everyone else at epoch 2
+    with a share, and the new committee agrees on its commitments; then
+    party E3_RESUMED is rebuilt from its WAL and replays both operations to
+    the same states.  The operations' and the replay's launch counts are
+    held exactly."""
+    group, cs = gh.ALL_GROUPS[curve], gd.ALL_CURVES[curve]
+    n, t = E3_N, E3_T
+    tag = f"epoch E3 {curve} n={n} t={t}"
+    t_phase = time.perf_counter()
+    rng = random.Random(f"{seed}-epoch-e3-{curve}")
+    env = cm.Environment.init(group, t, n, b"chip-smoke-e3")
+    _, pks, keys = committee_keys(group, n, rng)
+    joiner = committee_keys(group, 1, rng)[2][0]
+    new_pks = [p for i, p in enumerate(pks) if i + 1 != E3_LEAVER] + [joiner.public()]
+    rec: dict = {}
+    with PlainMuls() as plain, tempfile.TemporaryDirectory() as wal_dir:
+        results = staged(rec, "genesis", lambda: genesis(env, keys, rng))
+        masters = {group.encode(r.master.point) for r in results}
+        chan = TurnTaking(InProcessChannel())
+        outs: dict = {}
+
+        def founding(i: int) -> None:
+            with chan.lock:
+                try:
+                    mgr = EpochManager(chan, group, genesis_from_party_result(env, results[i]), keys[i], pks,
+                                       random.Random(f"{seed}-e3-party-{i}"), timeout=600.0,
+                                       checkpoint=wal_path(wal_dir, i + 1), max_churn=None, device=DEV)
+                    outs[i + 1] = (mgr.refresh(), mgr.reshare(new_pks, t))
+                except Exception as exc:  # noqa: BLE001 -- reported by the check below
+                    outs[i + 1] = exc
+
+        def joining() -> None:
+            with chan.lock:
+                try:
+                    observer = EpochState(epoch=1, n=n, t=t, index=None, share=None, commitments=None)
+                    mgr = EpochManager(chan, group, observer, joiner, pks, random.Random(f"{seed}-e3-joiner"),
+                                       timeout=600.0, first_fetch_timeout=900.0,
+                                       checkpoint=wal_path(wal_dir, n + 1), max_churn=None, ops_done=1, device=DEV)
+                    outs[n + 1] = (None, mgr.reshare(new_pks, t))
+                except Exception as exc:  # noqa: BLE001 -- reported by the check below
+                    outs[n + 1] = exc
+
+        def run_all() -> None:
+            threads = [threading.Thread(target=founding, args=(i,)) for i in range(n)]
+            threads.append(threading.Thread(target=joining))
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=1200.0)
+            check(not any(th.is_alive() for th in threads), f"{tag}: a party is still running")
+
+        staged(rec, "refresh and reshare", run_all)
+        errors = {i: o for i, o in outs.items() if isinstance(o, Exception)}
+        check(not errors and len(outs) == n + 1, f"{tag}: parties failed {errors}")
+        i = E3_RESUMED
+        resumed = EpochManager(chan.chan, group, genesis_from_party_result(env, results[i - 1]), keys[i - 1], pks,
+                               random.Random("a fresh rng: the WAL holds every draw"), timeout=600.0,
+                               checkpoint=wal_path(wal_dir, i), max_churn=None, device=DEV)
+        replayed = staged(rec, "WAL replay", lambda: (resumed.refresh(), resumed.reshare(new_pks, t)))
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    check(len(masters) == 1, f"{tag}: the ceremony's parties disagree on the master key")
+    master = masters.pop()
+    for i, (s1, s2) in sorted(outs.items()):
+        if i <= n:
+            check(s1.epoch == 1 and s1.holds_share and group.encode(s1.master) == master, f"{tag}: party {i} refresh")
+        if i == E3_LEAVER:
+            check(s2 is None, f"{tag}: the leaver holds a state {s2}")
+            continue
+        check(s2 is not None and s2.epoch == 2 and s2.holds_share and group.encode(s2.master) == master,
+              f"{tag}: party {i} reshare state {s2}")
+    agreed = {tuple(group.encode(c) for c in s2.commitments) for _, s2 in outs.values() if s2 is not None}
+    check(len(agreed) == 1, f"{tag}: the new committee holds {len(agreed)} commitment tuples")
+    want = [est.encode_epoch_state(group, s) for s in outs[E3_RESUMED]]
+    check([est.encode_epoch_state(group, s) for s in replayed] == want and resumed.resumed_steps == 6,
+          f"{tag}: party {E3_RESUMED} rebuilt from its WAL reached another state ({resumed.resumed_steps} steps)")
+    ops = merged(manager_exact(cs, n, n, False), manager_exact(cs, n, n, True))
+    held_exactly(f"{tag} refresh and reshare", rec["refresh and reshare"][1], ops)
+    replay = merged(scaled(merged(open_exact(cs), check_exact(cs)), 2), check_exact(cs, fixed=False),
+                    combine_exact(cs, n), {fk.mul_kernel_for(cs.scalar).name: 2 * lagrange_launches(cs.scalar, n) + 1})
+    held_exactly(f"{tag} WAL replay", rec["WAL replay"][1], replay)
+    print(f"{tag} ({card}): stages (host s) " + json.dumps({k: round(v[0], 6) for k, v in rec.items()})
+          + "; launches " + json.dumps({k: v[1] for k, v in rec.items() if k != "genesis"})
+          + f"; {n} founding parties and a joiner as threads over one InProcessChannel with a PartyWal each: the "
+          f"refresh and the reshare kept the master, party {E3_LEAVER} left with no state, the rest at epoch 2 with "
+          f"a share and one commitment tuple; party {E3_RESUMED} rebuilt from its WAL replayed "
+          f"{resumed.resumed_steps} steps to the same states; exact launch counts; no plain multiply on the card; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rec
+
+
+def ristretto_decode_launches() -> int:
+    """mod_mul launches of one ristretto_decode_batch: the inverse square
+    root's power as in ristretto_encode_launches, and 22 other products."""
+    return ristretto_encode_launches() - 3
+
+
+def encode_legs(card: str, seed: int) -> dict:
+    """encode_batch's two legs on ristretto255 at W1's 65,536 points (g times
+    seeded scalars by one pt_fixed_base, projective; lane 0 the identity,
+    lane 1 it scaled): the card leg (ristretto_encode_batch, then one
+    transfer) and the host leg (the points copied to the host, then one
+    encoding a point), each timed on the host clock around the whole call,
+    byte-equal, the identities all zero.  The card leg is the default on a
+    card tensor, so it must be the faster.  Then ristretto_decode_batch on
+    the card over those encodings and six candidates the host decoder
+    judges (s = p, s = 2**256 - 1, odd s = 1, and 2, 4, 6): every valid
+    flag equals the host's, the decoded points re-encode on the card to the
+    input bytes, and 1024 of them equal the host decode (the host decodes
+    one point at a time)."""
+    cs, group = gd.RISTRETTO255, gh.RISTRETTO255
+    fs, F = cs.scalar, cs.field
+    tag = f"encodings ristretto255 at {ENCODE_POINTS} points"
+    rng = random.Random(f"{seed}-encode-legs")
+    rec: dict = {}
+    with PlainMuls() as plain:
+        k = fh.to_tensor(fh.encode(fs, [fs.rand_int(rng) for _ in range(ENCODE_POINTS)]), DEV)
+        pts = gd.fixed_base_mul(cs, gp.generator_table(cs, device=DEV), k)
+        lam = fd.constant(F, rng.randrange(2, F.modulus), device=DEV)
+        pts[0] = gd.identity(cs, device=DEV)
+        pts[1] = torch.stack([fd.zeros(F, device=DEV), lam, lam, fd.zeros(F, device=DEV)])
+        sync()
+        card = staged(rec, "card leg", lambda: gd.encode_batch(cs, pts))
+        t0 = time.perf_counter()
+        card = gd.encode_batch(cs, pts)
+        card_s = time.perf_counter() - t0
+        enc_ms = device_ms(lambda: rd.ristretto_encode_batch(pts), reps=3, spin=400_000_000)
+        t0 = time.perf_counter()
+        host = gd.encode_batch(cs, pts.cpu())
+        host_s = time.perf_counter() - t0
+        bad = [gh.P, (1 << 256) - 1, 1, 2, 4, 6]
+        raw = np.ascontiguousarray(card).view("<u2").astype(np.uint32)
+        cand = np.concatenate([raw, np.stack([int_to_limbs(v, F.limbs) for v in bad])])
+        s = fh.to_tensor(cand, DEV)
+        dec, valid = staged(rec, "decode", lambda: rd.ristretto_decode_batch(s))
+        dec_ms = device_ms(lambda: rd.ristretto_decode_batch(s), reps=3, spin=400_000_000)
+        again = gd.encode_batch(cs, dec[:ENCODE_POINTS])
+        valid = valid.cpu().tolist()
+        sample = sorted(rng.sample(range(ENCODE_POINTS), min(1024, ENCODE_POINTS)))
+        dec_host = gd.to_host(cs, dec[torch.tensor(sample, device=DEV)])
+    check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
+    check(card.shape == (ENCODE_POINTS, 32) and np.array_equal(card, host), f"{tag}: the two legs' bytes differ")
+    check(not card[:2].any(), f"{tag}: the identity's encodings are not all zero")
+    check(card_s < host_s, f"{tag}: the card leg ({card_s:.6f} s) is the default but not the faster "
+          f"(host {host_s:.6f} s)")
+    want_bad = [group.decode(int(v).to_bytes(32, "little")) is not None for v in bad]
+    check(valid == [True] * ENCODE_POINTS + want_bad, f"{tag}: decode validity {valid[ENCODE_POINTS:]}, "
+          f"{ENCODE_POINTS - sum(valid[:ENCODE_POINTS])} valid lanes flagged")
+    check(np.array_equal(again, card), f"{tag}: the decoded points do not re-encode to their bytes")
+    check(all(group.eq(p, group.decode(card[i].tobytes())) for i, p in zip(sample, dec_host)),
+          f"{tag}: a decoded point != the host decode")
+    mul = fk.mul_kernel_for(F).name
+    held_exactly(f"{tag} card leg", rec["card leg"][1], {mul: ristretto_encode_launches()})
+    held_exactly(f"{tag} decode", rec["decode"][1], {mul: ristretto_decode_launches()})
+    print(f"{tag} ({card_line()}): encode_batch card leg {card_s:.6f} s (ristretto_encode_batch device "
+          f"{enc_ms:.3f} ms, {ristretto_encode_launches()} mod_mul launches), host leg {host_s:.6f} s: "
+          f"{host_s / card_s:.1f}x, byte-equal, the identities all zero; the card leg is the default; "
+          f"ristretto_decode_batch device {dec_ms:.3f} ms ({ristretto_decode_launches()} mod_mul launches), every "
+          f"validity the host's ({sum(want_bad)} of {len(bad)} candidates valid), the points re-encode to their "
+          f"bytes, {len(sample)} equal the host decode", flush=True)
+    return {"card_s": card_s, "host_s": host_s, "encode_ms": enc_ms, "decode_ms": dec_ms, **rec}
+
+
+def epoch_phase(seed: int, epoch0s: dict, w1_stages: dict) -> dict:
+    """Epochs on the card, after the committee phase: E1 on each path's own
+    final shares, E2 at W1's committee, E3 on each curve, and the two
+    encode_batch legs, with W1's seal and DEM seconds (this routing's
+    target) printed beside them.  Returns the stages' launches, summed."""
+    card = card_line()
+    recs = [epoch_lane(path, epoch0s[path.curve], card, seed) for path in PATHS]
+    recs.append(epoch_dealing(epoch0s["ristretto255"], card, seed))
+    recs += [epoch_manager_run(path.curve, card, seed) for path in PATHS]
+    legs = encode_legs(card, seed)
+    recs.append({k: legs[k] for k in ("card leg", "decode")})
+    totals: dict = {}
+    for rec in recs:
+        for _, launches in rec.values():
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+    path_kernels = [k for p in PATHS for k in (*committee_kernels(p.cs), fk.horner_kernel_for(p.cs.scalar),
+                                                fk.mul_kernel_for(p.cs.scalar))]
+    for k in path_kernels:
+        check(totals.get(k.name, 0) > 0, f"kernel {k.name} was not launched in the epoch phase")
+    print(f"epoch phase ({card}): W1's seal {w1_stages['seal']:.6f} s and DEM (verify dem) "
+          f"{w1_stages['verify dem']:.6f} s host, with the card's ristretto255 encodings; the encode_batch legs at "
+          f"{ENCODE_POINTS} points: card {legs['card_s']:.6f} s, host {legs['host_s']:.6f} s", flush=True)
+    print("epoch phase: launches, E1-E3 and the encodings summed " + json.dumps(totals), flush=True)
     return totals
 
 
@@ -2323,9 +2952,11 @@ def main() -> None:
             if not launches.get(name):
                 launches[name] = count
 
+    epoch0s = {}  # curve -> the Straus run's outcome as epoch 0, for the epoch phase
     for path in PATHS:
         c, out, path_launches = main_path(path, args.seed)
         keep(path_launches)
+        epoch0s[path.curve] = epoch0(path, c, out)
         digest_legs(path, c, out)
         stamp(f"{path.curve}: Straus run and digest legs")
         keep(seal_phase(path, c, out, args.seed))
@@ -2357,8 +2988,11 @@ def main() -> None:
         for rlc in ("straus", "pippenger"):
             tampered(path.curve, args.seed + 1 + i, rlc)
     stamp("tampered runs")
-    keep(committee_phase(args.seed))
+    committee_launches, w1_stages = committee_phase(args.seed)
+    keep(committee_launches)
     stamp("committee wire protocol")
+    keep(epoch_phase(args.seed, epoch0s, w1_stages))
+    stamp("epochs")
 
     rows = []
     for name, rec in numbers.items():

@@ -97,6 +97,23 @@ def deal(cfg: CeremonyConfig, coeffs_a, coeffs_b, g_table, h_table):
     return a_pub, e_comm, shares, hidings
 
 
+def deal_chunked(cfg: CeremonyConfig, coeffs_a, coeffs_b, g_table, h_table, chunk: int | None = None):
+    """:func:`deal` in chunks of ``chunk`` dealer rows (None or 0: one
+    pass), the outputs concatenated on the dealer axis: each dealer's row
+    is independent, so the result equals one-shot ``deal`` bit for bit.
+    The rows are the ones supplied, which may be fewer than ``cfg.n``
+    (a party dealing alone).  The JAX package picks a default chunk for
+    the TPU and reads ``DKG_TPU_DEAL_CHUNK``; here the caller picks."""
+    if chunk is not None and chunk < 0:
+        raise ValueError(f"chunk must be >= 0, got {chunk}")
+    n_rows = coeffs_a.shape[0]
+    if not chunk or chunk >= n_rows:
+        return deal(cfg, coeffs_a, coeffs_b, g_table, h_table)
+    outs = [deal(cfg, coeffs_a[c0 : c0 + chunk], coeffs_b[c0 : c0 + chunk], g_table, h_table)
+            for c0 in range(0, n_rows, chunk)]
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+
+
 def deal_commitments(cfg: CeremonyConfig, coeffs_a, coeffs_b, g_table, h_table):
     cs = cfg.cs
     a_pub = gd.fixed_base_mul(cs, g_table, coeffs_a)

@@ -28,6 +28,7 @@ from ..ops import field_kernels as fk
 from ..ops import mxu_kernels as mk
 from ..ops import point_kernels as pk
 from . import host as gh
+from . import ristretto_device as rd
 
 WINDOW = 4  # variable-base window bits (16-entry per-lane tables)
 FIXED_WINDOW = 8  # fixed-base tables: 256-entry windows
@@ -458,24 +459,38 @@ def encode_batch(cs: CurveSpec, pts) -> np.ndarray:
     (SEC bytes for Weierstrass, all zero for the identity; ristretto255's
     32 bytes for Edwards).
 
-    Where the inversion runs follows where the points are, as the JAX
+    Where the work runs follows where the points are, as the JAX
     package's follows its backend: a tensor on the card takes the device
-    leg (:func:`affine_canon`: one ``mod_batch_inv`` launch and the
-    ``mod_mul`` launches of the affine coordinates, then one transfer); a
-    CPU tensor or a numpy array the host leg (:func:`affine_canon_host`,
-    one Montgomery-trick inversion over big ints).  Both give the same
-    canonical affine limbs, so the same bytes."""
+    leg (:func:`encode_batch_device`), a CPU tensor or a numpy array the
+    host leg (:func:`affine_canon_host`, one Montgomery-trick inversion
+    over big ints, then :func:`encode_affine`).  Both give the same
+    bytes."""
     if isinstance(pts, torch.Tensor) and pts.device.type != "cpu":
-        return encode_affine(cs, fh.from_tensor(affine_canon(cs, pts)))
+        return encode_batch_device(cs, pts)
     return encode_affine(cs, affine_canon_host(cs, pts))
+
+
+def encode_batch_device(cs: CurveSpec, pts: torch.Tensor) -> np.ndarray:
+    """:func:`encode_batch`'s device leg, where the points are, then one
+    transfer.  Weierstrass: :func:`affine_canon` (one ``mod_batch_inv``
+    launch and the affine coordinates' ``mod_mul``), then the bytes on
+    the host.  Edwards: the ristretto255 encoding of every lane at once
+    (``ristretto_device.ristretto_encode_batch``, 526 ``mod_mul``
+    launches for the batch) and its bytes, where the JAX package encodes
+    point by point on the host: on the H100 at 65,536 points the batched
+    inverse square root takes milliseconds and the host loop seconds
+    (``PERF.md``).  On CPU tensors it runs the plain versions."""
+    if cs.kind == "edwards":
+        return rd.limbs_to_bytes_u8(rd.ristretto_encode_batch(pts)).cpu().numpy()
+    return encode_affine(cs, fh.from_tensor(affine_canon(cs, pts)))
 
 
 def encode_affine(cs: CurveSpec, aff: np.ndarray) -> np.ndarray:
     """The encodings of canonical affine limbs (..., C, L), the identity
     as :func:`affine_canon` gives it (Z = 0 on Weierstrass, (0, 1, 1, 0) on
     Edwards).  Weierstrass: the parity of y and big-endian x, all lanes at
-    once.  Edwards: one ristretto255 encoding a point on the host, whose
-    inverse square root does not batch."""
+    once.  Edwards: one ristretto255 encoding a point on the host (the
+    host leg's; :func:`encode_batch_device` batches it on the card)."""
     batch = aff.shape[:-2]
     flat = aff.reshape((-1,) + aff.shape[-2:])
     if cs.kind != "edwards":

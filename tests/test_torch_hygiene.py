@@ -5,6 +5,7 @@ to its plain version."""
 
 import dataclasses
 import pathlib
+import random
 import re
 import subprocess
 import sys
@@ -19,10 +20,13 @@ from dkg_tpu_torch.dkg import committee as tcm
 from dkg_tpu_torch.dkg import committee_batch as tcmb
 from dkg_tpu_torch.dkg import complaints_batch as tcb
 from dkg_tpu_torch.dkg import procedure_keys as tpk
+from dkg_tpu_torch.epoch import dealing as tdl
+from dkg_tpu_torch.epoch import inprocess as tinp
 from dkg_tpu_torch.dkg import hybrid_batch as hb
 from dkg_tpu_torch.fields.spec import BLS12_381_P, BLS12_381_R, L25519, P25519, SECP256K1_N, SECP256K1_P, FieldSpec
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.groups import host as tgh
+from dkg_tpu_torch.groups import ristretto_device as trd
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
@@ -47,7 +51,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dkg_tpu_torch.sign.verify", "dkg_tpu_torch.crypto.commitment", "dkg_tpu_torch.crypto.correct_decryption",
             "dkg_tpu_torch.dkg.errors", "dkg_tpu_torch.dkg.procedure_keys", "dkg_tpu_torch.dkg.broadcast",
             "dkg_tpu_torch.dkg.committee", "dkg_tpu_torch.dkg.committee_batch", "dkg_tpu_torch.dkg.complaints_batch",
-            "dkg_tpu_torch.dkg.storm_bench", "dkg_tpu_torch.utils.tracing"} <= set(_modules())
+            "dkg_tpu_torch.dkg.storm_bench", "dkg_tpu_torch.utils.tracing", "dkg_tpu_torch.groups.ristretto_device",
+            "dkg_tpu_torch.utils.serde", "dkg_tpu_torch.utils.envknobs", "dkg_tpu_torch.utils.metrics",
+            "dkg_tpu_torch.net", "dkg_tpu_torch.net.channel", "dkg_tpu_torch.net.checkpoint", "dkg_tpu_torch.epoch",
+            "dkg_tpu_torch.epoch.errors", "dkg_tpu_torch.epoch.state", "dkg_tpu_torch.epoch.messages",
+            "dkg_tpu_torch.epoch.dealing", "dkg_tpu_torch.epoch.inprocess",
+            "dkg_tpu_torch.epoch.manager"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -167,6 +176,16 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: ts.aggregate(ts.PartialSignatures("ristretto255", (1, 2), [], _meta((2, 2, 4, 16)), []),
                          lam=_meta((2, 16))),
     lambda: tgd.msm(ED, _meta((3, 2, 2, 16)), _meta((3, 2, 2, 4, 16))),
+    lambda: trd.ristretto_encode_batch(_meta((2, 4, 16))),
+    lambda: trd.ristretto_decode_batch(_meta((2, 16))),
+    lambda: tgd.encode_batch_device(tgd.SECP256K1, _meta((2, 3, 16))),
+    lambda: tinp.refresh_shares(L25519, 3, 1, [1, 2, 3], random.Random(0), device="meta"),
+    lambda: tinp.reshare_shares(SECP256K1_N, 3, 1, [1, 2, 3], 2, 1, random.Random(0), device="meta"),
+    lambda: tdl.check_bare_shares(tgh.SECP256K1, [1], [5], [(tgh.SECP256K1.generator(),) * 2], device="meta"),
+    lambda: tdl.check_reshare_constants(tgh.RISTRETTO255, (tgh.RISTRETTO255.generator(),) * 2, [1, 2],
+                                        [tgh.RISTRETTO255.generator()] * 2, device="meta"),
+    lambda: tdl.combine_reshare_commitments(tgh.BLS12_381_G1, _meta((2, 16)),
+                                            [(tgh.BLS12_381_G1.generator(),)] * 2),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -183,7 +202,9 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "ed_pt_scalar_mul_shared", "bls_pt_scalar_mul", "mxu_batch_inv", "mxu_batch_inv_ed", "mxu_batch_inv_bls",
         "affine_canon_gemm", "pt_bucket_sum", "ed_pt_bucket_sum", "bls_pt_bucket_sum", "pt_bucket_close",
         "ed_pt_bucket_close", "bls_pt_bucket_close", "msm_pippenger_per_row", "powers", "sign_folded",
-        "bls_folded_collect", "ed_aggregate", "ed_msm_per_row_pairs"])
+        "bls_folded_collect", "ed_aggregate", "ed_msm_per_row_pairs", "ristretto_encode", "ristretto_decode",
+        "encode_batch_device", "refresh_shares", "reshare_shares", "check_bare_shares", "check_reshare_constants",
+        "combine_reshare_commitments"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):

@@ -126,12 +126,19 @@ def test_encode_batch_both_legs_match_the_host_encoding(curve):
 
 def test_encode_batch_dispatches_by_where_the_points_are(monkeypatch):
     """A CPU tensor or a numpy array takes the host leg; any other device
-    the device leg (whose multiplies then launch kernels or raise)."""
+    the device leg (whose multiplies then launch kernels or raise): on
+    Weierstrass affine_canon, on Edwards the batched ristretto255
+    encoding."""
     calls = []
     ident = tgd.identity(tgd.RISTRETTO255, (2,), device="cpu")
     monkeypatch.setattr(tgd, "affine_canon_host", lambda cs, p: calls.append("host") or to_np(ident))
-    monkeypatch.setattr(tgd, "affine_canon", lambda cs, p: calls.append("device") or ident)
+    monkeypatch.setattr(tgd.rd, "ristretto_encode_batch", lambda p: calls.append("device") or ident[:, 0])
     pts = torch.zeros((2, 4, 16), dtype=torch.int32)
     for p in (pts, to_np(pts), pts.to("meta")):
         assert tgd.encode_batch(tgd.RISTRETTO255, p).shape == (2, 32)
     assert calls == ["host", "host", "device"]
+    secp = tgd.SECP256K1
+    ident = tgd.identity(secp, (2,), device="cpu")
+    monkeypatch.setattr(tgd, "affine_canon", lambda cs, p: calls.append("canon") or ident)
+    assert tgd.encode_batch(secp, torch.zeros((2, 3, 16), dtype=torch.int32).to("meta")).shape == (2, 33)
+    assert calls[-1] == "canon"
