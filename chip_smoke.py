@@ -13,14 +13,19 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    values and edge projective scalings in the first lanes, points on the
    curve; the bucket kernels at windows 4 and 8 over identity points,
    digit-0 lanes, digits shared by the batch or one block per row, and a
-   point count past one digit tile; mod_mul and mxu_mod_mul over both
-   fields of their family), and at the shapes its ceremony path gives it,
-   where both are also timed (CUDA events over repeated wrapper
-   calls, the operands' broadcast copies included; the bucket kernels'
-   plain versions, m or 2 (2**c - 1) sequential steps, once, and
-   bucket_accumulate's on BLS12-381 on the first 32 of its 342 columns
-   only; some other plain versions on the first rows of the path's
-   shape, as each row's plain_rows says).  Each kernel line ends with
+   point count past one digit tile (on the Weierstrass bucket_accumulate,
+   off every path, held to pt_bucket_sum); mod_mul and mxu_mod_mul over
+   both fields of their family), and at the shapes its ceremony path gives
+   it, where both are also timed (CUDA events over TIMING_REPS wrapper
+   calls, SLOW_REPS for a call of SLOW_MS or more, the operands' broadcast
+   copies included; the bucket kernels' plain versions, m or 2 (2**c - 1)
+   sequential steps, once, the Weierstrass bucket_accumulate's (off every
+   path) on the first 128 of its m points, the kernel held at the full
+   shape to its route, as its row's plain_cut says, pt_bucket_close's with
+   its random case of the same window in the same pass, as its row's
+   plain_folded says;
+   some other plain versions on the first rows of the path's shape, as
+   each row's plain_rows says).  Each kernel line ends with
    the seconds its checks took.  Every
    curve's window step (the Edwards one a single launch too) is held and
    timed at the Straus RLC's k = 4, the Pippenger combine's k = 8 and the
@@ -206,12 +211,46 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
      zero, the card the faster (both timed); ristretto_decode_batch on
      the card against the host's validity and points; W1's seal and DEM
      seconds beside them.
-11. Prints one JSON line of per-kernel numbers (launches: the count the
+11. The ceremony service (dkg_tpu_torch.service) on one WarmRuntime,
+   secp256k1, rho_bits 64, every stage's host seconds and launches printed:
+   - S1, scripts/fleet_bench.py's 1000-ceremony mix (its MIX, seed 1)
+     through CeremonyScheduler(concurrency=4, batch_max=8) after warmup of
+     each bucket's widths: every outcome done and all qualified, every
+     master g·Σ_j a_j0 and every real final share Σ_j f_j(i) by host big
+     ints, one ceremony per (bucket, width) equal to the unpadded
+     BatchedCeremony's master, and each convoy launching pt_fixed_base 4,
+     mod_madd_horner 2, mod_madd_dot 2, pt_bucket_sum, pt_bucket_close,
+     pt_ladder_horner and pt_tree_sum 1 whatever its width (counts set to
+     0 just before, read just after); ceremonies/s, p50 and p99 of submit
+     to completed_at, convoys by width, peak device memory;
+   - S4, on S1's scheduler: 256 unproved messages from 4 submitter
+     threads over two S1 ceremonies through sign_submit / sign_wait, every
+     signature secret·H(m) on the host; refresh, then reshare to (12, 3),
+     each signing again with the master and signatures unchanged;
+   - S2, warm run_convoy at widths 1, 2, 4, 8 of the buckets (16, 5),
+     (32, 8), (64, 16): ceremonies/s and launches a convoy, mod_madd_dot 2
+     and pt_bucket_sum 1 at every width, every lane its width-1 run;
+   - S3, scripts/service_storm.py's legs at its defaults: 200 requests,
+     a fault-free pass, then 10 poisoned, 2 transient, 2 slow and a worker
+     crash (survival and blame accuracy 1.0, every healthy master the
+     fault-free pass's, every poisoned outcome typed); a forged DLEQ
+     response blamed to its cell, the forger alone quarantined, the
+     substitute quorum's signature bytes the honest one's; a corrupted WAL
+     tail re-served, a crash-looping record poisoned (REPLAY_LIMIT).
+   The kernels line holds mod_madd_dot (three scalar fields) and
+   pt_bucket_sum (three curves) with a convoy axis too: CONVOY_K = 8
+   ceremonies at each path's n and, on secp256k1, S1's (16, 5) bucket at
+   width 8, each in one launch against CONVOY_K launches of the
+   shared-block kernel and its plain version (on the first ceremony, or
+   the first 4 columns of each), and at edges (k = 1, k = 3, an all-zero
+   block, B/k = 1 and 33, m = 37).
+12. Prints one JSON line of per-kernel numbers (launches: the count the
    first main path that launched the kernel read, Straus before the seal
    before signing before Pippenger before gemm before the committee and
    epoch phases, or the 0 every path read (a signing, committee or epoch
    phase's count is its
-   stages' sum); device_ms: a wrapper
+   stages' sum; a convoy row's, its kernel's launches by the convoy route
+   in S1's (16, 5) convoys or in its others); device_ms: a wrapper
    call's device time, its kernels timed back to back; plain_rows:
    the leading rows of the path's shape on which plain_ms was timed, null
    for all of them; for the multi-step kernels also the one-step route's
@@ -235,6 +274,7 @@ import json
 import multiprocessing
 import os
 import random
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -277,8 +317,12 @@ from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
 from dkg_tpu_torch.poly import device as pd
 from dkg_tpu_torch.poly.host import lagrange_interpolation
+from dkg_tpu_torch import service as svc
+from dkg_tpu_torch.service import engine as se
+from dkg_tpu_torch.service.durable import ServiceJournal
 from dkg_tpu_torch.sign import partial as tsp
 from dkg_tpu_torch.sign import verify as sv
+from dkg_tpu_torch.utils.metrics import REGISTRY
 from dkg_tpu_torch.utils.tracing import CeremonyTrace
 
 DEV = "cuda"  # every tensor of the script lives here
@@ -414,6 +458,10 @@ PATHS = (SECP, R255, BLS)
 REPEATED_PASSES = (BLS,)
 TAMPER_N, TAMPER_T = 16, 5
 RANDOM_LANES = 1 << 16
+CONVOY_K = 8  # the convoy kernel rows' width at the paths' n: the service's largest convoy
+# wrapper calls timed a kernel row (CUDA events, and again behind a spin);
+# a call of SLOW_MS or more, SLOW_REPS
+TIMING_REPS, SLOW_MS, SLOW_REPS = 10, 20.0, 3
 RHO_BITS = 128  # BatchedCeremony.run's default
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA data sheet and
@@ -508,6 +556,15 @@ SOURCES = {
     "pt_bucket_sum": ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
     "pt_bucket_sum[edwards]": ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
     "pt_bucket_sum[bls12_381]": ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249"),
+    # the convoy-axis cases of the service's stacked verify: one launch a convoy
+    **{f"{op}{suffix}": src for op, src in (
+        ("mod_madd_dot", ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301")),
+        ("mod_madd_dot[ed25519]", ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301")),
+        ("mod_madd_dot[bls12_381]", ("field_kernels.cu", "dkg_tpu/ops/pallas_field.py:301")),
+        ("pt_bucket_sum", ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249")),
+        ("pt_bucket_sum[edwards]", ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249")),
+        ("pt_bucket_sum[bls12_381]", ("pippenger_kernels.cu", "dkg_tpu/ops/pallas_mxu.py:249")))
+       for suffix in (" convoy",) + ((" convoy (16,5)",) if op in ("mod_madd_dot", "pt_bucket_sum") else ())},
     "pt_bucket_close": ("pippenger_kernels.cu", PDIR + ":258"),
     "pt_bucket_close[edwards]": ("pippenger_kernels.cu", PDIR + ":258"),
     "pt_bucket_close[bls12_381]": ("pippenger_kernels.cu", PDIR + ":258"),
@@ -713,7 +770,16 @@ class Case:
     int8_products: int = 0  # byte product-adds (the fused multiply-reduce's fold)
     plain_reps: int = 2  # timed calls of the plain version at main_args (1: no warm-up either)
     plain_rows: int | None = None  # hold and time the plain version on main_args' first rows only
+    # (what, fn): hold and time the plain version on fn(*main_args), a shorter sequential chain
+    # (the wrapper rerun on the same arguments); the kernel at main_args is held to its route
+    plain_cut: tuple | None = None
     rows_rerun: bool = False  # the output's rows are not the input's: rerun the wrapper on the rows
+    # (cases, join, split): random cases (label, wrapper, args) whose inputs
+    # join main_args' in one pass of the plain version, so that its
+    # sequential steps run once: plain(*join(plain_args, [args, ...])), then
+    # split(result, plain_args, [args, ...]) -> (the path shape's part,
+    # [each case's part]); plain_ms is that pass's
+    folded: tuple | None = None
     route: object = None  # the one-step route at main_args (T or m launches), held and timed beside
     nbytes: int | None = None  # bytes the call must move, where not every byte of main_args
 
@@ -805,9 +871,31 @@ def scalar_mul_layouts_fns(cs):
                           pk.pt_scalar_mul(cs, tab[:10], k.reshape(100, 10, -1)).flatten(0, 1)])
 
     def plain(k, tab):
-        lanes = torch.cat([tab, tab[3].expand(tab.shape), tab[:10].repeat(100, 1, 1, 1)])
-        return pk.pt_scalar_mul_plain(cs, lanes, k.repeat(3, 1))
+        return pk.pt_scalar_mul_plain(cs, *reversed(scalar_mul_lanes(k, tab)))
     return wrapper, plain
+
+
+def scalar_mul_lanes(k, tab) -> tuple:
+    """scalar_mul_layouts_fns' three layouts as (scalars, tables), every
+    lane with its own table."""
+    return k.repeat(3, 1), torch.cat([tab, tab[3].expand(tab.shape), tab[:10].repeat(100, 1, 1, 1)])
+
+
+def scalar_mul_join(plain_args: list, folded: list) -> list:
+    """The path's scalars (..., L) over tables broadcast to them and the
+    layouts' lanes as one (scalars, tables) call, a table a lane."""
+    (k, tab), ((k_r, tab_r),) = plain_args, folded
+    ks, tabs = scalar_mul_lanes(k_r, tab_r)
+    lanes = tab.expand(k.shape[:-1] + tab.shape[-3:]).reshape((-1,) + tab.shape[-3:])
+    return [torch.cat([k.reshape(-1, k.shape[-1]), ks]), torch.cat([lanes, tabs])]
+
+
+def scalar_mul_split(out: torch.Tensor, plain_args: list, folded: list) -> tuple:
+    """scalar_mul_join's plain result -> (the path shape's part, [the
+    layouts' part])."""
+    k = plain_args[0]
+    lanes = k.shape[:-1].numel()
+    return out[:lanes].reshape(k.shape[:-1] + out.shape[-2:]), [out[lanes:]]
 
 
 def fixed_base_muladds(cs, k: torch.Tensor, madd: int) -> int:
@@ -850,6 +938,22 @@ def bucket_sum_fns(cs, window: int):
             lambda p, d: bk.pt_bucket_sum_plain(cs, p, *bk.bucket_lists(d, window)))
 
 
+def dot_convoy_fns(fs):
+    """(wrapper, plain) of mod_madd_dot over a convoy, values (k, m, K...,
+    L) first, then weights (k', m, L) cut to the values' k (a row cut of the
+    values takes the same ceremonies' weights)."""
+    return (lambda v, w: fk.mod_madd_dot(fs, w[: v.shape[0]], v),
+            lambda v, w: fk.mod_madd_dot_plain(fs, w[: v.shape[0]], v))
+
+
+def bucket_sum_convoy_fns(cs, window: int):
+    """(wrapper, plain) of pt_bucket_sum over a convoy: points held (B/k, k,
+    m, C, L), read as (k, B/k, m, C, L); digits (k, m, nw), a block a
+    ceremony shared by its B/k columns."""
+    return (lambda p, d: bk.pt_bucket_sum(cs, p.movedim(0, 1), d, window),
+            lambda p, d: bk.pt_bucket_sum_plain(cs, p.movedim(0, 1), *bk.bucket_lists(d, window)))
+
+
 def bucket_close_fns(cs):
     """(wrapper, plain) of pt_bucket_close on ``cs``."""
     return (lambda b: bk.pt_bucket_close(cs, b), lambda b: bk.pt_bucket_close_plain(cs, b))
@@ -872,6 +976,43 @@ def close_layouts_fns(cs):
     return wrapper, plain
 
 
+def close_join(plain_args: list, folded: list) -> list:
+    """The path's buckets (..., nw, nb, C, L) and close_layouts_fns'
+    (wide, row) as one (windows, nb, C, L) operand of the plain close."""
+    (b,), ((wide, row),) = plain_args, folded
+    nb, tail = b.shape[-3], b.shape[-2:]
+    return [torch.cat([b.reshape((-1, nb) + tail), wide[..., 1:, :, :].reshape((-1, nb) + tail), row])]
+
+
+def close_split(out: torch.Tensor, plain_args: list, folded: list) -> tuple:
+    """close_join's plain result -> (the path shape's part, [the random
+    case's part, as close_layouts_fns' plain gives it])."""
+    b = plain_args[0]
+    k = b.shape[:-3].numel()
+    return out[:k].reshape(b.shape[:-3] + out.shape[-2:]), [out[k:]]
+
+
+def columns_join(plain_args: list, folded: list) -> list:
+    """Batch inversions (rows, columns, L) of one row count side by side:
+    each column is its own chain of the plain version."""
+    return [torch.cat([plain_args[0]] + [args[0] for args in folded], dim=-2)]
+
+
+def columns_split(out: torch.Tensor, plain_args: list, folded: list) -> tuple:
+    """columns_join's plain result -> (the path shape's columns, [each
+    case's])."""
+    widths = [plain_args[0].shape[-2]] + [args[0].shape[-2] for args in folded]
+    main, *parts = torch.split(out, widths, dim=-2)
+    return main, parts
+
+
+def fold_rows(rand: list, rows: int) -> tuple:
+    """(the random cases of ``rand`` whose operand has ``rows`` rows, the
+    rest) of a batch inversion's random cases."""
+    same = [(label, wrapper, args) for label, wrapper, _, args in rand if args[0].shape[0] == rows]
+    return same, [c for c in rand if c[3][0].shape[0] != rows]
+
+
 def close_route(cs, buckets: torch.Tensor) -> torch.Tensor:
     """The bucket close's old route: 2 (2**c - 1) pt_add launches."""
     run = tot = gd.identity(cs, buckets.shape[:-3], device=buckets.device)
@@ -889,9 +1030,13 @@ BUCKET_RANDOM = {
     "ristretto255": ((4, False, 5, 37, 30), (8, True, 3, 37, 32)),
     "bls12_381_g1": ((4, True, 3, 37, 64), (8, False, 5, 37, 32)),
 }
-# columns on which the scatter's plain version (m sequential steps, several
-# minutes at 342 columns on BLS12-381) runs at the path's m and window
-BUCKET_PLAIN_ROWS = {"bls12_381_g1": 32}
+# points on which the Weierstrass bucket_accumulate's plain version (off
+# every path since pt_bucket_sum: m sequential steps, 44-60 s at m = 1024
+# on a slow host) is held and timed; the kernel at the path's full shape is
+# held exactly to pt_bucket_sum there (its route), which is held to its own
+# plain version.  The Edwards one (verify_partials' per-row digits) is held
+# on all its points
+BUCKET_PLAIN_POINTS = 128
 
 
 def rand_digits(rng, shape: tuple, window: int) -> torch.Tensor:
@@ -955,6 +1100,31 @@ def kernel_cases(rng) -> dict:
              for fs in (S, cs.field)],
             [rho_main, rand_field(rng, S, (n, n))],
             MADD_FIELD[S.name] * n * n, plain_reps=1, route=one_step_dot(S))
+        # the service's stacked verify (dkg_tpu_torch/service/engine.py
+        # _verify_stack): its scalar RLCs over a convoy of CONVOY_K ceremonies
+        # at the path's n, each with its own RHO_BITS weights, in one launch
+        # (a weight block a ceremony), against CONVOY_K launches of the
+        # shared-block kernel (its route) and its plain version on the first
+        # ceremony; on secp256k1 also at S1's (16, 5) bucket at width 8.  At
+        # random inputs: k = 1, k = 3 with m = 37 (not a multiple of a warp)
+        # and an all-zero weight block, K = 1
+        dot_convoy = dot_convoy_fns(S)
+        w3 = rand_field(rng, S, (3, 37), 0)
+        w3[1] = 0
+        dot_rand = [("k=1, m=37, 1000 lanes", *dot_convoy,
+                     [rand_field(rng, S, (1, 37, 1000), 1), rand_field(rng, S, (1, 37), 0)]),
+                    ("k=3, m=37, an all-zero weight block, (4, 5) lanes", *dot_convoy,
+                     [rand_field(rng, S, (3, 37, 4, 5), 1), w3]),
+                    ("k=3, K=1", *dot_convoy, [rand_field(rng, S, (3, 5, 1)), rand_field(rng, S, (3, 5))])]
+        for suffix, kk, nn in ((" convoy", CONVOY_K, n), (" convoy (16,5)", SVC_BATCH_MAX, 16)):
+            if nn != n and path is not SECP:
+                continue
+            rho_k = rand_field(rng, S, (kk, nn), operand=None)
+            rho_k[..., (RHO_BITS if nn == n else SVC_RHO_BITS) // 16:] = 0
+            cases[fk.dot_kernel_for(S).name + suffix] = Case(
+                path, *dot_convoy, dot_rand if nn == n else [], [rand_field(rng, S, (kk, nn, nn)), rho_k],
+                MADD_FIELD[S.name] * kk * nn * nn, plain_reps=1, plain_rows=1,
+                route=lambda v, w, fs=S: torch.stack([fk.mod_madd_dot(fs, w[i], v[i]) for i in range(w.shape[0])]))
         # E = A + h·b over every dealer's t+1 coefficients
         cases[name("pt_add")] = Case(
             path, *point_fns(cs, "pt_add"),
@@ -1032,12 +1202,25 @@ def kernel_cases(rng) -> dict:
         bucket_rand = []
         for w, shared, rows, m, bnw in BUCKET_RANDOM[cs.name]:
             digits = rand_digits(rng, (m, bnw) if shared else (rows, m, bnw), w)
-            bucket_rand.append((f"window {w}, ({rows}, {m}) points, {'shared' if shared else 'per-row'} "
-                                f"({m}, {bnw}) digits", *bucket_fns(cs, w, bnw), [points((rows, m)), digits]))
+            label = f"window {w}, ({rows}, {m}) points, {'shared' if shared else 'per-row'} ({m}, {bnw}) digits"
+            if cs.name != "ristretto255" and shared and m > BUCKET_PLAIN_POINTS:
+                # off every path: m sequential plain steps are the costliest
+                # check of the script, so the tile crossing is held to
+                # pt_bucket_sum (buckets from 1 on), held to its own plain
+                # version; bucket 0 is held at the other cases
+                fns = (lambda p, d, w=w, k=bnw, cs=cs: bk.bucket_accumulate(cs, p, d, w, k)[..., 1:, :, :],
+                       lambda p, d, w=w, cs=cs: bk.pt_bucket_sum(cs, p, d, w))
+                label += " held to pt_bucket_sum"
+            else:
+                fns = bucket_fns(cs, w, bnw)
+            bucket_rand.append((label, *fns, [points((rows, m)), digits]))
         cases[bk.kernel_for(cs).name] = Case(
             path, *bucket_fns(cs, window, nw), bucket_rand,
             [points((t + 1, n)), pk.window_digits(rho, window)[:, :nw].contiguous()],
-            add_c * (t + 1) * n * nw, plain_reps=1, plain_rows=BUCKET_PLAIN_ROWS.get(cs.name))
+            add_c * (t + 1) * n * nw, plain_reps=1,
+            plain_cut=None if cs.name == "ristretto255" else (
+                f"the first {BUCKET_PLAIN_POINTS} of {n} points",
+                lambda p, d: (p[:, :BUCKET_PLAIN_POINTS], d[:BUCKET_PLAIN_POINTS])))
         # its redesign for the RLC's shared digits, pt_bucket_sum: the same
         # commitments held as the ceremony holds them, (n, t+1), read as
         # (t+1, n) through strides, against its route (bucket_accumulate's
@@ -1063,19 +1246,58 @@ def kernel_cases(rng) -> dict:
             path, *sum_fns, sum_rand, [points((n, t + 1)).movedim(0, 1), digits_main],
             add_c * (t + 1) * int((digits_main != 0).sum()), plain_reps=1, plain_rows=32,
             route=lambda p, d, cs=cs, w=window, k=nw: bk.bucket_accumulate(cs, p, d, w, k)[..., 1:, :, :])
+        # the stacked verify's point RLC scatter in one launch: CONVOY_K
+        # ceremonies' commitments (affine: 2.8 M points, no rescaling's
+        # temporaries) held (t+1, k, n) (the copy the convoy's
+        # (k, t+1, n) view makes is in the time), a digit block a ceremony
+        # from its own RHO_BITS weights shared by its t+1 columns, against
+        # CONVOY_K launches of the shared-block kernel (its route) and its
+        # plain version on the first 4 columns of every ceremony; on
+        # secp256k1 also at S1's (16, 5) bucket at width 8 (c = 4).  At random
+        # inputs: k = 1, k = 3 with one column a ceremony (B/k = 1), m = 37
+        # (not a multiple of a warp) and an all-zero digit block, B/k = 33
+        conv_rand = []
+        for w in (4, 8):
+            d3 = rand_digits(rng, (3, 37, 3), w)
+            d3[1] = 0  # a zero weight window in every column of ceremony 1
+            conv_rand += [(f"window {w}, k=1, B/k=5, m=37", *bucket_sum_convoy_fns(cs, w),
+                           [points((5, 1, 37)), rand_digits(rng, (1, 37, 3), w)]),
+                          (f"window {w}, k=3, B/k=1, m=37, an all-zero digit block", *bucket_sum_convoy_fns(cs, w),
+                           [points((1, 3, 37)), d3]),
+                          (f"window {w}, k=3, B/k=33, m=37", *bucket_sum_convoy_fns(cs, w),
+                           [points((33, 3, 37)), rand_digits(rng, (3, 37, 2), w)])]
+        for suffix, kk, nn, tt in ((" convoy", CONVOY_K, n, t), (" convoy (16,5)", SVC_BATCH_MAX, 16, 5)):
+            if nn != n and path is not SECP:
+                continue
+            bits = RHO_BITS if nn == n else SVC_RHO_BITS
+            cwin = gd.pippenger_window(nn, cs.name)
+            cnw = min(gd.n_windows(cs, cwin), -(-bits // cwin))
+            rho_k = rand_field(rng, S, (kk, nn), operand=None)
+            rho_k[..., bits // 16:] = 0
+            dig_k = pk.window_digits(rho_k, cwin)[..., :cnw].contiguous()
+            cases[bk.sum_kernel_for(cs).name + suffix] = Case(
+                path, *bucket_sum_convoy_fns(cs, cwin), conv_rand if nn == n else [],
+                [points((tt + 1, kk, nn), affine=True), dig_k], add_c * (tt + 1) * int((dig_k != 0).sum()), plain_reps=1,
+                plain_rows=4 if nn == n else None, rows_rerun=True,
+                route=lambda p, d, cs=cs, w=cwin: torch.stack(
+                    [bk.pt_bucket_sum(cs, p[:, i], d[i], w) for i in range(d.shape[0])]))
         # the bucket close in one launch: the t+1 columns' nw windows of
         # 2**c - 1 buckets in pt_bucket_sum's layout, against its route (2
-        # (2**c - 1) pt_add launches) and its plain version, both at the
-        # path's full shape; at random inputs, at c = 4 and 8, identity
+        # (2**c - 1) pt_add launches) and its plain version at the path's
+        # full shape; at random inputs, at c = 4 and 8, identity
         # buckets among them, B = 33 in bucket_accumulate's layout (bucket 0
         # skipped by a view) and one row of 3 windows
         nb = (1 << window) - 1
         close_rand = [(f"window {w}, (33, 2) windows in bucket_accumulate's layout and one row of 3",
                        *close_layouts_fns(cs), [points((33, 2, 1 << w)), points((3, (1 << w) - 1))])
                       for w in (4, 8)]
+        # the random case of the path's window joins the path shape's plain
+        # pass: 2 nb sequential steps once, not twice
+        f_label, f_wrapper, _, f_args = close_rand.pop((4, 8).index(window))
         cases[bk.close_kernel_for(cs).name] = Case(
             path, *bucket_close_fns(cs), close_rand, [points((nw, nb, t + 1)).movedim(2, 0)],
-            add_c * (t + 1) * nw * 2 * nb, plain_reps=1, route=lambda b, cs=cs: close_route(cs, b))
+            add_c * (t + 1) * nw * 2 * nb, plain_reps=1, route=lambda b, cs=cs: close_route(cs, b),
+            folded=([(f_label, f_wrapper, f_args)], close_join, close_split))
         # one Horner step of eval_point_poly: acc (n,), D_l one point, x = 1..n
         x_rand = torch.from_numpy(rng.integers(0, 1 << path.index_bits, size=R).astype(np.int32)).to(DEV)
         x_main = torch.arange(1, n + 1, dtype=torch.int32, device=DEV)
@@ -1151,13 +1373,17 @@ def kernel_cases(rng) -> dict:
                     ("k = 1, 1000 columns", *inv, [nonzero_field(rng, F, (1, 1000))]),
                     (f"{lanes} at {gd.INV_ROWS} rows", *inv, [nonzero_field(rng, F, (gd.INV_ROWS, R[0] // gd.INV_ROWS))])]
         chain_muls = fk.chain_multiplies(*fk.inv_chain(F))
+        # the random cases of INV_ROWS rows join the path shape's plain pass
+        # (a column a chain): its sequential multiplies run once
+        inv_same, inv_rest = fold_rows(inv_rand, gd.INV_ROWS)
         for suffix, m in (("", lanes_all), (" seal chunk", 4096)):
             rows = gd.INV_ROWS
             cases[fk.batch_inv_kernel_for(F).name + suffix] = Case(
-                path, *inv, inv_rand if not suffix else [], [nonzero_field(rng, F, (rows, m // rows))],
+                path, *inv, inv_rest if not suffix else [], [nonzero_field(rng, F, (rows, m // rows))],
                 MADD_FIELD[F.name] * (3 * (m - 1) + chain_muls), plain_reps=1,
                 route=lambda x, F=F: fd.batch_inv(F, x.reshape(256, -1, F.limbs),
-                                                  mul=fk.mod_mul).reshape(x.shape))
+                                                  mul=fk.mod_mul).reshape(x.shape),
+                folded=None if suffix else (inv_same, columns_join, columns_split))
         # mul="gemm"'s whole batch inversion in one launch, every multiply the
         # tensor-core multiply-reduce: the n(t+1) commitments' non-zero Z as
         # affine_canon lays them out, (GEMM_INV_ROWS, lanes / GEMM_INV_ROWS),
@@ -1177,11 +1403,13 @@ def kernel_cases(rng) -> dict:
                      (f"{lanes} at {grows} rows", *ginv, [nonzero_field(rng, F, (grows, R[0] // grows))])]
         g32, g8 = mxu_ops(F)
         gmuls = 3 * (lanes_all - 1) + chain_muls
+        ginv_same, ginv_rest = fold_rows(ginv_rand, grows)
         cases[mk.batch_inv_kernel_for(F).name] = Case(
-            path, *ginv, ginv_rand, [nonzero_field(rng, F, (grows, -(-lanes_all // grows)))],
+            path, *ginv, ginv_rest, [nonzero_field(rng, F, (grows, -(-lanes_all // grows)))],
             0, g32 * gmuls, g8 * gmuls, plain_reps=1,
             route=lambda x, F=F: fd.batch_inv(F, x.reshape(256, -1, F.limbs),
-                                              mul=mk.mxu_mod_mul).reshape(x.shape))
+                                              mul=mk.mxu_mod_mul).reshape(x.shape),
+            folded=(ginv_same, columns_join, columns_split))
         # every window of scalar_mul in one launch: the seal's KEM (n x n
         # scalars over the n recipients' 16-entry tables, each table read in
         # place by its n dealers) and, in their own rows, a default seal
@@ -1191,16 +1419,17 @@ def kernel_cases(rng) -> dict:
         # launches); the KEM's plain version on its first 4 dealers, the
         # chunk's on its first.  At random inputs the edges (scalars 0, 1,
         # order - 1 and others first, then ones with zero digit windows; the
-        # identity every 7th point) in three calls, held at once against one
-        # plain call over the lanes' own tables: 1000 lanes with a table a
+        # identity every 7th point) in three calls, held at once in the KEM
+        # row's plain call over the lanes' own tables: 1000 lanes with a table a
         # lane, with one table shared by all, and 100 dealers x 10
         # recipients' tables
         smul = scalar_mul_fns(cs)
         k_edge = rand_field(rng, S, (1000,))
         k_edge[100:300] &= 0x0F0F
         lane_tables = gd._build_table(cs, points((1000,)))
+        # held in the KEM row's plain pass: its 64 window steps run once
         smul_rand = [("1000 lanes with a table a lane, with one shared table and with a table a recipient",
-                      *scalar_mul_layouts_fns(cs), [k_edge, lane_tables])]
+                      scalar_mul_layouts_fns(cs)[0], [k_edge, lane_tables])]
         step_c = gd.WINDOW * dbl_c + add_c
         nw = gd.n_windows(cs)
         kem_tables = gd._build_table(cs, points((n,)))
@@ -1209,9 +1438,10 @@ def kernel_cases(rng) -> dict:
                                            (" seal chunk", rand_field(rng, S, (max(1, 4096 // n), n)), 1),
                                            (" open", sk, None)):
             cases[name("pt_scalar_mul") + suffix] = Case(
-                path, *smul, smul_rand if not suffix else [], [k_main, kem_tables],
+                path, *smul, [], [k_main, kem_tables],
                 step_c * nw * (k_main.numel() // S.limbs), plain_reps=1, plain_rows=plain_rows,
-                route=lambda k, tab, cs=cs: pk.pt_scalar_mul_plain(cs, tab, k, step=pk.pt_window_step))
+                route=lambda k, tab, cs=cs: pk.pt_scalar_mul_plain(cs, tab, k, step=pk.pt_window_step),
+                folded=None if suffix else (smul_rand, scalar_mul_join, scalar_mul_split))
     return cases
 
 
@@ -1229,13 +1459,26 @@ def check_kernels(rng) -> dict:
         t_case, err = time.perf_counter(), 0
         for label, wrapper, plain, args in case.rand_args:
             err = max(err, held(f"{name} {label}", wrapper(*args), plain(*args)))
-        ms, res = cuda_ms(lambda: case.wrapper(*case.main_args), reps=10)
-        dev_ms = device_ms(lambda: case.wrapper(*case.main_args), reps=10)
+        # a call of SLOW_MS or more is timed over SLOW_REPS calls, not TIMING_REPS
+        first_ms, _ = cuda_ms(lambda: case.wrapper(*case.main_args), reps=1)
+        reps = TIMING_REPS if first_ms < SLOW_MS else SLOW_REPS
+        ms, res = cuda_ms(lambda: case.wrapper(*case.main_args), reps=reps, warm_up=False)
+        dev_ms = device_ms(lambda: case.wrapper(*case.main_args), reps=reps)
         rows = case.plain_rows
         plain_args = case.main_args if rows is None else [case.main_args[0][:rows], *case.main_args[1:]]
-        plain_ms, want = cuda_ms(lambda: case.plain(*plain_args), reps=case.plain_reps,
-                                 warm_up=case.plain_reps > 1)
-        got = res if rows is None else case.wrapper(*plain_args) if case.rows_rerun else res[:rows]
+        if case.plain_cut is not None:
+            plain_args = case.plain_cut[1](*case.main_args)
+        plain_in, folded = plain_args, []
+        if case.folded is not None:
+            folded, join, split = case.folded
+            plain_in = join(plain_args, [args for _, _, args in folded])
+        plain_ms, want = cuda_ms(lambda: case.plain(*plain_in), reps=case.plain_reps, warm_up=case.plain_reps > 1)
+        if folded:
+            want, parts = split(want, plain_args, [args for _, _, args in folded])
+            for (label, wrapper, args), part in zip(folded, parts):
+                err = max(err, held(f"{name} {label}", wrapper(*args), part))
+        got = (case.wrapper(*plain_args) if case.plain_cut is not None or (rows is not None and case.rows_rerun)
+               else res if rows is None else res[:rows])
         err = max(err, held(name, got, want))
         route = {}
         if case.route is not None:
@@ -1254,12 +1497,15 @@ def check_kernels(rng) -> dict:
         out[name] = {
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "plain_rows": rows, **route,
+            "library_ms": None, "plain_rows": rows, "plain_cut": case.plain_cut and case.plain_cut[0],
+            "plain_folded": [label for label, *_ in folded] or None, "timing_reps": reps, **route,
         }
-        rand = f"at random inputs ({'; '.join(lbl for lbl, *_ in case.rand_args)}) and " if case.rand_args else ""
+        labels = [lbl for lbl, *_ in case.rand_args] + [f"{lbl} (in the path shape's plain pass)" for lbl, *_ in folded]
+        rand = f"at random inputs ({'; '.join(labels)}) and " if labels else ""
         print(f"kernel {name}: exact {rand}at "
               f"{case.path.curve} n={case.path.n} shape {tuple(res.shape)}"
-              f"{'' if rows is None else f' (plain on the first {rows} rows)'}; {ms:.4f} ms "
+              f"{'' if rows is None else f' (plain on the first {rows} rows)'}"
+              f"{'' if case.plain_cut is None else f' (plain on {case.plain_cut[0]})'}; {ms:.4f} ms "
               f"(device {dev_ms:.4f} ms), "
               f"plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.6f} ms "
               f"({out[name]['bound_by']})"
@@ -2919,6 +3165,489 @@ def epoch_phase(seed: int, epoch0s: dict, w1_stages: dict) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the ceremony service (dkg_tpu_torch.service): S1-S4
+# ---------------------------------------------------------------------------
+
+SVC_CURVE = "secp256k1"
+# scripts/fleet_bench.py's workload at its defaults: MIX, 1000 ceremonies,
+# seed 1, rho_bits 64, concurrency 4, batch_max 8
+FLEET_MIX = ((16, 5, 896), (24, 8, 56), (32, 8, 24), (48, 16, 16), (64, 16, 8))
+FLEET_CEREMONIES, FLEET_SEED, SVC_RHO_BITS, SVC_CONCURRENCY, SVC_BATCH_MAX = 1000, 1, 64, 4, 8
+STACK_BUCKETS = ((16, 5), (32, 8), (64, 16))  # S2: the three buckets of the mix
+STACK_WIDTHS = (1, 2, 4, 8)
+# scripts/service_storm.py's legs at its defaults: 200 requests over its
+# SHAPES, 10 poisoned on (16, 5), seed 7, concurrency 4, batch_max 8
+STORM_SHAPES = ((16, 5), (16, 5), (16, 5), (16, 5), (24, 8))
+STORM_REQUESTS, STORM_POISON, STORM_SEED = 200, 10, 7
+SVC_SIGN_MSGS, SVC_SIGN_SUBMITTERS = 256, 4  # S4
+
+
+def service_kernels(cs) -> tuple:
+    """The kernels a convoy of ``cs`` launches, each at least once."""
+    return (pk.kernel_for("pt_fixed_base", cs), pk.kernel_for("pt_add", cs), fk.horner_kernel_for(cs.scalar),
+            fk.dot_kernel_for(cs.scalar), bk.sum_kernel_for(cs), bk.close_kernel_for(cs),
+            pk.kernel_for("pt_window_step", cs), pk.kernel_for("pt_ladder_horner", cs),
+            pk.kernel_for("pt_tree_sum", cs), fk.batch_inv_kernel_for(cs.field), fk.mul_kernel_for(cs.field))
+
+
+def convoy_exact(cs, convoys: int) -> dict:
+    """Launches a width-independent convoy makes, times ``convoys``: the
+    deal's 2 pt_fixed_base and 2 mod_madd_horner, the verify's 2
+    mod_madd_dot (a weight block a ceremony), 1 pt_bucket_sum (a digit
+    block a ceremony), 1 pt_bucket_close, 1 pt_ladder_horner and 2
+    pt_fixed_base, the masters' 1 pt_tree_sum."""
+    per = {pk.kernel_for("pt_fixed_base", cs): 4, fk.horner_kernel_for(cs.scalar): 2, fk.dot_kernel_for(cs.scalar): 2,
+           bk.sum_kernel_for(cs): 1, bk.close_kernel_for(cs): 1, pk.kernel_for("pt_ladder_horner", cs): 1,
+           pk.kernel_for("pt_tree_sum", cs): 1}
+    return {k.name: v * convoys for k, v in per.items()}
+
+
+def counts_zero() -> None:
+    for k in KERNELS:
+        k.launches = 0
+        k.route_launches = {}
+
+
+def counts_read() -> dict:
+    return {k.name: k.launches for k in KERNELS if k.launches}
+
+
+class ConvoyLog:
+    """A fault plan that injects nothing: it records each convoy start's
+    bucket, width and request seeds (the scheduler calls ``on_start`` for
+    every start, retries and bisections included)."""
+
+    def __init__(self):
+        self.lock, self.starts = threading.Lock(), []
+
+    def on_start(self, reqs) -> None:
+        b = reqs[0].bucket()
+        with self.lock:
+            self.starts.append(((b.n, b.t), len(reqs), tuple(r.seed for r in reqs)))
+
+    def on_finish(self, reqs) -> None:
+        pass
+
+
+def fleet_workload() -> list:
+    """scripts/fleet_bench.py build_workload at its defaults."""
+    scale = FLEET_CEREMONIES / sum(c for _, _, c in FLEET_MIX)
+    reqs = [svc.CeremonyRequest(SVC_CURVE, n, t, seed=FLEET_SEED * 1_000_000 + n * 1_000 + i, rho_bits=SVC_RHO_BITS)
+            for n, t, count in FLEET_MIX for i in range(round(count * scale))]
+    random.Random(FLEET_SEED).shuffle(reqs)
+    return reqs
+
+
+def host_oracle(req) -> tuple[bytes, list, int]:
+    """A request's master key g·Σ_j a_j0 (encoded), its real recipients'
+    final shares Σ_j f_j(i) and its secret Σ_j a_j0, by host big ints from
+    its seeded coefficients (drawn in BatchedCeremony's order)."""
+    group = gh.ALL_GROUPS[req.curve]
+    fs = group.scalar_field
+    q = fs.modulus
+    rng = se.rng_for(req)
+    a = [[fs.rand_int(rng) for _ in range(req.t + 1)] for _ in range(req.n)]
+    col = [sum(row[l] for row in a) % q for l in range(req.t + 1)]
+    master = group.encode(group.scalar_mul(col[0], group.generator()))
+    return master, [eval_host(q, col, i) for i in range(1, req.n + 1)], col[0]
+
+
+def run_scheduler(runtime, reqs, **kw):
+    """Submit ``reqs`` to a CeremonyScheduler (the scripts' concurrency and
+    batch_max unless given), wait for all: (scheduler, ids, outcomes, t0,
+    seconds).  The scheduler is left open."""
+    kw = {"concurrency": SVC_CONCURRENCY, "batch_max": SVC_BATCH_MAX, "queue_depth": len(reqs), **kw}
+    sch = svc.CeremonyScheduler(runtime=runtime, **kw)
+    t0 = time.monotonic()
+    ids = [sch.submit(r) for r in reqs]
+    outs = [sch.result(i, timeout=900) for i in ids]
+    return sch, ids, outs, t0, time.monotonic() - t0
+
+
+def warm_buckets(runtime, reqs, widths_of) -> float:
+    """``runtime.warmup`` of each bucket of ``reqs`` at ``widths_of(bucket)``."""
+    t0 = time.perf_counter()
+    first = {}
+    for r in reqs:
+        first.setdefault(r.bucket(), r)
+    for b, r in sorted(first.items(), key=lambda kv: kv[0].n):
+        runtime.warmup(r, widths=tuple(widths_of(b)))
+    sync()
+    return time.perf_counter() - t0
+
+
+def fleet_stage(runtime, card: str) -> tuple:
+    """S1: scripts/fleet_bench.py's 1000-ceremony mix through the scheduler
+    after warmup of each bucket's widths.  Every outcome done and all
+    qualified, every master and real final share equal to the host big-int
+    oracle, one ceremony per (bucket, width) equal to the unpadded
+    BatchedCeremony's master; each kernel of the convoy launched exactly
+    as often a convoy whatever its width, mod_madd_dot and pt_bucket_sum
+    by their convoy route in each convoy wider than 1.  Returns (the open
+    scheduler, ids, outcomes, requests, launches, the convoy kernel rows'
+    launches, the host oracle's secrets)."""
+    reqs = fleet_workload()
+    warm_s = warm_buckets(runtime, reqs, lambda b: sorted({min(w, svc.buckets.width_cap(b)) for w in (SVC_BATCH_MAX, 1)},
+                                                          reverse=True))
+    log = ConvoyLog()
+    counts_zero()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainMuls() as plain:
+        sch, ids, outs, t0, total = run_scheduler(runtime, reqs, fault_plan=log)
+        sync()
+    launches = counts_read()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(plain.count == 0, f"S1: {plain.count} plain field multiplies reached a CUDA tensor")
+    statuses: dict = {}
+    for o in outs:
+        statuses[o.status] = statuses.get(o.status, 0) + 1
+    check(statuses == {"done": len(reqs)}, f"S1: statuses {statuses}")
+    t_check = time.perf_counter()
+    oracle = {}
+    for r, o in zip(reqs, outs):
+        master, finals, secret = host_oracle(r)
+        oracle[o.ceremony_id] = secret
+        check(all(o.qualified) and len(o.qualified) == r.n, f"S1: {o.ceremony_id} qualified {o.qualified}")
+        check(o.master == master, f"S1: {o.ceremony_id} ({r.n}, {r.t}) master != g·Σ_j a_j0")
+        got = [int(v) for v in fh.decode(gh.ALL_GROUPS[r.curve].scalar_field, o.final_shares)]
+        check(got == finals, f"S1: {o.ceremony_id} final shares != Σ_j f_j(i)")
+    oracle_s = time.perf_counter() - t_check
+    widths: dict = {}
+    picked: dict = {}
+    by_seed = {r.seed: (r, o) for r, o in zip(reqs, outs)}
+    for bucket, width, seeds in log.starts:
+        widths[f"{bucket[0]}x{bucket[1]} w{width}"] = widths.get(f"{bucket[0]}x{bucket[1]} w{width}", 0) + 1
+        picked.setdefault((bucket, width), by_seed[seeds[0]])
+    for (bucket, width), (r, o) in sorted(picked.items()):
+        check(svc.engine.run_single_reference(r, device=DEV) == o.master,
+              f"S1: {o.ceremony_id} at bucket {bucket} width {width} != the unpadded BatchedCeremony's master")
+    convoys = len(log.starts)
+    cs = gd.ALL_CURVES[SVC_CURVE]
+    for k in service_kernels(cs):
+        check(launches.get(k.name, 0) > 0, f"kernel {k.name} was not launched in S1")
+    exact = convoy_exact(cs, convoys)
+    check(all(launches.get(k, 0) == v for k, v in exact.items()),
+          f"S1: launches {({k: launches.get(k, 0) for k in exact})}, want {exact} over {convoys} convoys")
+    # the convoy route's launches (more than one block a launch), split by
+    # bucket over the convoys wider than 1: the (16, 5) ones to the kernels
+    # line's "convoy (16,5)" rows, the rest to its "convoy" rows
+    wide: dict = {}
+    for bucket, width, _ in log.starts:
+        if width > 1:
+            wide[bucket] = wide.get(bucket, 0) + 1
+    small = wide.get((16, 5), 0)
+    convoy_rows = {}
+    for kern, per in ((fk.dot_kernel_for(cs.scalar), 2), (bk.sum_kernel_for(cs), 1)):
+        got = kern.route_launches.get("convoy", 0)
+        check(got == per * sum(wide.values()),
+              f"S1: {kern.name} convoy-route launches {got}, want {per} a convoy over {wide}")
+        convoy_rows[f"{kern.name} convoy (16,5)"] = per * small
+        convoy_rows[f"{kern.name} convoy"] = got - per * small
+    lat = sorted(o.completed_at - t0 for o in outs)
+    print(f"service S1 ({card}): {len(reqs)} {SVC_CURVE} ceremonies (scripts/fleet_bench.py's mix, seed "
+          f"{FLEET_SEED}, rho_bits {SVC_RHO_BITS}, concurrency {SVC_CONCURRENCY}, batch_max {SVC_BATCH_MAX}) in "
+          f"{total:.6f} s: {len(reqs) / total:.3f} ceremonies/s, p50 {lat[len(lat) // 2]:.6f} s, p99 "
+          f"{lat[min(len(lat) - 1, int(len(lat) * 0.99))]:.6f} s (submit -> completed_at); warmup {warm_s:.3f} s; "
+          f"convoys {convoys} " + json.dumps(widths) + f"; peak device memory {peak_gib:.3f} GiB; every outcome done, "
+          f"all qualified, masters and final shares = the host oracles ({oracle_s:.1f} s), {len(picked)} "
+          f"(bucket, width) samples = the unpadded BatchedCeremony; exact launches " + json.dumps(exact), flush=True)
+    print("service S1: launches " + json.dumps(launches) + "; by the convoy route " + json.dumps(convoy_rows),
+          flush=True)
+    return sch, ids, outs, reqs, launches, convoy_rows, oracle
+
+
+def stack_stage(runtime, card: str) -> None:
+    """S2: warm run_convoy at widths 1, 2, 4, 8 of the three buckets:
+    ceremonies/s and exact launches a convoy by kernel; a width-k convoy
+    launches mod_madd_dot and pt_bucket_sum as often as a width-1 convoy,
+    and every lane equals its width-1 run."""
+    cs = gd.ALL_CURVES[SVC_CURVE]
+    dot, bsum = fk.dot_kernel_for(cs.scalar).name, bk.sum_kernel_for(cs).name
+    table = {}
+    for n, t in STACK_BUCKETS:
+        reqs = [svc.CeremonyRequest(SVC_CURVE, n, t, seed=5_000_000 + 1_000 * n + i, rho_bits=SVC_RHO_BITS)
+                for i in range(max(STACK_WIDTHS))]
+        singles = [svc.engine.run_convoy(runtime, [r])[0] for r in reqs]
+        per_width = {}
+        for w in STACK_WIDTHS:
+            svc.engine.run_convoy(runtime, reqs[:w])  # warm at this width
+            sync()
+            counts_zero()
+            t0 = time.perf_counter()
+            outs = svc.engine.run_convoy(runtime, reqs[:w])
+            sync()
+            dt = time.perf_counter() - t0
+            launches = counts_read()
+            convoy = [fk.dot_kernel_for(cs.scalar).route_launches.get("convoy", 0),
+                      bk.sum_kernel_for(cs).route_launches.get("convoy", 0)]
+            check(convoy == ([2, 1] if w > 1 else [0, 0]),
+                  f"S2: ({n}, {t}) width {w}: convoy-route launches {convoy} ({dot}, {bsum})")
+            for o, s in zip(outs, singles):
+                check(o.status == "done" and o.master == s.master and o.qualified == s.qualified
+                      and np.array_equal(o.final_shares, s.final_shares),
+                      f"S2: ({n}, {t}) width {w}: lane {o.ceremony_id} != its width-1 run")
+            per_width[w] = (dt, launches)
+        one = per_width[1][1]
+        for w, (_, launches) in per_width.items():
+            check(launches.get(dot) == one.get(dot) == 2 and launches.get(bsum) == one.get(bsum) == 1,
+                  f"S2: ({n}, {t}) width {w}: {dot} {launches.get(dot)}, {bsum} {launches.get(bsum)} a convoy")
+        table[f"{n}x{t}"] = {w: {"seconds": dt, "ceremonies_per_s": w / dt, "launches": launches}
+                             for w, (dt, launches) in per_width.items()}
+        print(f"service S2 ({card}): bucket ({n}, {t}) warm run_convoy, host s / ceremonies per s by width: "
+              + ", ".join(f"w{w} {dt:.6f} / {w / dt:.3f}" for w, (dt, _) in per_width.items())
+              + f"; every lane = its width-1 run; {dot} 2 and {bsum} 1 a convoy at every width (by the convoy "
+                "route above width 1)", flush=True)
+    print("service S2: launches a convoy " + json.dumps({b: {w: v["launches"] for w, v in row.items()}
+                                                          for b, row in table.items()}), flush=True)
+
+
+def storm_workload() -> list:
+    """scripts/service_storm.py build_workload at its defaults."""
+    reqs = [svc.CeremonyRequest(SVC_CURVE, *STORM_SHAPES[i % len(STORM_SHAPES)], seed=STORM_SEED * 1_000_000 + i,
+                                rho_bits=SVC_RHO_BITS, tag=f"req-{i}") for i in range(STORM_REQUESTS)]
+    random.Random(STORM_SEED).shuffle(reqs)
+    return reqs
+
+
+def storm_stage(runtime, card: str) -> dict:
+    """S3: scripts/service_storm.py's three legs.  Convoy: a fault-free
+    pass, then the fault plan (10 poisoned, 2 transient, 2 slow, a worker
+    crash at start 7): survival and blame accuracy 1.0, every healthy
+    master bit-identical to the fault-free pass, every poisoned outcome
+    typed.  Sign: a forged DLEQ response blamed to its cell within the
+    pass bound; the forging signer alone quarantined; the substitute
+    quorum's signatures the honest quorum's bytes.  Recovery: a corrupted
+    WAL tail re-served off the intact prefix; a crash-looping record
+    poisoned with REPLAY_LIMIT.  Returns the legs' launches, summed."""
+    reqs = storm_workload()
+    rec: dict = {}
+    poison_shape = (16, 5)
+    ladder = {r.bucket() for r in reqs if (r.n, r.t) == poison_shape}
+
+    def widths(b):
+        cap = min(SVC_BATCH_MAX, svc.buckets.width_cap(b))
+        return [w for w in svc.buckets.WIDTHS if w <= cap] if b in ladder else [next(
+            w for w in svc.buckets.WIDTHS if w <= cap)]
+    warm_s = warm_buckets(runtime, reqs, widths)
+
+    def clean_pass():
+        sch, ids, outs, _, dt = run_scheduler(runtime, reqs)
+        sch.close()
+        return ids, outs, dt
+    ids, clean, clean_s = staged(rec, "clean pass", clean_pass)
+    check(all(o.status == "done" for o in clean), "S3: the fault-free pass failed a request")
+    rng = random.Random(STORM_SEED + 1)
+    poison_tags = rng.sample([r.tag for r in reqs if (r.n, r.t) == poison_shape], k=STORM_POISON)
+    plan = (svc.ServiceFaultPlan(seed=STORM_SEED).poison(*poison_tags).transient(times=2).slow(0.05, times=2)
+            .crash_worker(at_start=7))
+    REGISTRY.reset()
+    sch, ids2, stormy, _, storm_s = staged(rec, "storm pass", lambda: run_scheduler(runtime, reqs, fault_plan=plan))
+    check(ids2 == ids, "S3: ceremony ids differ between the two passes")
+    clean_by = dict(zip(ids, clean))
+    storm_by = dict(zip(ids, stormy))
+    truth = {c for c, r in zip(ids, reqs) if r.tag in plan.poisoned_tags}
+    blamed = {c for c in ids if storm_by[c].status == "poisoned"}
+    healthy = [c for c in ids if c not in truth]
+    healthy_done = [c for c in healthy if storm_by[c].status == "done"]
+    identical = [c for c in healthy_done if storm_by[c].master == clean_by[c].master]
+    typed = [c for c in blamed if storm_by[c].error.startswith("PoisonedRequest")]
+    counters = REGISTRY.snapshot()["counters"]
+    survival = len(healthy_done) / max(1, len(healthy))
+    accuracy = len(truth & blamed) / len(truth | blamed) if truth | blamed else 1.0
+    check(survival == 1.0 and accuracy == 1.0 and len(identical) == len(healthy) and len(typed) == len(blamed)
+          and not [c for c in ids if storm_by[c].status not in ("done", "poisoned")],
+          f"S3 convoy leg: survival {survival}, blame accuracy {accuracy}, {len(identical)} of {len(healthy)} "
+          f"healthy bit-identical, {len(typed)} of {len(blamed)} typed")
+    convoy = {"survival_rate": survival, "blame_accuracy": accuracy, "healthy_bit_identical": len(identical),
+              "poisoned": len(blamed), "bisections": counters.get("service_convoy_bisections_total", 0),
+              "retries": counters.get("service_retries_total", 0),
+              "worker_restarts": counters.get("service_worker_restarts_total", 0),
+              "requeued": counters.get("service_requeued_total", 0), "injected": plan.as_dict()["injected"]}
+    check(convoy["worker_restarts"] >= 1 and convoy["retries"] >= 1 and convoy["bisections"] >= 1,
+          f"S3 convoy leg: the faults were not all exercised {convoy}")
+    print(f"service S3 ({card}): convoy leg ({STORM_REQUESTS} requests, {STORM_POISON} poisoned, 2 transient, 2 slow, "
+          f"a worker crash; warmup {warm_s:.3f} s, clean {clean_s:.6f} s, storm {storm_s:.6f} s) "
+          + json.dumps(convoy), flush=True)
+
+    held = [c for c, r in zip(ids, reqs) if c in healthy_done and (r.n, r.t) == poison_shape]
+    try:
+        sign = staged(rec, "sign leg", lambda: storm_sign_leg(sch, held[0]))
+    finally:
+        sch.close()
+    print(f"service S3 ({card}): sign leg " + json.dumps(sign), flush=True)
+    recovery = staged(rec, "recovery leg", lambda: storm_recovery_leg(runtime))
+    print(f"service S3 ({card}): recovery leg " + json.dumps(recovery), flush=True)
+    print(f"service S3: stages (host s) " + json.dumps({k: round(v[0], 6) for k, v in rec.items()})
+          + "; launches " + json.dumps({k: v[1] for k, v in rec.items()}), flush=True)
+    totals: dict = {}
+    for _, launches in rec.values():
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def storm_sign_leg(sch, cid: str) -> dict:
+    """The storm's sign leg: direct rlc_verify blame on a host sharing (2
+    messages x 6 signers), then through the scheduler an honest quorum, a
+    one-shot forger and a follow-up with the quarantine standing."""
+    group = gh.ALL_GROUPS[SVC_CURVE]
+    q = group.scalar_field.modulus
+    msgs = [b"svcstorm message 0", b"svcstorm message 1"]
+    n, t = 16, 5
+    rng = random.Random(STORM_SEED + 2)
+    coeffs = [group.scalar_field.rand_int(rng) for _ in range(t + 1)]
+    indices = list(range(1, t + 2))
+    h_points, _ = ts.hash_to_curve_batch(SVC_CURVE, msgs, device=DEV)
+    ps = ts.partial_sign(SVC_CURVE, [eval_host(q, coeffs, i) for i in indices], indices, h_points, rng=rng,
+                         prove=True, device=DEV)
+    cell = (1, 2)
+    m = len(ps.indices)
+    proofs = list(ps.proofs)
+    p = proofs[cell[0] * m + cell[1]]
+    proofs[cell[0] * m + cell[1]] = dataclasses.replace(p, response=(p.response + 1) % q)
+    report = ts.rlc_verify(dataclasses.replace(ps, proofs=proofs), rng=random.Random(STORM_SEED))
+    sigs0 = sch.sign(cid, msgs, seed=STORM_SEED + 11)
+    state = {"signer": None}
+
+    def forge_once(grid):
+        if state["signer"] is not None:
+            return grid
+        state["signer"] = grid.indices[1]
+        gp_ = list(grid.proofs)
+        bad = gp_[1]
+        gp_[1] = dataclasses.replace(bad, response=(bad.response + 1) % q)
+        return dataclasses.replace(grid, proofs=gp_)
+
+    sigs1 = sch.sign(cid, msgs, seed=STORM_SEED + 12, tamper=forge_once)
+    sigs2 = sch.sign(cid, msgs, seed=STORM_SEED + 13)
+    quarantined = sorted(sch.quarantined(cid))
+    leg = {"grid": report.grid, "blamed_cells": [list(c) for c in report.bad_cells],
+           "blamed_cells_exact": report.bad_cells == (cell,), "passes": report.passes,
+           "pass_bound": report.pass_bound(), "substitute_sig_bit_identical": sigs1 == sigs0 and sigs2 == sigs0,
+           "quarantined": quarantined, "quarantined_exact": quarantined == [state["signer"]]}
+    check(leg["blamed_cells_exact"] and report.passes <= report.pass_bound() and leg["substitute_sig_bit_identical"]
+          and leg["quarantined_exact"], f"S3 sign leg: {leg}")
+    return leg
+
+
+def storm_recovery_leg(runtime) -> dict:
+    """The storm's recovery leg: 4 durable ceremonies journalled, the WAL
+    tail corrupted, a fresh scheduler re-serving every terminal outcome
+    bit-identically; a pending record stamped with max_replays replays
+    comes back poisoned (REPLAY_LIMIT)."""
+    tmp = tempfile.mkdtemp(prefix="svcstorm-wal-")
+    wal_a = os.path.join(tmp, "a")
+    reqs = [svc.CeremonyRequest(SVC_CURVE, 16, 5, seed=STORM_SEED * 2_000_000 + i, rho_bits=SVC_RHO_BITS,
+                                durable=True) for i in range(4)]
+    with svc.CeremonyScheduler(concurrency=2, queue_depth=8, batch_max=4, runtime=runtime, wal_dir=wal_a) as sch:
+        cids = [sch.submit(r) for r in reqs]
+        outs = {c: sch.result(c, timeout=600) for c in cids}
+    check(all(o.status == "done" for o in outs.values()), "S3 recovery leg: a durable ceremony failed")
+    svc.corrupt_journal(wal_a, seed=STORM_SEED)
+    sch2 = svc.CeremonyScheduler(concurrency=1, queue_depth=8, batch_max=1, runtime=runtime, wal_dir=wal_a)
+    reserved = [c for c in cids if sch2.poll(c) == "done" and sch2.result(c).master == outs[c].master]
+    sch2.close()
+    wal_b = os.path.join(tmp, "b")
+    jreq = svc.CeremonyRequest(SVC_CURVE, 16, 5, seed=STORM_SEED * 3_000_000, rho_bits=SVC_RHO_BITS, durable=True)
+    jcid = svc.engine.request_id(jreq, 0)
+    j = ServiceJournal(wal_b)
+    j.record_request(jcid, 0, jreq)
+    for count in range(1, 4):
+        j.record_replay(jcid, count)
+    sch3 = svc.CeremonyScheduler(concurrency=1, queue_depth=8, batch_max=1, runtime=runtime, wal_dir=wal_b,
+                                 max_replays=3)
+    poisoned = sch3.poll(jcid) == "poisoned"
+    error = sch3.result(jcid).error if poisoned else None
+    sch3.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    leg = {"durable": len(cids), "terminal_reserved": len(reserved), "crash_loop_poisoned": poisoned,
+           "crash_loop_error": error}
+    check(len(reserved) == len(cids) and poisoned and "REPLAY_LIMIT" in (error or ""), f"S3 recovery leg: {leg}")
+    return leg
+
+
+def sign_lane_stage(sch, reqs, ids, outs, oracle: dict, card: str) -> dict:
+    """S4 on S1's scheduler: SVC_SIGN_MSGS unproved messages from
+    SVC_SIGN_SUBMITTERS threads over two S1 ceremonies coalesce through
+    sign_submit / sign_wait, every signature secret·H(m) on the host; then
+    refresh and reshare of one ceremony, which signs again with its master
+    and signatures unchanged.  Returns the stages' launches, summed."""
+    group = gh.ALL_GROUPS[SVC_CURVE]
+    rec: dict = {}
+    picks = [next(i for i, r in zip(ids, reqs) if (r.n, r.t) == shape) for shape in ((16, 5), (24, 8))]
+    per = SVC_SIGN_MSGS // SVC_SIGN_SUBMITTERS
+    msgs = {s: [b"service sign lane %d %04d" % (s, i) for i in range(per)] for s in range(SVC_SIGN_SUBMITTERS)}
+    cid_of = {s: picks[s % 2] for s in msgs}
+    tickets, lock = {}, threading.Lock()
+
+    def submitter(s):
+        tk = sch.sign_submit(cid_of[s], msgs[s], prove=False)
+        with lock:
+            tickets[s] = tk
+
+    def lane():
+        threads = [threading.Thread(target=submitter, args=(s,)) for s in msgs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return {s: sch.sign_wait(tk, timeout=600) for s, tk in tickets.items()}
+    before = REGISTRY.snapshot()["counters"]
+    sigs = staged(rec, "sign lane", lane)
+    flushes = {k: v - before.get(k, 0) for k, v in REGISTRY.snapshot()["counters"].items()
+               if k.startswith("sign_flush_total") and v - before.get(k, 0)}
+    t_check = time.perf_counter()
+    for s, got in sigs.items():
+        secret = oracle[cid_of[s]]
+        pts, _ = ts.hash_to_curve_batch(SVC_CURVE, msgs[s], device="cpu")
+        check(len(got) == per and all(g == group.encode(group.scalar_mul(secret, h)) for g, h in zip(got, pts)),
+              f"S4: submitter {s}'s signatures != secret·H(m)")
+    check_s = time.perf_counter() - t_check
+    cid = picks[0]
+    probe = msgs[0][:16]
+    before_sigs = sigs[0][:16]
+    epoch = staged(rec, "refresh", lambda: sch.refresh(cid, seed=41))
+    after_refresh = staged(rec, "sign after refresh", lambda: sch.sign(cid, probe, prove=False))
+    out = next(o for i, o in zip(ids, outs) if i == cid)
+    n_new, t_new = 12, 3
+    new_cid = staged(rec, "reshare", lambda: sch.reshare(cid, n_new, t_new, seed=42))
+    after_reshare = staged(rec, "sign after reshare", lambda: sch.sign(new_cid, probe, prove=False))
+    new_out = sch.result(new_cid)
+    check(epoch == 1 and after_refresh == before_sigs and after_reshare == before_sigs
+          and new_out.master == out.master and new_out.n == n_new and new_out.epoch == 2,
+          f"S4: epochs: refresh epoch {epoch}, reshared master kept {new_out.master == out.master}, "
+          f"signatures kept {after_refresh == before_sigs}, {after_reshare == before_sigs}")
+    print(f"service S4 ({card}): {SVC_SIGN_MSGS} unproved messages from {SVC_SIGN_SUBMITTERS} submitters over "
+          f"two S1 ceremonies ({', '.join(picks)}) through sign_submit / sign_wait: flushes " + json.dumps(flushes)
+          + f"; every signature = secret·H(m) on the host ({check_s:.1f} s); refresh (epoch 1) and reshare to "
+          f"({n_new}, {t_new}) keep the master and the signatures; stages (host s) "
+          + json.dumps({k: round(v[0], 6) for k, v in rec.items()}) + "; launches "
+          + json.dumps({k: v[1] for k, v in rec.items()}), flush=True)
+    totals: dict = {}
+    for _, launches in rec.values():
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def service_phase(card: str) -> tuple:
+    """S1-S4 on one WarmRuntime on the card.  Returns S1's launches and
+    its convoy-route launches by kernels-line row; every stage's are
+    printed."""
+    t_phase = time.perf_counter()
+    runtime = svc.WarmRuntime(device=DEV)
+    sch, ids, outs, reqs, launches, convoy_rows, oracle = fleet_stage(runtime, card)
+    try:
+        sign_lane_stage(sch, reqs, ids, outs, oracle, card)
+    finally:
+        sch.close()
+    stack_stage(runtime, card)
+    storm_stage(runtime, card)
+    print(f"service phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, convoy_rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2993,14 +3722,20 @@ def main() -> None:
     stamp("committee wire protocol")
     keep(epoch_phase(args.seed, epoch0s, w1_stages))
     stamp("epochs")
+    service_launches, convoy_rows = service_phase(card)
+    keep(service_launches)
+    stamp("ceremony service")
 
     rows = []
     for name, rec in numbers.items():
         if name not in SOURCES:
             continue  # a second shape of a kernel that has its row (the k = 8 window steps)
         source, replaces = SOURCES[name]
+        # a convoy row's launches: its kernel's by the convoy route in S1, the
+        # fleet mix (secp256k1 only), in the (16, 5) convoys or the others
+        count = convoy_rows.get(name, 0) if " convoy" in name else launches[name]
         rows.append({"name": name, "route": "cuda", "source": "dkg_tpu_torch/csrc/" + source,
-                     "replaces": replaces, "launches": launches[name], **rec})
+                     "replaces": replaces, "launches": count, **rec})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

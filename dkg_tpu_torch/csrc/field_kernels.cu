@@ -49,7 +49,12 @@
 // _field_dot made m = n launches of n lanes each (8 blocks: launch-bound);
 // mod_madd_dot gives a block 32 output lanes and 8 slices of the m rows:
 // a warp reads 32 neighbouring values of one row (coalesced), each thread
-// folds its slice through fmadd, and slice 0 adds the 8 partial sums.
+// folds its slice through fmadd, and slice 0 adds the 8 partial sums.  A
+// convoy of such dots (the ceremony service's stacked verify: k
+// ceremonies, each with its own Fiat-Shamir weights) is one launch too:
+// grid row y is convoy row y, whose weights start y w_stride limbs in (0:
+// one block shared by every row) and whose values and outputs follow the
+// previous row's.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -152,15 +157,20 @@ __global__ void __launch_bounds__(kHornerThreads)
   if (live) store_elem<N>(out + (row * npts + pt) * L, acc);
 }
 
-// out[k] = sum_j w[j] v[j, k]: w (m, L), v (m, K, L), out (K, L).  A block
-// is kDotLanes lanes (threadIdx.x) by kDotSlices slices of the rows
-// (threadIdx.y, rows y, y + kDotSlices, ...).
+// out[r, k] = sum_j w[r, j] v[r, j, k]: w (rows, m, L) with row stride
+// w_stride limbs, v (rows, m, K, L), out (rows, K, L), convoy row r =
+// blockIdx.y.  A block is kDotLanes lanes (threadIdx.x) by kDotSlices
+// slices of the m rows (threadIdx.y, rows y, y + kDotSlices, ...).
 template <int F>
 __global__ void __launch_bounds__(kDotLanes * kDotSlices)
-    mod_madd_dot_kernel(const int32_t* __restrict__ w, const int32_t* __restrict__ v,
+    mod_madd_dot_kernel(const int32_t* __restrict__ w, int64_t w_stride, const int32_t* __restrict__ v,
                         int32_t* __restrict__ out, int64_t m, int64_t K) {
   constexpr int N = Field<F>::N;
   __shared__ uint32_t part[kDotSlices - 1][N][kDotLanes];  // word-major: no bank conflicts
+  const int64_t r = blockIdx.y;
+  w += r * w_stride;
+  v += r * m * K * 2 * N;
+  out += r * K * 2 * N;
   const int64_t k = (int64_t)blockIdx.x * kDotLanes + threadIdx.x;
   const int s = threadIdx.y;
   uint32_t acc[N];
@@ -207,10 +217,12 @@ int launch_horner(const int32_t* coeffs, int64_t coeff_stride, const int32_t* xs
 }
 
 template <int F>
-int launch_dot(const int32_t* w, const int32_t* v, int32_t* out, int64_t m, int64_t K,
-               cudaStream_t s) {
+int launch_dot(const int32_t* w, int64_t w_stride, const int32_t* v, int32_t* out, int64_t rows,
+               int64_t m, int64_t K, cudaStream_t s) {
   const int64_t blocks = (K + kDotLanes - 1) / kDotLanes;
-  mod_madd_dot_kernel<F><<<(unsigned)blocks, dim3(kDotLanes, kDotSlices), 0, s>>>(w, v, out, m, K);
+  if (blocks > 0x7FFFFFFF || rows > 65535) return (int)cudaErrorInvalidValue;
+  mod_madd_dot_kernel<F><<<dim3((unsigned)blocks, (unsigned)rows), dim3(kDotLanes, kDotSlices), 0, s>>>(
+      w, w_stride, v, out, m, K);
   return (int)cudaGetLastError();
 }
 
@@ -272,20 +284,22 @@ int dkg_mod_madd_horner(const int32_t* coeffs, int64_t coeff_stride, const int32
   }
 }
 
-// w (m, L), v (m, K, L), out (K, L): out[k] = sum_j w[j] v[j, k].  field:
-// as dkg_mod_madd's.
-int dkg_mod_madd_dot(const int32_t* w, const int32_t* v, int32_t* out, int64_t m, int64_t K,
-                     int field, void* stream) {
-  if (K <= 0) return 0;
-  if (m < 0) return (int)cudaErrorInvalidValue;
+// w (rows, m, L) with row stride w_stride limbs (0: one block shared by
+// every row), v (rows, m, K, L), out (rows, K, L): out[r, k] = sum_j
+// w[r, j] v[r, j, k].  Weight rows 16-byte aligned.  field: as
+// dkg_mod_madd's.
+int dkg_mod_madd_dot(const int32_t* w, int64_t w_stride, const int32_t* v, int32_t* out,
+                     int64_t rows, int64_t m, int64_t K, int field, void* stream) {
+  if (K <= 0 || rows <= 0) return 0;
+  if (m < 0 || w_stride < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (field) {
-    case kSecpP: return launch_dot<kSecpP>(w, v, out, m, K, s);
-    case kSecpN: return launch_dot<kSecpN>(w, v, out, m, K, s);
-    case kEdP: return launch_dot<kEdP>(w, v, out, m, K, s);
-    case kEdL: return launch_dot<kEdL>(w, v, out, m, K, s);
-    case kBlsP: return launch_dot<kBlsP>(w, v, out, m, K, s);
-    case kBlsR: return launch_dot<kBlsR>(w, v, out, m, K, s);
+    case kSecpP: return launch_dot<kSecpP>(w, w_stride, v, out, rows, m, K, s);
+    case kSecpN: return launch_dot<kSecpN>(w, w_stride, v, out, rows, m, K, s);
+    case kEdP: return launch_dot<kEdP>(w, w_stride, v, out, rows, m, K, s);
+    case kEdL: return launch_dot<kEdL>(w, w_stride, v, out, rows, m, K, s);
+    case kBlsP: return launch_dot<kBlsP>(w, w_stride, v, out, rows, m, K, s);
+    case kBlsR: return launch_dot<kBlsR>(w, w_stride, v, out, rows, m, K, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

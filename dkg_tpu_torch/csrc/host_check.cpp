@@ -646,21 +646,23 @@ void mxu_batch_inv_warps(const int32_t* x, int32_t* out, int64_t rows, int64_t c
 }
 
 // pippenger_kernels.cu's pt_bucket_sum_kernel, a lane at a time: lane
-// ((w nb + e - 1) bp + b) over batch rows padded to bp, a multiple of a
-// warp's 32.
+// ((w nb + e - 1) bp + q pp + r) over kb digit blocks of batch / kb rows,
+// each padded to pp, a multiple of a warp's 32.
 template <template <class, class> class Kind, class C>
 void bucket_sum_lanes(const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
                       const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw,
-                      int nb) {
+                      int nb, int64_t kb) {
   using K = typename HostKind<Kind, C, 1>::type;
-  const int64_t bp = (batch + 31) / 32 * 32;
+  const int64_t per = batch / kb, pp = (per + 31) / 32 * 32, bp = kb * pp;
   for (int64_t lane = 0; lane < (int64_t)nw * nb * bp; ++lane) {
-    const int64_t b = lane % bp, bucket = lane / bp;
+    const int64_t bq = lane % bp, bucket = lane / bp;
+    const int64_t q = bq / pp, r = bq % pp;
     const int w = (int)(bucket / nb), e = (int)(bucket % nb) + 1;
-    const int32_t* st = starts + (int64_t)w * (nb + 2);
-    const int64_t own = b < batch ? b : batch - 1;
-    bucket_sum_lane(K{}, pts + own * sb, sj, order + (int64_t)w * m, st[e], st[e + 1] - st[e],
-                    b < batch ? out + (bucket * batch + b) * stored_limbs<K>() : nullptr);
+    const int64_t list = q * nw + w;
+    const int32_t* st = starts + list * (nb + 2);
+    const int64_t own = q * per + (r < per ? r : per - 1);
+    bucket_sum_lane(K{}, pts + own * sb, sj, order + list * m, st[e], st[e + 1] - st[e],
+                    r < per ? out + (bucket * batch + q * per + r) * stored_limbs<K>() : nullptr);
   }
 }
 
@@ -967,18 +969,25 @@ int host_mxu_batch_inv(const int32_t* x, int32_t* out, int64_t rows, int64_t col
 }
 
 // curve: 0 secp256k1, 1 BLS12-381 G1, 2 edwards25519.  Points: row b's
-// point j at pts + b sb + j sj; order (nw, m), starts (nw, nb + 2); out
-// (nw, nb, batch, C, L).
+// point j at pts + b sb + j sj; the rows kb blocks of batch / kb, each
+// with its order (nw, m) and starts (nw, nb + 2), one after the other;
+// out (nw, nb, batch, C, L).  host_pt_bucket_sum: kb = 1.
+int host_pt_bucket_sum_convoy(int curve, const int32_t* pts, int64_t sb, int64_t sj,
+                              const int32_t* order, const int32_t* starts, int32_t* out,
+                              int64_t batch, int64_t m, int nw, int nb, int64_t kb) {
+  if (batch < 1 || nw < 1 || nb < 1 || kb < 1 || batch % kb) return 1;
+  switch (curve) {
+    case 0: bucket_sum_lanes<GroupWs, Secp256k1>(pts, sb, sj, order, starts, out, batch, m, nw, nb, kb); return 0;
+    case 1: bucket_sum_lanes<GroupWs, Bls12381>(pts, sb, sj, order, starts, out, batch, m, nw, nb, kb); return 0;
+    case 2: bucket_sum_lanes<GroupEd, Edwards25519>(pts, sb, sj, order, starts, out, batch, m, nw, nb, kb); return 0;
+    default: return 1;
+  }
+}
+
 int host_pt_bucket_sum(int curve, const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
                        const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw,
                        int nb) {
-  if (batch < 1 || nw < 1 || nb < 1) return 1;
-  switch (curve) {
-    case 0: bucket_sum_lanes<GroupWs, Secp256k1>(pts, sb, sj, order, starts, out, batch, m, nw, nb); return 0;
-    case 1: bucket_sum_lanes<GroupWs, Bls12381>(pts, sb, sj, order, starts, out, batch, m, nw, nb); return 0;
-    case 2: bucket_sum_lanes<GroupEd, Edwards25519>(pts, sb, sj, order, starts, out, batch, m, nw, nb); return 0;
-    default: return 1;
-  }
+  return host_pt_bucket_sum_convoy(curve, pts, sb, sj, order, starts, out, batch, m, nw, nb, 1);
 }
 
 // curve as above; tpi as close_tpi takes it (no group on edwards25519).

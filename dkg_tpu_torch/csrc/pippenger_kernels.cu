@@ -26,6 +26,11 @@
 // padded to a warp's lanes (a padding lane runs the last row and stores
 // nothing), so a warp never splits between two buckets and its steps stay
 // uniform.  The buckets go out as (nw, 2^c - 1, B, C, L), coalesced.
+// A convoy of kb ceremonies (the ceremony service's stacked verify, each
+// ceremony with its own Fiat-Shamir weights) is one launch too: the B rows
+// are kb blocks of B / kb, block q sorted by its own digits (order and
+// starts one (nw, ...) block each); each block's rows are padded to a
+// warp on their own, so a warp still never splits between two lists.
 //
 // pt_bucket_close replaces _add_call (behind pt_add) composed over the
 // close of dkg_tpu/groups/device.py _msm_pippenger_core, which the port
@@ -71,25 +76,29 @@ __host__ __device__ constexpr int64_t padded_rows(int64_t batch, int tpi) {
   return (batch + 32 / tpi - 1) / (32 / tpi) * (32 / tpi);
 }
 
-// Thread ((w nb + e - 1) bp + b) sums bucket e of window w of row b: the
-// points at pts + b sb + j sj for j in order[w][starts[w][e] ..
-// starts[w][e + 1]), into out ((w nb + e - 1) batch + b).  order (nw, m),
-// starts (nw, nb + 2).  K: a one-thread kind of chain.cuh.
+// Thread ((w nb + e - 1) bp + q pp + r) sums bucket e of window w of row
+// b = q per + r (per = batch / kb rows a digit block, padded to pp): the
+// points at pts + b sb + j sj for j in order[q][w][starts[q][w][e] ..
+// starts[q][w][e + 1]), into out ((w nb + e - 1) batch + b).  order (kb,
+// nw, m), starts (kb, nw, nb + 2).  K: a one-thread kind of chain.cuh.
 template <class K>
 __global__ void __launch_bounds__(bucket_threads(1))
     pt_bucket_sum_kernel(const int32_t* __restrict__ pts, int64_t sb, int64_t sj,
                          const int32_t* __restrict__ order, const int32_t* __restrict__ starts,
-                         int32_t* __restrict__ out, int64_t batch, int64_t m, int nw, int nb) {
-  const int64_t bp = padded_rows(batch, 1);
+                         int32_t* __restrict__ out, int64_t batch, int64_t m, int nw, int nb,
+                         int64_t kb) {
+  const int64_t per = batch / kb, pp = padded_rows(per, 1), bp = kb * pp;
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (int64_t)nw * nb * bp) return;  // a whole warp: bp is a multiple of 32
+  if (lane >= (int64_t)nw * nb * bp) return;  // a whole warp: pp is a multiple of 32
   const K kind{};
-  const int64_t b = lane % bp, bucket = lane / bp;
+  const int64_t bq = lane % bp, bucket = lane / bp;
+  const int64_t q = bq / pp, r = bq % pp;
   const int w = (int)(bucket / nb), e = (int)(bucket % nb) + 1;
-  const int32_t* st = starts + (int64_t)w * (nb + 2);
-  const int64_t own = b < batch ? b : batch - 1;
-  bucket_sum_lane(kind, pts + own * sb, sj, order + (int64_t)w * m, st[e], st[e + 1] - st[e],
-                  b < batch ? out + (bucket * batch + b) * stored_limbs<K>() : nullptr);
+  const int64_t list = q * nw + w;
+  const int32_t* st = starts + list * (nb + 2);
+  const int64_t own = q * per + (r < per ? r : per - 1);
+  bucket_sum_lane(kind, pts + own * sb, sj, order + list * m, st[e], st[e + 1] - st[e],
+                  r < per ? out + (bucket * batch + q * per + r) * stored_limbs<K>() : nullptr);
 }
 
 // Lane (w bp + b) closes the nb buckets of window w of row b at
@@ -118,14 +127,14 @@ inline int check_window(int nw, int nb) {
 template <class K>
 int launch_sum(const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
                const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw, int nb,
-               void* stream) {
+               int64_t kb, void* stream) {
   if (batch <= 0) return 0;
-  if (m < 0 || check_window(nw, nb)) return (int)cudaErrorInvalidValue;
+  if (m < 0 || kb < 1 || batch % kb || check_window(nw, nb)) return (int)cudaErrorInvalidValue;
   constexpr int threads = bucket_threads(1);
-  const int64_t blocks = ((int64_t)nw * nb * padded_rows(batch, 1) + threads - 1) / threads;
+  const int64_t blocks = ((int64_t)nw * nb * kb * padded_rows(batch / kb, 1) + threads - 1) / threads;
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   pt_bucket_sum_kernel<K><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      pts, sb, sj, order, starts, out, batch, m, nw, nb);
+      pts, sb, sj, order, starts, out, batch, m, nw, nb, kb);
   return (int)cudaGetLastError();
 }
 
@@ -147,24 +156,26 @@ int launch_close(const int32_t* src, int64_t sb, int64_t sw, int64_t se, int32_t
 extern "C" {
 
 // Points: row b's point j at pts + b sb + j sj (int32 words, a point's C
-// L limbs contiguous); order (nw, m) and starts (nw, nb + 2) from the
-// digits' counting sort; nb = 2^window - 1; out (nw, nb, batch, C, L).
+// L limbs contiguous); the rows kb blocks of batch / kb, block q's order
+// (nw, m) and starts (nw, nb + 2) from its digits' counting sort at
+// order + q nw m and starts + q nw (nb + 2) (kb = 1: one block shared by
+// every row); nb = 2^window - 1; out (nw, nb, batch, C, L).
 int dkg_pt_bucket_sum(const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
                       const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw, int nb,
-                      void* stream) {
-  return launch_sum<LaneWs<Secp256k1>>(pts, sb, sj, order, starts, out, batch, m, nw, nb, stream);
+                      int64_t kb, void* stream) {
+  return launch_sum<LaneWs<Secp256k1>>(pts, sb, sj, order, starts, out, batch, m, nw, nb, kb, stream);
 }
 
 int dkg_bls_pt_bucket_sum(const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
                           const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw,
-                          int nb, void* stream) {
-  return launch_sum<LaneWs<Bls12381>>(pts, sb, sj, order, starts, out, batch, m, nw, nb, stream);
+                          int nb, int64_t kb, void* stream) {
+  return launch_sum<LaneWs<Bls12381>>(pts, sb, sj, order, starts, out, batch, m, nw, nb, kb, stream);
 }
 
 int dkg_ed_pt_bucket_sum(const int32_t* pts, int64_t sb, int64_t sj, const int32_t* order,
                          const int32_t* starts, int32_t* out, int64_t batch, int64_t m, int nw,
-                         int nb, void* stream) {
-  return launch_sum<LaneEd>(pts, sb, sj, order, starts, out, batch, m, nw, nb, stream);
+                         int nb, int64_t kb, void* stream) {
+  return launch_sum<LaneEd>(pts, sb, sj, order, starts, out, batch, m, nw, nb, kb, stream);
 }
 
 // Buckets: row b's bucket e (1 .. nb) of window w at src + b sb + w sw +

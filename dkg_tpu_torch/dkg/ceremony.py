@@ -74,6 +74,20 @@ class CeremonyConfig:
         """Bit width of party indices 1..n."""
         return max(int(self.n).bit_length(), 1)
 
+    def padded(self, n_pad: int, t_pad: int) -> "CeremonyConfig":
+        """The shape-bucketed twin of this config (``service.buckets``):
+        same curve, lanes padded to ``(n_pad, t_pad)``.  The caller
+        zero-pads the coefficients (phantom dealers are zero polynomials,
+        real ones gain zero high-order coefficients), which deal zero
+        shares and identity commitments; every round-1 kernel is
+        elementwise along the dealer axis, so the real lanes equal the
+        unpadded run's.  Phantom dealers are masked out of ``qualified``
+        before aggregation."""
+        if n_pad < self.n or t_pad < self.t:
+            raise ValueError(f"padded({n_pad}, {t_pad}): bucket must dominate the real "
+                             f"shape (n={self.n}, t={self.t})")
+        return CeremonyConfig(self.curve, n_pad, t_pad)
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; raises if it is CUDA and there is none."""

@@ -33,8 +33,10 @@ A failure leaves ``self.state`` untouched (see epoch.errors).  Churn
 ``DKG_TPU_EPOCH_DEADLINE_S``.  Each operation is one ``phase_span``
 (``epoch_<kind>_op<k>``) and feeds ``epoch_ops_total``,
 ``epoch_op_seconds`` and ``epoch_quarantined_total`` in
-``utils.metrics.REGISTRY``; the JAX package's flight-recorder events
-(``utils/obslog.py``) are not emitted here.
+``utils.metrics.REGISTRY``, and emits the JAX package's flight-recorder
+events into the ambient ``utils.obslog`` recorder (dropped where none is
+bound): ``epoch_wal_record``, ``epoch_head``, ``epoch_publish``,
+``epoch_tail``, ``epoch_quarantine`` and ``epoch_done``, in its order.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from ..dkg.ceremony import resolve_device
 from ..fields import host as fh
 from ..net.checkpoint import PartyWal
 from ..poly import device as poly_device
-from ..utils import envknobs, serde
+from ..utils import envknobs, obslog, serde
 from ..utils.metrics import REGISTRY
 from ..utils.tracing import phase_span
 from . import dealing
@@ -232,12 +234,16 @@ class EpochManager:
             present=present, state_bytes=state_bytes,
         )
         self.wal.append(body)
+        obslog.emit_current("epoch_wal_record", op=op, step=step, bytes=len(body))
 
     # -- channel plumbing ---------------------------------------------------
 
     def _publish(self, round_no: int, sender: int, payload: bytes) -> None:
+        # emitted after the channel call: the timestamp marks visibility
+        seq = self.pub_seq
         self.pub_seq += 1
         self.channel.publish(round_no, sender, payload)
+        obslog.emit_current("epoch_publish", round=round_no, bytes=len(payload), seq=seq)
         if self.trace is not None:
             self.trace.bump("net.wire_bytes_out", len(payload))
 
@@ -262,6 +268,8 @@ class EpochManager:
             self.trace.bump(
                 "net.wire_bytes_in", sum(len(v) for v in got.values())
             )
+        obslog.emit_current("epoch_tail", round=round_no, present=len(got), senders=sorted(got),
+                            timed_out=len(got) < expected)
         return got
 
     # -- the operation ------------------------------------------------------
@@ -279,9 +287,12 @@ class EpochManager:
                 st_new = self._op_body(kind, op, new_pks, t_new)
             except EpochError as e:
                 REGISTRY.inc("epoch_ops_total", kind=kname, status=e.kind)
+                obslog.emit_current("epoch_done", op=op, op_kind=kname, status=e.kind)
                 raise
         REGISTRY.inc("epoch_ops_total", kind=kname, status="ok")
         REGISTRY.observe("epoch_op_seconds", time.monotonic() - t0, kind=kname)
+        obslog.emit_current("epoch_done", op=op, op_kind=kname, status="ok",
+                            epoch=None if st_new is None else st_new.epoch)
         self.op_seq = op
         if st_new is None:
             self.finished = True  # leaver: dealt, holds nothing in the new epoch
@@ -292,6 +303,7 @@ class EpochManager:
 
     def _op_body(self, kind: int, op: int, new_pks: list, t_new: int):
         group, fs = self.group, self.group.scalar_field
+        kname = KIND_NAMES[kind]
         ra, rb, rc = epoch_rounds(op)
         epoch_new = self.state.epoch + 1
         n_new, n_old, t_old = len(new_pks), self.state.n, self.state.t
@@ -326,6 +338,7 @@ class EpochManager:
                     ),
                 )
                 self._record(op, 1, kind, payload1)
+            obslog.emit_current("epoch_head", round=ra, op=op, step=1, op_kind=kname)
             self._publish(ra, my_old, payload1)
         if my_new is None:
             # leaver: its share-of-share is dealt; nothing to receive.
@@ -346,6 +359,7 @@ class EpochManager:
             except _DECODE_ERRORS:
                 self.quarantined += 1
                 REGISTRY.inc("epoch_quarantined_total")
+                obslog.emit_current("epoch_quarantine", round=ra, peer=j)
                 continue
             if d.kind != kind or d.epoch != epoch_new:
                 continue
@@ -393,6 +407,7 @@ class EpochManager:
                 group, EpochComplaints(kind, epoch_new, tuple(accused))
             )
             self._record(op, 2, kind, payload2, present=present_a)
+        obslog.emit_current("epoch_head", round=rb, op=op, step=2, op_kind=kname)
         self._publish(rb, my_new, payload2)
 
         # ---- tail 2: complaint union -> included dealer set ---------------
@@ -407,6 +422,7 @@ class EpochManager:
             except _DECODE_ERRORS:
                 self.quarantined += 1
                 REGISTRY.inc("epoch_quarantined_total")
+                obslog.emit_current("epoch_quarantine", round=rb, peer=j)
                 continue
             if c.kind != kind or c.epoch != epoch_new:
                 continue
@@ -466,6 +482,7 @@ class EpochManager:
                 present=tuple(sorted(got_b)),
                 state_bytes=encode_epoch_state(group, st_new),
             )
+        obslog.emit_current("epoch_head", round=rc, op=op, step=3, op_kind=kname)
         self._publish(rc, my_new, payload3)
 
         # ---- tail 3: digest agreement -------------------------------------

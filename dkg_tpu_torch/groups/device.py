@@ -282,12 +282,33 @@ def msm_pippenger(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, nb
     (..., C, L).  ``nbits`` bounds the scalars' bit width (128-bit RLC
     weights); windows above it are dropped.  Scalars broadcast to the
     points' batch; an (m, L) block stays shared, so the kernel reads one
-    digit block for the whole batch."""
+    digit block for the whole batch, and so does a convoy of blocks
+    (K..., 1..., m, L) over points (K..., B..., m, C, L) with B... not all
+    1 (the service's stacked verify: each ceremony's weights shared by its
+    own columns), one digit block a ceremony."""
     if nbits is None:
         nbits = cs.scalar.limbs * 16
-    if scalars.dim() > 2:
+    if scalars.dim() > 2 and _convoy_lead(scalars.shape[:-2], points.shape[:-3]) is None:
         scalars = scalars.expand(points.shape[:-2] + scalars.shape[-1:])
     return _msm_pippenger_core(cs, scalars, points, nbits)
+
+
+def _convoy_lead(scalar_batch: tuple, point_batch: tuple) -> int | None:
+    """The number c of leading axes that make ``scalar_batch`` a convoy of
+    digit blocks over ``point_batch``: equal to it on the first c axes, 1
+    on the rest, which in ``point_batch`` are not all 1; None otherwise
+    (shared, per-row or broadcast elsewhere)."""
+    if len(scalar_batch) != len(point_batch):
+        return None
+    c = len(scalar_batch)
+    while c > 0 and scalar_batch[c - 1] == 1:
+        c -= 1
+    if c == 0 or tuple(scalar_batch[:c]) != tuple(point_batch[:c]):
+        return None
+    rest = 1
+    for d in point_batch[c:]:
+        rest *= d
+    return c if rest > 1 else None
 
 
 def _msm_pippenger_core(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -303,14 +324,21 @@ def _msm_pippenger_core(cs: CurveSpec, scalars: torch.Tensor, points: torch.Tens
        two adds a bucket, one ``pt_bucket_close`` launch;
     3. window combine: MSB first, ``window_step`` (c doublings, one add).
 
-    On CPU tensors each pass runs its plain version."""
+    A convoy of scalar blocks (K..., 1..., m, L) (:func:`_convoy_lead`)
+    takes one ``pt_bucket_sum`` launch too, block k's digits sorted on their
+    own and shared by ceremony k's columns.  On CPU tensors each pass runs
+    its plain version."""
     m = points.shape[-3]
     batch = points.shape[:-3]
     window = pippenger_window(m, cs.name)
     nw = min(n_windows(cs, window), -(-nbits // window))
     digits = pk.window_digits(scalars, window)[..., :nw]  # (..., m, nw)
+    c = _convoy_lead(digits.shape[:-2], batch) if digits.dim() > 2 else None
     if digits.dim() == 2:  # shared by the batch
         buckets = bk.pt_bucket_sum(cs, points, digits, window)  # (..., nw, 2**c - 1, C, L)
+    elif c is not None:  # one block a ceremony of the convoy
+        blocks = digits.reshape(digits.shape[:c] + digits.shape[-2:])
+        buckets = bk.pt_bucket_sum(cs, points, blocks, window)
     else:
         buckets = bk.bucket_accumulate(cs, points, digits, window, nw)[..., 1:, :, :]
     tot = bk.pt_bucket_close(cs, buckets)  # (..., nw, C, L)

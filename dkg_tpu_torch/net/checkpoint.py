@@ -1,6 +1,7 @@
 """Durable per-party checkpoint log: a copy of
-``dkg_tpu/net/checkpoint.py``'s :class:`PartyWal`, :func:`wal_path` and
-:func:`default_checkpoint_dir`.
+``dkg_tpu/net/checkpoint.py``'s :class:`PartyWal` (less ``reset``, which
+only ``run_party`` calls), :func:`wal_path`, :func:`service_wal_path`
+and :func:`default_checkpoint_dir`.
 
 Before each step's publish a party appends one record (the exact wire
 payload and what it needs to resume; ``utils.serde``'s epoch records for
@@ -60,6 +61,13 @@ def wal_path(directory: Union[str, os.PathLike], index: int) -> pathlib.Path:
     return pathlib.Path(directory) / f"party{index:04d}.wal"
 
 
+def service_wal_path(directory: Union[str, os.PathLike]) -> pathlib.Path:
+    """Canonical WAL location for a ceremony-service journal
+    (``service.durable``) under ``directory``: one journal a server
+    process, so kill-and-restart recovery is a single replay."""
+    return pathlib.Path(directory) / "service.wal"
+
+
 class PartyWal:
     """Append-only, checksummed, fsync'd record log at ``path``.
 
@@ -89,6 +97,24 @@ class PartyWal:
             os.fsync(fd)
         finally:
             os.close(fd)
+
+    def rewrite(self, bodies: list[bytes]) -> None:
+        """Atomically replace the log with exactly ``bodies`` (header and
+        checksummed frames), through a temp file, fsync and
+        ``os.replace``: the service journal compacts through this on
+        recovery, so a torn tail never shadows the appends after it."""
+        frames = [_HEADER]
+        for body in bodies:
+            frames.append(struct.pack("<I", len(body)) + body + _digest(body))
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = self.path.with_name(self.path.name + ".tmp")
+        fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+        try:
+            os.write(fd, b"".join(frames))
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        os.replace(tmp, self.path)
 
     # -- reading ------------------------------------------------------------
 

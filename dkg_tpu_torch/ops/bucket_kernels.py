@@ -18,9 +18,11 @@ other curve raises); on a CPU tensor it runs
 held against.  Digits of shape ``(m, nw)`` are shared by the whole batch
 (the RLC's weights): the kernel reads them with a batch stride of 0.
 
-:func:`pt_bucket_sum` takes only such shared digits (``(m, nw)``): a
-stable counting sort of each window's digits (:func:`bucket_lists`, index
-preparation in tensor ops) gives each bucket its points in order of j,
+:func:`pt_bucket_sum` takes such shared digits (``(m, nw)``), or a convoy
+of digit blocks ``(K..., m, nw)`` each shared by its own ceremony's rows
+(the service's stacked verify): a stable counting sort of each window's
+digits (:func:`bucket_lists`, index preparation in tensor ops) gives each
+bucket its points in order of j,
 and ``csrc/pippenger_kernels.cu`` adds exactly those, one thread a bucket
 and batch row, reading the points in place through strides.  It forms
 buckets 1 .. 2**window - 1 (bucket 0 is not needed), equal limb for limb
@@ -52,9 +54,10 @@ ED_BUCKET_ACCUMULATE = build.Kernel("bucket_accumulate[edwards]", "bucket_kernel
                                     "dkg_ed_bucket_accumulate", _ARGS)
 BLS_BUCKET_ACCUMULATE = build.Kernel("bucket_accumulate[bls12_381]", "bls_kernels.cu",
                                      "dkg_bls_bucket_accumulate", _ARGS)
-# points, their row and point strides, order, starts, out, batch rows, m, nw, buckets a window, stream
+# points, their row and point strides, order, starts, out, batch rows, m, nw, buckets a window,
+# digit blocks, stream
 _SUM_ARGS = [build.PTR, build.I64, build.I64, build.PTR, build.PTR, build.PTR, build.I64, build.I64,
-             build.INT, build.INT, build.PTR]
+             build.INT, build.INT, build.I64, build.PTR]
 PT_BUCKET_SUM = build.Kernel("pt_bucket_sum", "pippenger_kernels.cu", "dkg_pt_bucket_sum", _SUM_ARGS)
 ED_PT_BUCKET_SUM = build.Kernel("pt_bucket_sum[edwards]", "pippenger_kernels.cu", "dkg_ed_pt_bucket_sum",
                                 _SUM_ARGS)
@@ -158,15 +161,17 @@ def bucket_accumulate(cs, points: torch.Tensor, digits: torch.Tensor, window: in
 
 
 def bucket_lists(digits: torch.Tensor, window: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stable counting sort of each window's digits (m, nw): order
-    (nw, m), the points 0..m-1 by digit, each digit's run in increasing j;
-    starts (nw, 2**window + 1), digit e's run at order[w, starts[w, e] :
-    starts[w, e + 1]].  Both int32, on the digits' device."""
-    d = digits.t().long()
-    order = torch.sort(d, dim=1, stable=True).indices.to(torch.int32)
-    counts = torch.zeros(d.shape[0], 1 << window, dtype=torch.int64, device=d.device)
-    counts.scatter_add_(1, d, torch.ones_like(d))
-    starts = torch.nn.functional.pad(counts.cumsum(1), (1, 0)).to(torch.int32)
+    """The stable counting sort of each window's digits (..., m, nw): order
+    (..., nw, m), the points 0..m-1 by digit, each digit's run in
+    increasing j; starts (..., nw, 2**window + 1), digit e's run at
+    order[..., w, starts[..., w, e] : starts[..., w, e + 1]].  Leading axes
+    are digit blocks (a convoy), each sorted on its own.  Both int32, on
+    the digits' device."""
+    d = digits.transpose(-1, -2).long()
+    order = torch.sort(d, dim=-1, stable=True).indices.to(torch.int32)
+    counts = torch.zeros(d.shape[:-1] + (1 << window,), dtype=torch.int64, device=d.device)
+    counts.scatter_add_(-1, d, torch.ones_like(d))
+    starts = torch.nn.functional.pad(counts.cumsum(-1), (1, 0)).to(torch.int32)
     return order.contiguous(), starts.contiguous()
 
 
@@ -174,18 +179,28 @@ def pt_bucket_sum_plain(cs, points: torch.Tensor, order: torch.Tensor, starts: t
     """Buckets 1 .. 2**c - 1 from the sorted lists: every bucket of every
     row takes the r-th point of its list at step r, from the identity
     (``pt_add_plain(acc, P_j)``, acc first), as many steps as the longest
-    list, a bucket whose list has ended keeping its sum.  points (..., m,
-    C, L) -> (..., nw, 2**c - 1, C, L)."""
-    batch, m = points.shape[:-3], points.shape[-3]
-    first = starts[:, 1:-1].long()  # (nw, nb): buckets 1 .. nb
-    count = starts[:, 2:].long() - first
-    acc = pk.identity_plain(cs, batch + tuple(first.shape), points.device)
-    order = order.long()
+    list, a bucket whose list has ended keeping its sum.  order (..., nw,
+    m) and starts (..., nw, 2**c + 1) with leading digit-block axes K...;
+    points (K..., B..., m, C, L) -> (K..., B..., nw, 2**c - 1, C, L), the
+    rows B... of block k read through block k's lists."""
+    lead = order.shape[:-2]
+    nw, m = order.shape[-2:]
+    tail = points.shape[-2:]
+    rows = points.shape[len(lead):-3]
+    kb, nrows = lead.numel(), rows.numel()
+    first = starts[..., 1:-1].long().reshape(kb, nw, -1)  # buckets 1 .. nb
+    nb = first.shape[-1]
+    count = starts[..., 2:].long().reshape(kb, nw, nb) - first
+    flat_order = order.long().reshape(kb, nw, m)
+    pts = points.reshape((kb, nrows, m) + tail)
+    acc = pk.identity_plain(cs, (kb, nrows, nw * nb), points.device)
+    live = count.reshape(kb, 1, nw * nb)
     for r in range(int(count.max()) if count.numel() else 0):
-        j = torch.gather(order, 1, (first + r).clamp(max=max(m - 1, 0)))
-        new = pk.pt_add_plain(cs, acc, points[..., j, :, :])
-        acc = torch.where((r < count)[..., None, None], new, acc)
-    return acc.contiguous()
+        j = torch.gather(flat_order, 2, (first + r).clamp(max=max(m - 1, 0))).reshape(kb, 1, nw * nb)
+        idx = j[..., None, None].expand((kb, nrows, nw * nb) + tail)
+        new = pk.pt_add_plain(cs, acc, torch.gather(pts, 2, idx))
+        acc = torch.where((r < live)[..., None, None], new, acc)
+    return acc.reshape(lead + rows + (nw, nb) + tail).contiguous()
 
 
 def _strided_points(t: torch.Tensor, lead: int) -> torch.Tensor:
@@ -204,19 +219,22 @@ def pt_bucket_sum(cs, points: torch.Tensor, digits: torch.Tensor, window: int) -
     digits (m, nw) shared by every batch row -> (..., nw, 2**window - 1, C,
     L), bucket e of window w the sum from the identity, in order of j, of
     the points whose window-w digit is e (``bucket_accumulate``'s bucket e,
-    limb for limb).  One launch, the points read where they lie (the
-    ceremony's (m, B) layout through strides); the result is a view of the
-    kernel's (nw, 2**window - 1, B, C, L)."""
+    limb for limb).  Digits (K..., m, nw) are a convoy of digit blocks:
+    points (K..., B..., m, C, L), block k's digits shared by the rows B...
+    of its ceremony.  One launch either way, the points read where they lie
+    (the ceremony's (m, B) layout through strides); the result is a view of
+    the kernel's (nw, 2**window - 1, rows, C, L)."""
     if window not in WINDOWS:
         raise ValueError(f"pt_bucket_sum takes a window of {WINDOWS}, got {window}")
+    lead = digits.shape[:-2]
+    if digits.dim() < 2 or points.dim() < len(lead) + 3 or points.shape[:len(lead)] != lead:
+        raise ValueError(f"pt_bucket_sum takes digits (m, nw) shared by the batch, or a convoy of blocks "
+                         f"(K..., m, nw) over points (K..., B..., m, C, L), got {tuple(digits.shape)} "
+                         f"and points {tuple(points.shape)}")
     if points.device.type == "cpu":
         return pt_bucket_sum_plain(cs, points, *bucket_lists(digits, window))
     kernel = sum_kernel_for(cs)
     point = (cs.ncoords, cs.field.limbs)
-    if points.dim() < 3:
-        raise ValueError(f"kernel operand of shape {tuple(points.shape)} does not end in (m,) + {point}")
-    if digits.dim() != 2:
-        raise ValueError(f"pt_bucket_sum takes digits (m, nw) shared by the batch, got {tuple(digits.shape)}")
     m, nw = points.shape[-3], digits.shape[-1]
     dev = build.check_operands([(points, (m,) + point), (digits, (m, nw))])
     batch, nb = points.shape[:-3], (1 << window) - 1
@@ -226,7 +244,8 @@ def pt_bucket_sum(cs, points: torch.Tensor, digits: torch.Tensor, window: int) -
     if out.numel():
         order, starts = bucket_lists(digits, window)
         kernel(pts.data_ptr(), pts.stride(0), pts.stride(1), order.data_ptr(), starts.data_ptr(), out.data_ptr(),
-               rows, m, nw, nb, build.stream_ptr(dev))
+               rows, m, nw, nb, max(1, lead.numel()), build.stream_ptr(dev),
+               route="convoy" if lead.numel() > 1 else None)
     return out.movedim(2, 0).reshape(batch + (nw, nb) + point)
 
 

@@ -17,7 +17,9 @@ A :class:`Kernel` is one C entry point.  Every entry returns
 ``cudaGetLastError()`` after its launch, and the kernel raises if that is
 not 0.  Pointers and the stream travel as ``c_void_p`` and sizes as
 ``c_int64``, so nothing is cut to 32 bits.  ``launches`` counts the
-launches that reached the card.
+launches that reached the card, exactly under threads (the ceremony
+service launches from several workers at once): the count is bumped under
+the kernel's own lock.
 """
 
 from __future__ import annotations
@@ -138,13 +140,17 @@ class Kernel:
         self.defines = tuple(defines)
         self._argtypes = argtypes
         self._fn = None
+        self._count_lock = threading.Lock()
         self.launches = 0
+        #: launches by the route a wrapper names, of ``launches`` (a
+        #: "convoy": more than one weight or digit block in the launch)
+        self.route_launches: dict = {}
 
     def variant(self, *defines: str) -> Kernel:
         """The same entry point from the source built with extra defines."""
         return Kernel(f"{self.name} {' '.join(defines)}", self.source, self.symbol, self._argtypes, defines)
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, route: str | None = None) -> None:
         if self._fn is None:
             fn = getattr(load(self.source, self.defines), self.symbol)
             fn.argtypes = self._argtypes
@@ -154,7 +160,10 @@ class Kernel:
         if rc != 0:
             msg = load(self.source, self.defines).dkg_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {rc} ({msg})")
-        self.launches += 1
+        with self._count_lock:  # a bare += loses counts between threads
+            self.launches += 1
+            if route is not None:
+                self.route_launches[route] = self.route_launches.get(route, 0) + 1
 
 
 def check_operands(operands: list) -> torch.device:

@@ -50,7 +50,8 @@ MOD_MADD_HORNER_ED = build.Kernel("mod_madd_horner[ed25519]", "field_kernels.cu"
                                   _HORNER_ARGS)
 MOD_MADD_HORNER_BLS = build.Kernel("mod_madd_horner[bls12_381]", "field_kernels.cu", "dkg_mod_madd_horner",
                                    _HORNER_ARGS)
-_DOT_ARGS = [build.PTR, build.PTR, build.PTR, build.I64, build.I64, build.INT, build.PTR]
+# weights, their convoy-row stride, values, out, convoy rows, m, K, field, stream
+_DOT_ARGS = [build.PTR, build.I64, build.PTR, build.PTR, build.I64, build.I64, build.I64, build.INT, build.PTR]
 MOD_MADD_DOT = build.Kernel("mod_madd_dot", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
 MOD_MADD_DOT_ED = build.Kernel("mod_madd_dot[ed25519]", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
 MOD_MADD_DOT_BLS = build.Kernel("mod_madd_dot[bls12_381]", "field_kernels.cu", "dkg_mod_madd_dot", _DOT_ARGS)
@@ -247,27 +248,41 @@ def mod_madd_horner(fs: FieldSpec, coeffs: torch.Tensor, xs: torch.Tensor) -> to
 
 
 def mod_madd_dot_plain(fs: FieldSpec, weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """m one-step plain versions: acc <- w_j·v_j + acc."""
-    acc = fd.zeros(fs, values.shape[1:-1], device=values.device)
-    for j in range(values.shape[0]):
-        acc = mod_madd_plain(fs, weights[j], values[j], acc)
+    """m one-step plain versions: acc <- w_j·v_j + acc, each convoy row
+    (the leading axes of weights (..., m, L)) with its own weights."""
+    c = weights.dim() - 2
+    lead, m = weights.shape[:c], weights.shape[c]
+    tail = values.shape[c + 1:-1]
+    acc = fd.zeros(fs, lead + tail, device=values.device)
+    for j in range(m):
+        w = weights[..., j, :].reshape(lead + (1,) * len(tail) + (fs.limbs,))
+        acc = mod_madd_plain(fs, w, values.select(c, j), acc)
     return acc
 
 
 def mod_madd_dot(fs: FieldSpec, weights: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """Σ_j weights[j]·values[j, ...] mod p in one launch: weights (m, L),
-    values (m, ..., L) -> (..., L)."""
+    """Σ_j weights[..., j]·values[..., j, ...] mod p in one launch: weights
+    (..., m, L), values (..., m, K..., L) -> (..., K..., L).  The leading
+    axes ``...`` are a convoy (the service's stacked ceremonies, each with
+    its own weights), folded into the launch's rows; a 2-D weight block
+    (m, L) is the ceremony's own shared dot."""
     if weights.device.type == "cpu":
         return mod_madd_dot_plain(fs, weights, values)
     kernel, field = dot_kernel_for(fs), _FIELDS[fs][1]
     L = fs.limbs
-    if weights.dim() != 2 or values.dim() < 2 or values.shape[0] != weights.shape[0]:
-        raise ValueError("mod_madd_dot takes weights (m, L) and values (m, ..., L)")
-    m = weights.shape[0]
+    c = weights.dim() - 2
+    if (c < 0 or weights.shape[-1] != L or values.dim() < c + 2 or values.shape[:c] != weights.shape[:c]
+            or values.shape[c] != weights.shape[c]):
+        raise ValueError("mod_madd_dot takes weights (..., m, L) and values (..., m, K..., L), "
+                         f"got {tuple(weights.shape)} and {tuple(values.shape)}")
+    lead, m = weights.shape[:c], weights.shape[c]
     dev = build.check_operands([(weights, (m, L)), (values, (L,))])
-    out = torch.empty(values.shape[1:], dtype=torch.int32, device=dev)
-    K = out.numel() // L
-    if K:
-        w, v = weights.contiguous(), values.reshape(m, K, L).contiguous()
-        kernel(w.data_ptr(), v.data_ptr(), out.data_ptr(), m, K, field, build.stream_ptr(dev))
+    out = torch.empty(lead + values.shape[c + 1:], dtype=torch.int32, device=dev)
+    rows = lead.numel()
+    K = out.numel() // max(1, rows * L)
+    if K and rows:
+        w = build.aligned(weights.reshape(rows, m, L).contiguous())
+        v = values.reshape(rows, m, K, L).contiguous()
+        kernel(w.data_ptr(), m * L, v.data_ptr(), out.data_ptr(), rows, m, K, field, build.stream_ptr(dev),
+               route="convoy" if rows > 1 else None)
     return out

@@ -1,9 +1,12 @@
-"""Process-wide metrics registry: counters and fixed-bucket histograms.
+"""Process-wide metrics registry: counters, gauges and fixed-bucket
+histograms.
 
 A copy of the registry of ``dkg_tpu/utils/metrics.py``
 (:class:`MetricsRegistry` and the process-wide :data:`REGISTRY`).  The
 port's epoch manager writes ``epoch_ops_total`` (by kind and status),
-``epoch_op_seconds`` and ``epoch_quarantined_total`` into it.  Exports:
+``epoch_op_seconds`` and ``epoch_quarantined_total`` into it, and the
+ceremony service its ``service_*`` and ``sign_*`` series under the JAX
+package's names (the queue depths as gauges).  Exports:
 :meth:`MetricsRegistry.snapshot` (one JSON-able dict) and
 :meth:`MetricsRegistry.prometheus_text` (the text exposition format).
 All operations are thread-safe; labels are plain keyword strings and
@@ -51,12 +54,13 @@ def _fmt(v: float) -> str:
 
 
 class MetricsRegistry:
-    """Thread-safe counter and histogram store with text + JSON export."""
+    """Thread-safe counter/gauge/histogram store with text + JSON export."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         # (name, labelitems) -> float
         self._counters: dict[tuple[str, tuple], float] = {}
+        self._gauges: dict[tuple[str, tuple], float] = {}
         # (name, labelitems) -> [buckets, per-bucket counts (+overflow), sum, count]
         self._hists: dict[tuple[str, tuple], list] = {}
 
@@ -66,6 +70,11 @@ class MetricsRegistry:
         key = (name, _labelitems(labels))
         with self._lock:
             self._counters[key] = self._counters.get(key, 0) + by
+
+    def set_gauge(self, name: str, value: float, **labels) -> None:
+        key = (name, _labelitems(labels))
+        with self._lock:
+            self._gauges[key] = value
 
     def observe(
         self, name: str, value: float, buckets: tuple = DEFAULT_BUCKETS, **labels
@@ -86,6 +95,7 @@ class MetricsRegistry:
         """Drop every series (tests and per-run isolation)."""
         with self._lock:
             self._counters.clear()
+            self._gauges.clear()
             self._hists.clear()
 
     # -- exports ------------------------------------------------------------
@@ -96,6 +106,7 @@ class MetricsRegistry:
         text exposition describe the identical distribution."""
         with self._lock:
             counters = {_series(n, li): v for (n, li), v in self._counters.items()}
+            gauges = {_series(n, li): v for (n, li), v in self._gauges.items()}
             hists = {}
             for (n, li), (buckets, counts, total, count) in self._hists.items():
                 cum, acc = {}, 0
@@ -108,13 +119,14 @@ class MetricsRegistry:
                     "sum": total,
                     "count": count,
                 }
-        return {"counters": counters, "histograms": hists}
+        return {"counters": counters, "gauges": gauges, "histograms": hists}
 
     def prometheus_text(self) -> str:
         """Prometheus text exposition (``# TYPE`` headers, cumulative
         ``_bucket{le=...}`` series, ``_sum``/``_count``)."""
         with self._lock:
             counters = sorted(self._counters.items())
+            gauges = sorted(self._gauges.items())
             # deep-copy histogram state INSIDE the lock: the dict values
             # are the live mutable [buckets, counts, sum, count] lists
             # observe() mutates, so reading them field-by-field after
@@ -132,6 +144,11 @@ class MetricsRegistry:
             if name not in seen:
                 seen.add(name)
                 lines.append(f"# TYPE {name} counter")
+            lines.append(f"{_series(name, li)} {_fmt(float(v))}")
+        for (name, li), v in gauges:
+            if name not in seen:
+                seen.add(name)
+                lines.append(f"# TYPE {name} gauge")
             lines.append(f"{_series(name, li)} {_fmt(float(v))}")
         for (name, li), (buckets, counts, total, count) in hists:
             if name not in seen:

@@ -172,7 +172,7 @@ def test_bucket_wrappers_refuse_what_the_kernels_do_not_take():
         bk.pt_bucket_sum(cs, _points("secp256k1", 1, 2, 3), torch.zeros(3, 2, dtype=torch.int32), 3)
     meta = torch.zeros((2, 3, 3, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="shared by the batch"):
-        bk.pt_bucket_sum(cs, meta, torch.zeros((2, 3, 2), dtype=torch.int32, device="meta"), 4)
+        bk.pt_bucket_sum(cs, meta, torch.zeros((5, 3, 2), dtype=torch.int32, device="meta"), 4)
     with pytest.raises(ValueError, match="2\\*\\*c - 1"):
         bk.pt_bucket_close(cs, torch.zeros((2, 3, 5, 3, 16), dtype=torch.int32, device="meta"))
     ed = tgd.ALL_CURVES["ristretto255"]
@@ -197,6 +197,8 @@ def host_lib(tmp_path_factory):
                     str(build.CSRC / "host_check.cpp")], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out))
     lib.host_pt_bucket_sum.argtypes = [INT, PTR, I64, I64, PTR, PTR, PTR, I64, I64, INT, INT]
+    lib.host_pt_bucket_sum_convoy.argtypes = [INT, PTR, I64, I64, PTR, PTR, PTR, I64, I64, INT, INT, I64]
+    lib.host_pt_bucket_sum_convoy.restype = INT
     lib.host_pt_bucket_close.argtypes = [INT, INT, PTR, I64, I64, I64, PTR, I64, INT, INT]
     lib.host_pt_bucket_sum.restype = lib.host_pt_bucket_close.restype = INT
     return lib
@@ -248,6 +250,33 @@ def test_host_compiled_bucket_sum_and_close_match_plain(host_lib, curve):
     wide = bk.bucket_accumulate_plain(tcs, pts, _digits(9, 5, 2, 2), 4)
     assert torch.equal(_host_close(host_lib, curve, group, wide[..., 1:, :, :]),
                        bk.pt_bucket_close_plain(tcs, wide[..., 1:, :, :]))
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_host_compiled_bucket_sum_convoy_lanes_match_plain(host_lib, curve):
+    """pt_bucket_sum's lane map over a convoy of digit blocks (the
+    service's stacked verify): k = 3 blocks of B/k = 1 and of B/k = 33
+    rows (each block padded to a warp on its own), one block's digits all
+    zero, points read through the convoy's (k, B/k) rows by strides,
+    against the plain version; k = 1 is the shared-digit launch."""
+    tcs, _ = _cs(curve)
+    for per, seed in ((1, 100), (33, 101)):
+        pts = _points(curve, seed, 3 * per, 5).reshape(3, per, 5, tcs.ncoords, tcs.field.limbs)
+        digs = torch.stack([_digits(seed + i, 5, 2, 2) for i in range(3)])
+        digs[1] = 0
+        order, starts = bk.bucket_lists(digs, 2)
+        flat = pts.reshape(3 * per, 5, tcs.ncoords, tcs.field.limbs)
+        out = torch.full((2, 3, 3 * per) + tuple(pts.shape[-2:]), -1, dtype=torch.int32)
+        rc = host_lib.host_pt_bucket_sum_convoy(HOST_CURVE[curve], flat.data_ptr(), flat.stride(0), flat.stride(1),
+                                                order.data_ptr(), starts.data_ptr(), out.data_ptr(), 3 * per, 5, 2,
+                                                3, 3)
+        assert rc == 0
+        got = out.movedim(2, 0).reshape(3, per, 2, 3, tcs.ncoords, tcs.field.limbs)
+        want = bk.pt_bucket_sum_plain(tcs, pts, order, starts)
+        assert torch.equal(got, want), per
+    assert host_lib.host_pt_bucket_sum_convoy(HOST_CURVE[curve], flat.data_ptr(), flat.stride(0), flat.stride(1),
+                                              order.data_ptr(), starts.data_ptr(), out.data_ptr(), 3 * per, 5, 2,
+                                              3, 2) == 1  # rows not a multiple of the blocks: refused
 
 
 # ---------------------------------------------------------------------------

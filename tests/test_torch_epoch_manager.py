@@ -1,6 +1,9 @@
 """The port's EpochManager end to end on the CPU (the kernels' plain
 versions): tests/test_epoch.py's clean run, a refresh and then a reshare
-in which one member leaves and one joins, at ristretto255 n = 4, t = 1.
+in which one member leaves and one joins, at ristretto255 n = 4, t = 1,
+each party's flight-recorder events (``utils.obslog``, one recorder a
+party thread) in the JAX manager's kinds and order, valid under the JAX
+package's ``validate_events``.
 
 Genesis is the port's committee phases 1-5 on the host, the aggregate
 commitments the pointwise sum of the qualified dealers' bare commitments
@@ -10,15 +13,20 @@ then one party is rebuilt from its WAL and replays both operations.
 """
 
 import functools
+import pathlib
 import random
+import re
 import threading
 from types import SimpleNamespace
+
+from dkg_tpu.utils import obslog as jobslog
 
 from dkg_tpu_torch.dkg import committee as cm
 from dkg_tpu_torch.dkg.procedure_keys import MemberCommunicationKey, sort_committee
 from dkg_tpu_torch.epoch import EpochManager, EpochState, encode_epoch_state, genesis_from_party_result
 from dkg_tpu_torch.groups import host as gh
 from dkg_tpu_torch.net import InProcessChannel, wal_path
+from dkg_tpu_torch.utils import obslog
 from dkg_tpu_torch.utils.metrics import REGISTRY
 from torch_port_util import one_thread  # noqa: F401
 
@@ -81,10 +89,11 @@ def test_refresh_then_reshare_with_a_leaver_and_a_joiner(tmp_path):
     new_pks = [p for i, p in enumerate(pks) if i + 1 != LEAVER] + [joiner.public()]
     chan = TurnTaking(InProcessChannel())
     outs = {}
+    logs = {i: obslog.ObsLog(party=i) for i in range(1, N + 2)}
     before = REGISTRY.snapshot()["counters"]
 
     def founding(i):
-        with chan.lock:
+        with chan.lock, obslog.use(logs[i + 1]):
             try:
                 mgr = EpochManager(chan, G, genesis_from_party_result(env, results[i]), keys[i], pks,
                                    random.Random(100 + i), timeout=300.0, checkpoint=wal_path(tmp_path, i + 1),
@@ -94,7 +103,7 @@ def test_refresh_then_reshare_with_a_leaver_and_a_joiner(tmp_path):
                 outs[i + 1] = exc
 
     def joining():
-        with chan.lock:
+        with chan.lock, obslog.use(logs[N + 1]):
             try:
                 observer = EpochState(epoch=1, n=N, t=T, index=None, share=None, commitments=None)
                 mgr = EpochManager(chan, G, observer, joiner, pks, random.Random(200), timeout=300.0,
@@ -126,6 +135,23 @@ def test_refresh_then_reshare_with_a_leaver_and_a_joiner(tmp_path):
     for kind, ops in (("refresh", N), ("reshare", N + 1)):
         key = f'epoch_ops_total{{kind="{kind}",status="ok"}}'
         assert after.get(key, 0) - before.get(key, 0) == ops
+
+    # the flight recorder: each party's events in the JAX manager's order
+    steps = ["epoch_wal_record", "epoch_head", "epoch_publish", "epoch_tail"]
+    full = steps * 3 + ["epoch_done"]
+    want = {i: full + (full if i != LEAVER else steps[:3] + ["epoch_wal_record", "epoch_done"])
+            for i in range(1, N + 1)}
+    want[N + 1] = ["epoch_tail"] + steps * 2 + ["epoch_done"]  # the joiner deals nothing
+    for i, log in logs.items():
+        events = log.events()
+        assert [e["kind"] for e in events] == want[i], i
+        assert jobslog.validate_events(events) == [] and obslog.validate_events(events) == []
+        assert {e["op_kind"] for e in events if e["kind"] == "epoch_done"} <= {"refresh", "reshare"}
+        assert all(e["status"] == "ok" for e in events if e["kind"] == "epoch_done")
+    jax_src = (pathlib.Path(jobslog.__file__).parents[1] / "epoch" / "manager.py").read_text()
+    port_src = (pathlib.Path(obslog.__file__).parents[1] / "epoch" / "manager.py").read_text()
+    emits = re.compile(r'emit_current\(\s*"(\w+)"')
+    assert emits.findall(port_src) == emits.findall(jax_src)  # every emit site, in the JAX manager's order
 
     # rebuilt from its WAL with a fresh rng: every step replays to the same states
     resumed = EpochManager(chan.chan, G, genesis_from_party_result(env, results[RESUMED - 1]), keys[RESUMED - 1],

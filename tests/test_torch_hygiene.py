@@ -33,6 +33,7 @@ from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
 from dkg_tpu_torch.poly import device as tpd
+from dkg_tpu_torch.service import engine as tsvc_engine
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "dkg_tpu_torch"
@@ -56,7 +57,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dkg_tpu_torch.net", "dkg_tpu_torch.net.channel", "dkg_tpu_torch.net.checkpoint", "dkg_tpu_torch.epoch",
             "dkg_tpu_torch.epoch.errors", "dkg_tpu_torch.epoch.state", "dkg_tpu_torch.epoch.messages",
             "dkg_tpu_torch.epoch.dealing", "dkg_tpu_torch.epoch.inprocess",
-            "dkg_tpu_torch.epoch.manager"} <= set(_modules())
+            "dkg_tpu_torch.epoch.manager", "dkg_tpu_torch.utils.obslog", "dkg_tpu_torch.service",
+            "dkg_tpu_torch.service.buckets", "dkg_tpu_torch.service.engine", "dkg_tpu_torch.service.durable",
+            "dkg_tpu_torch.service.errors", "dkg_tpu_torch.service.slo", "dkg_tpu_torch.service.httpobs",
+            "dkg_tpu_torch.service.faultsvc", "dkg_tpu_torch.service.scheduler"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -186,6 +190,13 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
                                         [tgh.RISTRETTO255.generator()] * 2, device="meta"),
     lambda: tdl.combine_reshare_commitments(tgh.BLS12_381_G1, _meta((2, 16)),
                                             [(tgh.BLS12_381_G1.generator(),)] * 2),
+    lambda: fk.mod_madd_dot(SECP256K1_N, _meta((3, 4, 16)), _meta((3, 4, 5, 16))),
+    lambda: fk.mod_madd_dot(BLS12_381_R, _meta((2, 4, 16)), _meta((2, 4, 5, 2, 16))),
+    lambda: bk.pt_bucket_sum(tgd.SECP256K1, _meta((3, 2, 5, 3, 16)), _meta((3, 5, 3)), 8),
+    lambda: bk.pt_bucket_sum(ED, _meta((3, 1, 5, 4, 16)), _meta((3, 5, 3)), 4),
+    lambda: tgd.msm_pippenger(BLS, _meta((3, 1, 5, 16)), _meta((3, 2, 5, 3, 24)), 64),
+    lambda: tsvc_engine.run_convoy(tsvc_engine.WarmRuntime(device="meta"),
+                                   [tsvc_engine.CeremonyRequest("ristretto255", 5, 2, seed=1)]),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -204,7 +215,8 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "ed_pt_bucket_close", "bls_pt_bucket_close", "msm_pippenger_per_row", "powers", "sign_folded",
         "bls_folded_collect", "ed_aggregate", "ed_msm_per_row_pairs", "ristretto_encode", "ristretto_decode",
         "encode_batch_device", "refresh_shares", "reshare_shares", "check_bare_shares", "check_reshare_constants",
-        "combine_reshare_commitments"])
+        "combine_reshare_commitments", "mod_madd_dot_convoy", "bls_mod_madd_dot_convoy", "pt_bucket_sum_convoy",
+        "ed_pt_bucket_sum_convoy", "bls_msm_pippenger_convoy", "service_convoy"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
@@ -230,10 +242,12 @@ def test_wrappers_raise_instead_of_falling_back(call):
     lambda: bk.pt_bucket_sum(tgd.SECP256K1, _meta((2, 5, 1, 16)), _meta((5, 3)), 4),
     lambda: bk.pt_bucket_sum(tgd.SECP256K1, _meta((2, 5, 3, 16)), _meta((4, 3)), 4),
     lambda: bk.pt_bucket_close(tgd.SECP256K1, _meta((2, 3, 15, 1, 16))),
+    lambda: fk.mod_madd_dot(SECP256K1_N, _meta((3, 4, 16)), _meta((3, 4, 5, 1))),
+    lambda: bk.pt_bucket_sum(tgd.SECP256K1, _meta((3, 2, 5, 3, 16)), _meta((3, 4, 3)), 4),
 ], ids=["limbs", "coords", "too_few_axes", "bucket_coords", "bucket_digits", "horner_coords", "horner_limbs",
         "dot_limbs", "fixed_base_coords", "tree_coords", "tree_table_coords", "batch_inv_limbs",
         "scalar_mul_table_coords", "mxu_batch_inv_limbs", "bucket_sum_coords", "bucket_sum_digits",
-        "bucket_close_coords"])
+        "bucket_close_coords", "dot_convoy_limbs", "bucket_sum_convoy_digits"])
 def test_wrappers_reject_operands_of_the_wrong_shape(call):
     """A tail that would broadcast (a size-1 limb or coordinate axis)
     is refused before any pointer reaches a kernel."""
