@@ -75,8 +75,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    point, m = 1, B = 1 and 33, bucket_accumulate's layout).
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
-   be > 0, and eval_point_poly, eval_many and _field_dot one launch each
-   (1 pt_ladder_horner, 2 mod_madd_horner, 2 mod_madd_dot; the one-step
+   be > 0, and eval_point_poly, eval_many, _field_dot and aggregate_shares
+   one launch each (1 pt_ladder_horner, 2 mod_madd_horner, 3 mod_madd_dot; the one-step
    pt_ladder_mul_add and mod_madd 0), each fixed_base_mul one
    pt_fixed_base (4; pt_madd 0), each tree reduction one pt_tree_sum
    (Straus: 32 windows and the master key, 33; Pippenger: 1) and pt_add
@@ -107,15 +107,30 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    of the fiat_shamir phase step by step and runs the Pippenger path (the
    default) twice more under torch.profiler for device time by kernel and
    the busy share (a call's mean).
+   On each Straus run also: eval_many by matmul_mod (torch._int_mm) and
+   _field_dot's one-row matmul_mod bit-equal to mod_madd_horner's and
+   mod_madd_dot's outputs, both routes timed by CUDA events with
+   _int_mm's share; and run(chunk=96, rlc_chunk=16), the chunked flow (A
+   never whole, bare0 its first column), equal to the one-pass run in the
+   transcript digest bytes, rho, ok, final shares and master, launching
+   exactly as its chunks say.  After the three paths, the scale phase:
+   X1, secp256k1 n = 4096, t = 1365 (BASELINE.md config 4) on card-made
+   coefficients in one pass and in the default chunks, identical, then a
+   tampered share failing its recipient alone; X2, BLS12-381 G1 n = 16384,
+   t = 5461 (config 5 at its own size) in the default chunked flow: ok for
+   all, the master key, 4 x 4 shares and hidings, bare0 and 8 commitments
+   against host big ints, the tampered share, the deal's two routes on a
+   64 x 1024 block, phase seconds, launches and peak device memory.
 5. The dealing round's share encryption on each Straus run's shares and
    hidings (hybrid_batch: the KEM c1 = g·r and kem = r·pk on the card,
    the DEM on the host): recipient keys and randomness from the path's
    seeded random.Random; the KEM's pieces timed by CUDA events;
-   seal_shares_pipeline at its default chunk and unchunked, each timed,
-   the two outputs equal, the unchunked run launching each seal kernel
-   (counts set to 0 just before, read just after); 64 sampled KEM points
-   against the host ladder, the batch DEM against the per-pair leg on
-   min(n, 4096 // n) dealers, recipients 1, n and two others opening
+   seal_shares_pipeline at its default chunk, each seal kernel launched
+   exactly as its chunks say (counts set to 0 just before, read just
+   after), and on ristretto255 also unchunked, the two outputs equal (on
+   secp256k1 and BLS12-381 the unchunked seal is left out for the
+   command's time); 64 sampled KEM points against the host ladder, the
+   batch DEM against the per-pair leg on min(n, 1024 // n) dealers, recipients 1, n and two others opening
    every dealer's share and hiding, a tampered ciphertext not opening to
    its share, and no plain multiply on the card; each chunk of a seal
    (one unchunked) launches exactly 1 pt_fixed_base (c1), 0 pt_madd, 14
@@ -136,8 +151,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    pt_scalar_mul); the aggregate equals the folded signature, Q2's
    aggregate (as group elements: limb for limb on the Weierstrass curves,
    by encoding on ristretto255) and, on messages 0, 127 and 255,
-   secret·H(m) by the host ladder.  Then a proved grid of 16 messages
-   (5472 cells, 1376 on ristretto255): proofs (the announcements one
+   secret·H(m) by the host ladder.  Then a proved grid of 8 messages
+   (2736 cells, 688 on ristretto255): proofs (the announcements one
    pt_scalar_mul), verify_partials (one per-row m = 2 gd.msm) all true,
    rlc_verify one pass; one forged response rejected by verify_partials at
    its cell alone and blamed alone by rlc_verify within its pass bound;
@@ -206,9 +221,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
      joiner; every master the ceremony's, the leaver without state, the
      rest at epoch 2 agreeing on the commitments; one party rebuilt from
      its WAL replays both operations to the same states;
-   - encode_batch's card leg (default on a card tensor) against its host
-     leg at 65,536 ristretto255 points: byte-equal, the identities all
-     zero, the card the faster (both timed); ristretto_decode_batch on
+   - encode_batch's card leg (default on a card tensor) at 65,536
+     ristretto255 points against its host leg on the first 8,192 (a
+     Python inverse square root a point): byte-equal, the identities all
+     zero, the card the faster a point (both timed); ristretto_decode_batch on
      the card against the host's validity and points; W1's seal and DEM
      seconds beside them.
 11. The ceremony service (dkg_tpu_torch.service) on one WarmRuntime,
@@ -219,7 +235,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
      master g·Σ_j a_j0 and every real final share Σ_j f_j(i) by host big
      ints, one ceremony per (bucket, width) equal to the unpadded
      BatchedCeremony's master, and each convoy launching pt_fixed_base 4,
-     mod_madd_horner 2, mod_madd_dot 2, pt_bucket_sum, pt_bucket_close,
+     mod_madd_horner 2, mod_madd_dot 3, pt_bucket_sum, pt_bucket_close,
      pt_ladder_horner and pt_tree_sum 1 whatever its width (counts set to
      0 just before, read just after); ceremonies/s, p50 and p99 of submit
      to completed_at, convoys by width, peak device memory;
@@ -228,7 +244,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
      signature secret·H(m) on the host; refresh, then reshare to (12, 3),
      each signing again with the master and signatures unchanged;
    - S2, warm run_convoy at widths 1, 2, 4, 8 of the buckets (16, 5),
-     (32, 8), (64, 16): ceremonies/s and launches a convoy, mod_madd_dot 2
+     (32, 8), (64, 16): ceremonies/s and launches a convoy, mod_madd_dot 3
      and pt_bucket_sum 1 at every width, every lane its width-1 run;
    - S3, scripts/service_storm.py's legs at its defaults: 200 requests,
      a fault-free pass, then 10 poisoned, 2 transient, 2 slow and a worker
@@ -304,6 +320,7 @@ from dkg_tpu_torch.epoch import messages as em
 from dkg_tpu_torch.epoch import state as est
 from dkg_tpu_torch.fields import device as fd
 from dkg_tpu_torch.fields import host as fh
+from dkg_tpu_torch.fields import matmul as fmm
 from dkg_tpu_torch.fields.spec import int_to_limbs
 from dkg_tpu_torch.groups import device as gd
 from dkg_tpu_torch.groups import host as gh
@@ -360,8 +377,9 @@ class Path:
 
     def exact_launches(self) -> dict:
         """Launch counts a run of the ceremony must read exactly: the point
-        Horner and the two scalar RLCs one launch each, the deal's two
-        Horners one each, and none of their one-step kernels; the four
+        Horner, the two scalar RLCs and the final shares' sum one launch
+        each, the deal's two Horners one each, and none of their one-step
+        kernels; the four
         fixed_base_mul one pt_fixed_base each, and no pt_madd; one
         pt_tree_sum a Straus window (RHO_BITS / 4 of them) and one for the
         master key; pt_add the 14 table adds, E = A + B and the left side,
@@ -381,7 +399,7 @@ class Path:
             trees, adds, steps = 1, 2, -(-RHO_BITS // c)
             buckets.update({bk.sum_kernel_for(cs).name: 1, bk.close_kernel_for(cs).name: 1})
         return {**buckets, pk.kernel_for("pt_ladder_horner", cs).name: 1, fk.horner_kernel_for(cs.scalar).name: 2,
-                fk.dot_kernel_for(cs.scalar).name: 2, pk.kernel_for("pt_ladder_mul_add", cs).name: 0,
+                fk.dot_kernel_for(cs.scalar).name: 3, pk.kernel_for("pt_ladder_mul_add", cs).name: 0,
                 fk._FIELDS[cs.scalar][0].name: 0, pk.kernel_for("pt_fixed_base", cs).name: 4,
                 pk.kernel_for("pt_madd", cs).name: 0, pk.kernel_for("pt_tree_sum", cs).name: trees,
                 pk.kernel_for("pt_add", cs).name: adds, pk.kernel_for("pt_window_step", cs).name: steps, **canon}
@@ -780,6 +798,10 @@ class Case:
     # split(result, plain_args, [args, ...]) -> (the path shape's part,
     # [each case's part]); plain_ms is that pass's
     folded: tuple | None = None
+    # another row's name: this row's main_args (cut to plain_rows) join that
+    # row's plain pass as one of its folded cases, labelled with this row's
+    # name; this row reports that pass's plain_ms and runs no plain of its own
+    plain_in: str | None = None
     route: object = None  # the one-step route at main_args (T or m launches), held and timed beside
     nbytes: int | None = None  # bytes the call must move, where not every byte of main_args
 
@@ -881,21 +903,30 @@ def scalar_mul_lanes(k, tab) -> tuple:
     return k.repeat(3, 1), torch.cat([tab, tab[3].expand(tab.shape), tab[:10].repeat(100, 1, 1, 1)])
 
 
+def _table_lanes(k: torch.Tensor, tab: torch.Tensor) -> tuple:
+    """Scalars (..., L) over tables (..., 16, C, L) broadcast to them as
+    (lanes, L) and (lanes, 16, C, L), a table a lane."""
+    return k.reshape(-1, k.shape[-1]), tab.expand(k.shape[:-1] + tab.shape[-3:]).reshape((-1,) + tab.shape[-3:])
+
+
 def scalar_mul_join(plain_args: list, folded: list) -> list:
-    """The path's scalars (..., L) over tables broadcast to them and the
-    layouts' lanes as one (scalars, tables) call, a table a lane."""
-    (k, tab), ((k_r, tab_r),) = plain_args, folded
-    ks, tabs = scalar_mul_lanes(k_r, tab_r)
-    lanes = tab.expand(k.shape[:-1] + tab.shape[-3:]).reshape((-1,) + tab.shape[-3:])
-    return [torch.cat([k.reshape(-1, k.shape[-1]), ks]), torch.cat([lanes, tabs])]
+    """The path's scalars over tables broadcast to them, the layouts' lanes
+    (the first folded case) and other rows' path shapes (the rest, each
+    scalars over broadcast tables) as one (scalars, tables) call, a table a
+    lane."""
+    (k, tab), (k_r, tab_r), rest = plain_args, folded[0], folded[1:]
+    parts = [_table_lanes(k, tab), scalar_mul_lanes(k_r, tab_r), *(_table_lanes(*args) for args in rest)]
+    return [torch.cat([ks for ks, _ in parts]), torch.cat([tabs for _, tabs in parts])]
 
 
 def scalar_mul_split(out: torch.Tensor, plain_args: list, folded: list) -> tuple:
     """scalar_mul_join's plain result -> (the path shape's part, [the
-    layouts' part])."""
-    k = plain_args[0]
-    lanes = k.shape[:-1].numel()
-    return out[:lanes].reshape(k.shape[:-1] + out.shape[-2:]), [out[lanes:]]
+    layouts' part, then each other row's, in its scalars' shape])."""
+    shapes = [plain_args[0].shape[:-1], torch.Size([3 * folded[0][0].shape[0]])]
+    shapes += [args[0].shape[:-1] for args in folded[1:]]
+    pieces = torch.split(out, [sh.numel() for sh in shapes])
+    parts = [piece.reshape(sh + out.shape[-2:]) for piece, sh in zip(pieces, shapes)]
+    return parts[0], [parts[1].flatten(0, -3)] + parts[2:]
 
 
 def fixed_base_muladds(cs, k: torch.Tensor, madd: int) -> int:
@@ -992,25 +1023,35 @@ def close_split(out: torch.Tensor, plain_args: list, folded: list) -> tuple:
     return out[:k].reshape(b.shape[:-3] + out.shape[-2:]), [out[k:]]
 
 
+def _ones_below(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x (k, columns, L) with rows k .. rows - 1 of ones: a column's other
+    elements keep their inverses (a column holding a zero still reads 0)."""
+    pad = torch.zeros((rows - x.shape[0],) + x.shape[1:], dtype=x.dtype, device=x.device)
+    pad[..., 0] = 1
+    return torch.cat([x, pad])
+
+
 def columns_join(plain_args: list, folded: list) -> list:
-    """Batch inversions (rows, columns, L) of one row count side by side:
-    each column is its own chain of the plain version."""
-    return [torch.cat([plain_args[0]] + [args[0] for args in folded], dim=-2)]
+    """Batch inversions (rows, columns, L) side by side, a case of fewer
+    rows padded with ones to the path shape's: each column is its own chain
+    of the plain version."""
+    rows = plain_args[0].shape[0]
+    return [torch.cat([plain_args[0]] + [_ones_below(args[0], rows) for args in folded], dim=-2)]
 
 
 def columns_split(out: torch.Tensor, plain_args: list, folded: list) -> tuple:
     """columns_join's plain result -> (the path shape's columns, [each
-    case's])."""
+    case's, its own rows])."""
     widths = [plain_args[0].shape[-2]] + [args[0].shape[-2] for args in folded]
     main, *parts = torch.split(out, widths, dim=-2)
-    return main, parts
+    return main, [part[: args[0].shape[0]] for part, args in zip(parts, folded)]
 
 
 def fold_rows(rand: list, rows: int) -> tuple:
-    """(the random cases of ``rand`` whose operand has ``rows`` rows, the
-    rest) of a batch inversion's random cases."""
-    same = [(label, wrapper, args) for label, wrapper, _, args in rand if args[0].shape[0] == rows]
-    return same, [c for c in rand if c[3][0].shape[0] != rows]
+    """(the random cases of ``rand`` whose operand has at most ``rows``
+    rows, the rest) of a batch inversion's random cases."""
+    same = [(label, wrapper, args) for label, wrapper, _, args in rand if args[0].shape[0] <= rows]
+    return same, [c for c in rand if c[3][0].shape[0] > rows]
 
 
 def close_route(cs, buckets: torch.Tensor) -> torch.Tensor:
@@ -1373,17 +1414,24 @@ def kernel_cases(rng) -> dict:
                     ("k = 1, 1000 columns", *inv, [nonzero_field(rng, F, (1, 1000))]),
                     (f"{lanes} at {gd.INV_ROWS} rows", *inv, [nonzero_field(rng, F, (gd.INV_ROWS, R[0] // gd.INV_ROWS))])]
         chain_muls = fk.chain_multiplies(*fk.inv_chain(F))
-        # the random cases of INV_ROWS rows join the path shape's plain pass
-        # (a column a chain): its sequential multiplies run once
+        # the random cases (of INV_ROWS rows or fewer, padded with ones) join
+        # the path shape's plain pass (a column a chain): its sequential
+        # multiplies run once
         inv_same, inv_rest = fold_rows(inv_rand, gd.INV_ROWS)
-        for suffix, m in (("", lanes_all), (" seal chunk", 4096)):
-            rows = gd.INV_ROWS
-            cases[fk.batch_inv_kernel_for(F).name + suffix] = Case(
-                path, *inv, inv_rest if not suffix else [], [nonzero_field(rng, F, (rows, m // rows))],
+        main_name = fk.batch_inv_kernel_for(F).name
+        x_seal = nonzero_field(rng, F, (gd.INV_ROWS, 4096 // gd.INV_ROWS))
+        # the seal chunk's row is held in the main row's plain pass: one
+        # column chain a column, so its sequential multiplies run once
+        inv_same.append((main_name + " seal chunk", inv[0], [x_seal]))
+        for suffix, x in (("", nonzero_field(rng, F, (gd.INV_ROWS, lanes_all // gd.INV_ROWS))), (" seal chunk", x_seal)):
+            m = x.shape[:-1].numel()
+            cases[main_name + suffix] = Case(
+                path, *inv, inv_rest if not suffix else [], [x],
                 MADD_FIELD[F.name] * (3 * (m - 1) + chain_muls), plain_reps=1,
                 route=lambda x, F=F: fd.batch_inv(F, x.reshape(256, -1, F.limbs),
                                                   mul=fk.mod_mul).reshape(x.shape),
-                folded=None if suffix else (inv_same, columns_join, columns_split))
+                folded=None if suffix else (inv_same, columns_join, columns_split),
+                plain_in=main_name if suffix else None)
         # mul="gemm"'s whole batch inversion in one launch, every multiply the
         # tensor-core multiply-reduce: the n(t+1) commitments' non-zero Z as
         # affine_canon lays them out, (GEMM_INV_ROWS, lanes / GEMM_INV_ROWS),
@@ -1434,14 +1482,22 @@ def kernel_cases(rng) -> dict:
         nw = gd.n_windows(cs)
         kem_tables = gd._build_table(cs, points((n,)))
         sk = rand_field(rng, S, (1,), operand=None).expand(n, S.limbs)
-        for suffix, k_main, plain_rows in (("", rand_field(rng, S, (n, n)), 4),
-                                           (" seal chunk", rand_field(rng, S, (max(1, 4096 // n), n)), 1),
-                                           (" open", sk, None)):
-            cases[name("pt_scalar_mul") + suffix] = Case(
+        rows_smul = (("", rand_field(rng, S, (n, n)), 4),
+                     (" seal chunk", rand_field(rng, S, (max(1, 4096 // n), n)), 1),
+                     (" open", sk, None))
+        # the seal chunk's and the opens' rows are held in the KEM row's
+        # plain pass (their path shapes, the chunk's first row, as lanes of
+        # it): the 64 sequential window steps run once for all three
+        kem_name = name("pt_scalar_mul")
+        smul_rand += [(kem_name + suffix, smul[0], [k if rows is None else k[:rows], kem_tables])
+                      for suffix, k, rows in rows_smul[1:]]
+        for suffix, k_main, plain_rows in rows_smul:
+            cases[kem_name + suffix] = Case(
                 path, *smul, [], [k_main, kem_tables],
                 step_c * nw * (k_main.numel() // S.limbs), plain_reps=1, plain_rows=plain_rows,
                 route=lambda k, tab, cs=cs: pk.pt_scalar_mul_plain(cs, tab, k, step=pk.pt_window_step),
-                folded=None if suffix else (smul_rand, scalar_mul_join, scalar_mul_split))
+                folded=None if suffix else (smul_rand, scalar_mul_join, scalar_mul_split),
+                plain_in=kem_name if suffix else None)
     return cases
 
 
@@ -1455,7 +1511,9 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
 
 def check_kernels(rng) -> dict:
     out = {}
-    for name, case in kernel_cases(rng).items():
+    shared = {}  # row name -> (plain_ms, the plain part) of a row held in another row's plain pass
+    cases = kernel_cases(rng)
+    for name, case in cases.items():
         t_case, err = time.perf_counter(), 0
         for label, wrapper, plain, args in case.rand_args:
             err = max(err, held(f"{name} {label}", wrapper(*args), plain(*args)))
@@ -1472,11 +1530,18 @@ def check_kernels(rng) -> dict:
         if case.folded is not None:
             folded, join, split = case.folded
             plain_in = join(plain_args, [args for _, _, args in folded])
-        plain_ms, want = cuda_ms(lambda: case.plain(*plain_in), reps=case.plain_reps, warm_up=case.plain_reps > 1)
+        if case.plain_in is not None:  # held in that row's plain pass
+            plain_ms, want = shared[name]
+        else:
+            plain_ms, want = cuda_ms(lambda: case.plain(*plain_in), reps=case.plain_reps,
+                                     warm_up=case.plain_reps > 1)
         if folded:
             want, parts = split(want, plain_args, [args for _, _, args in folded])
             for (label, wrapper, args), part in zip(folded, parts):
-                err = max(err, held(f"{name} {label}", wrapper(*args), part))
+                if label in cases:  # another row's path shape: held in its own turn
+                    shared[label] = (plain_ms, part)
+                else:
+                    err = max(err, held(f"{name} {label}", wrapper(*args), part))
         got = (case.wrapper(*plain_args) if case.plain_cut is not None or (rows is not None and case.rows_rerun)
                else res if rows is None else res[:rows])
         err = max(err, held(name, got, want))
@@ -1498,14 +1563,16 @@ def check_kernels(rng) -> dict:
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "plain_rows": rows, "plain_cut": case.plain_cut and case.plain_cut[0],
-            "plain_folded": [label for label, *_ in folded] or None, "timing_reps": reps, **route,
+            "plain_folded": [label for label, *_ in folded] or None, "plain_in": case.plain_in,
+            "timing_reps": reps, **route,
         }
         labels = [lbl for lbl, *_ in case.rand_args] + [f"{lbl} (in the path shape's plain pass)" for lbl, *_ in folded]
         rand = f"at random inputs ({'; '.join(labels)}) and " if labels else ""
         print(f"kernel {name}: exact {rand}at "
               f"{case.path.curve} n={case.path.n} shape {tuple(res.shape)}"
               f"{'' if rows is None else f' (plain on the first {rows} rows)'}"
-              f"{'' if case.plain_cut is None else f' (plain on {case.plain_cut[0]})'}; {ms:.4f} ms "
+              f"{'' if case.plain_cut is None else f' (plain on {case.plain_cut[0]})'}"
+              f"{'' if case.plain_in is None else f' (plain in the pass of {case.plain_in})'}; {ms:.4f} ms "
               f"(device {dev_ms:.4f} ms), "
               f"plain {plain_ms:.2f} ms, bound {out[name]['bound_ms']:.6f} ms "
               f"({out[name]['bound_by']})"
@@ -1847,6 +1914,7 @@ def rlc_schedules(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
 
 SEAL_SAMPLES = 64  # pairs whose KEM point is held to the host big-int ladder
 SEAL_OPENERS = 4  # recipients who open their column: 1, n and two seeded others
+SEAL_SCALAR_PAIRS = 1024  # pairs held to the per-pair DEM (its dealers' rows; more would cost the command's time)
 
 
 class HostSeconds:
@@ -1969,7 +2037,7 @@ def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict
             want = group.encode(group.scalar_mul(r_ints[d][i], group.scalar_mul(sks[i], gen)))
             check(enc.tobytes() == want, f"{tag}: the KEM point of pair ({d}, {i}) != r·pk")
         # the batch DEM against the per-pair leg on a dealer subset
-        m_sc = min(n, max(1, 4096 // n))
+        m_sc = min(n, max(1, SEAL_SCALAR_PAIRS // n))
         t0 = time.perf_counter()
         scalar = hb.seal_shares(group, cfg, shares[:m_sc], hidings[:m_sc], c1[:m_sc], kem[:m_sc])
         scalar_s = time.perf_counter() - t0
@@ -2006,7 +2074,7 @@ def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict
 # ---------------------------------------------------------------------------
 
 SIGN_B = 256  # the unproved batch: partial_sign's default message chunk
-SIGN_PROVED_B = 16  # the proved grid's messages
+SIGN_PROVED_B = 8  # the proved grid's messages (half of scripts/sign_bench.py's 16, for the command's time)
 SIGN_SAMPLES = (0, 127, 255)  # messages held to secret·H(m) on the host ladder
 SIGN_FORGED = {"secp256k1": (5, 100), "ristretto255": (5, 40), "bls12_381_g1": (5, 100)}  # the forged cell
 
@@ -2223,6 +2291,302 @@ def tampered(curve: str, seed: int, rlc: str) -> None:
           f"{curve} tampered ceremony's master key != g·(Σ over the qualified set)")
     print(f"tampered {curve} (n={n}, t={t}, rlc={rlc}): recipient {recipient + 1} failed its batch check, dealer "
           f"{dealer + 1} blamed, master key of the qualified set matches", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the memory-bounded layer: matmul routes, forced chunks, X1 and X2
+# ---------------------------------------------------------------------------
+
+FORCED_CHUNK, FORCED_RLC_CHUNK = 96, 16  # dealers a chunk and RLC columns a chunk of the forced-chunk runs
+MATMUL_REPS = 3  # CUDA-event calls of each eval_many / _field_dot route
+
+
+class IntMmTimer:
+    """CUDA events around every int8 product of ``fields.matmul`` (its
+    ``_int8_dot``, ``torch._int_mm`` with its zero padding) while the block
+    runs: the device ms they took, summed."""
+
+    def __enter__(self):
+        self.pairs, self._orig = [], fmm._int8_dot
+
+        def timed(a, b):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(a, b)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        fmm._int8_dot = timed
+        return self
+
+    def __exit__(self, *exc):
+        fmm._int8_dot = self._orig
+
+    @property
+    def ms(self) -> float:
+        sync()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def matmul_routes(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
+    """eval_many's Vandermonde route (matmul_mod over torch._int_mm) at the
+    deal's shape and _field_dot's one-row route at the scalar RLC's, each
+    bit-equal to the kernel route (mod_madd_horner, mod_madd_dot) and to the
+    run's shares; both routes timed by CUDA events (MATMUL_REPS calls after
+    a warm-up), with _int_mm's share of the matmul route."""
+    cs, n = path.cs, path.n
+    S = cs.scalar
+    xs = cer._index_limbs(S, n, DEV)
+    coeffs = c.coeffs_a
+    horner_ms, horner = cuda_ms(lambda: pd.eval_many(S, coeffs, xs), reps=MATMUL_REPS)
+    mm_ms, mm = cuda_ms(lambda: pd.eval_many(S, coeffs, xs, matmul=True), reps=MATMUL_REPS)
+    with IntMmTimer() as deal_mm:
+        pd.eval_many(S, coeffs, xs, matmul=True)
+    check(torch.equal(mm, horner) and torch.equal(horner, out["shares"]),
+          f"{path.curve}: eval_many by matmul_mod != mod_madd_horner's shares")
+    dot_ms, dot = cuda_ms(lambda: cer._field_dot(S, out["rho"], out["shares"]), reps=MATMUL_REPS)
+    dmm_ms, dmm = cuda_ms(lambda: cer._field_dot(S, out["rho"], out["shares"], matmul=True), reps=MATMUL_REPS)
+    with IntMmTimer() as dot_mm:
+        cer._field_dot(S, out["rho"], out["shares"], matmul=True)
+    check(torch.equal(dmm, dot), f"{path.curve}: _field_dot by matmul_mod != mod_madd_dot's")
+    print(f"matmul routes {path.curve} n={n} t={path.t}: eval_many bit-equal to mod_madd_horner, {mm_ms:.3f} ms "
+          f"by matmul_mod ({deal_mm.ms:.3f} ms of it torch._int_mm, {len(deal_mm.pairs)} calls) against "
+          f"{horner_ms:.3f} ms; _field_dot bit-equal to mod_madd_dot, {dmm_ms:.3f} ms by matmul_mod "
+          f"({dot_mm.ms:.3f} ms of it torch._int_mm) against {dot_ms:.3f} ms (CUDA events, a call's mean over "
+          f"{MATMUL_REPS})", flush=True)
+
+
+def chunked_run(path: Path, c: cer.BatchedCeremony, out: dict) -> None:
+    """The path's ceremony with FORCED_CHUNK dealers a chunk and
+    FORCED_RLC_CHUNK RLC columns a chunk: the chunked flow (A never whole,
+    bare0 its first column) gives the one-pass run's transcript digest byte
+    for byte, and its rho, ok, final shares and master; its launches are
+    the chunks' (:func:`flow_launches`)."""
+    for k in KERNELS:
+        k.launches = 0
+    got = c.run(rlc=path.rlc, mul=path.mul, chunk=FORCED_CHUNK, rlc_chunk=FORCED_RLC_CHUNK)
+    sync()
+    launches = {k.name: k.launches for k in KERNELS}
+    check("bare" not in got and torch.equal(got["bare0"], out["bare"][:, 0]), f"{path.tag}: chunked bare0")
+    check(got["transcript"] == out["transcript"], f"{path.tag}: the chunked digest differs from the one-pass one")
+    for k in ("rho", "ok", "qualified", "final_shares", "master", "randomized", "shares", "hidings"):
+        check(torch.equal(got[k], out[k]), f"{path.tag}: chunked output {k} differs from the one-pass run's")
+    want = flow_launches(path, got["chunks"])
+    check(all(launches[k] == v for k, v in want.items()),
+          f"{path.tag} chunked: launches {({k: launches[k] for k in want})}, want {want}")
+    print(f"chunked run {path.tag}: chunks {json.dumps(got['chunks'])}, digest, rho, ok, final shares and master "
+          f"equal to the one-pass run's; launches " + json.dumps(want) + "; phases "
+          + json.dumps({k: round(v, 6) for k, v in got["phase_seconds"].items()}), flush=True)
+
+
+def tree_passes(m: int) -> int:
+    """pt_tree_sum's launches for a tree over m points: one while a column
+    fits a block's 2**TREE_CHUNK_LOG leaves, then one more a level of
+    chunk tops (point_kernels.tree_sum_passes)."""
+    chunks = ((m - 1) >> pk.tree_levels(m, pk.TREE_CHUNK_LOG)) + 1
+    return 1 if chunks == 1 else 1 + tree_passes(chunks)
+
+
+def flow_launches(path: Path, chunks: dict) -> dict:
+    """Launch counts of run() under ``chunks`` (its resolved dealer chunks,
+    0 for one pass, and the RLC's column chunk): each commitments chunk two
+    pt_fixed_base and one pt_add (E = A + h·b), with A's canonical form (one
+    batch inversion, its coordinates' mod_mul) when A is never whole; each
+    shares chunk two mod_madd_horner; each digest chunk E's canonical form
+    (and A's when A is whole); each RLC column chunk one pt_bucket_sum, one
+    pt_bucket_close and its window steps (Straus: its table adds, a tree
+    sum and a window step a window); then as one pass: two pt_fixed_base,
+    one pt_add and four mod_mul (the left side, gd.eq), three mod_madd_dot,
+    one pt_ladder_horner, the master key's tree sum (one launch up to 1024
+    dealers, :func:`tree_passes`)."""
+    cs, n, t = path.cs, path.n, path.t
+
+    def count(chunk, total):
+        return 1 if not chunk or chunk >= total else -(-total // chunk)
+
+    kc, ks, kd = count(chunks["deal"], n), count(chunks["shares"], n), count(chunks["digest"], n)
+    kr = count(chunks["rlc"], t + 1)
+    master = tree_passes(n)  # the master key's tree over n points
+    a_whole = kc == 1
+    canon = canon_launches(cs, path.mul, kd * (2 if a_whole else 1) + (0 if a_whole else kc))
+    mul = fk.mul_kernel_for(cs.field).name
+    canon[mul] = canon.get(mul, 0) + 4
+    buckets = {bk.kernel_for(cs).name: 0, bk.sum_kernel_for(cs).name: 0, bk.close_kernel_for(cs).name: 0}
+    if path.rlc == "straus":
+        nd = -(-RHO_BITS // gd.WINDOW)
+        trees, adds, steps = kr * nd * tree_passes(n) + master, kr * 14 + kc + 1, kr * nd
+    else:
+        trees, adds, steps = master, kc + 1, kr * -(-RHO_BITS // gd.pippenger_window(n, cs.name))
+        buckets.update({bk.sum_kernel_for(cs).name: kr, bk.close_kernel_for(cs).name: kr})
+    return {**buckets, pk.kernel_for("pt_ladder_horner", cs).name: 1, fk.horner_kernel_for(cs.scalar).name: 2 * ks,
+            fk.dot_kernel_for(cs.scalar).name: 3, pk.kernel_for("pt_ladder_mul_add", cs).name: 0,
+            fk._FIELDS[cs.scalar][0].name: 0, pk.kernel_for("pt_fixed_base", cs).name: 2 * kc + 2,
+            pk.kernel_for("pt_madd", cs).name: 0, pk.kernel_for("pt_tree_sum", cs).name: trees,
+            pk.kernel_for("pt_add", cs).name: adds, pk.kernel_for("pt_window_step", cs).name: steps, **canon}
+
+
+# X1: BASELINE.md config 4 (the north-star ceremony of BASELINE.json) on
+# one card; X2: config 5, the threshold-BLS committee, at its own size.
+X1 = Path("secp256k1", 4096, 1365, b"chip-smoke-x1", SECP.kernels, rlc="pippenger").pippenger()
+X2 = Path("bls12_381_g1", 16384, 5461, b"chip-smoke-x2", BLS.kernels, rlc="pippenger").pippenger()
+X_TAMPER = {"secp256k1": (5, 777), "bls12_381_g1": (5, 9001)}  # (dealer, recipient) of the tampered share
+X1_COMMITMENTS = ((0, 0), (4095, 1365))  # bare commitments A[j, l] of X1's one-pass run held to g·a on the host
+X2_DEALERS, X2_RECIPIENTS = (0, 1, 8191, 16383), (1, 2, 8192, 16384)  # shares held to the host Horner
+X2_ROUTE_DEALERS, X2_ROUTE_POINTS = 64, 1024  # the block on which X2's two eval_many routes are timed
+X2_COMMITMENTS = ((0, 0), (0, 5461), (1, 1), (4096, 17), (8191, 2730), (12000, 4000), (16383, 0), (16383, 5461))
+
+
+def card_coeffs(fs, n: int, t: int, gen: torch.Generator) -> torch.Tensor:
+    """(n, t+1, L) int32 limbs made on the card from a seeded generator,
+    each element below the order (its top limb below the order's)."""
+    limbs = torch.randint(0, 1 << 16, (n, t + 1, fs.limbs), generator=gen, device=DEV, dtype=torch.int32)
+    limbs[..., -1] %= fs.modulus >> (16 * (fs.limbs - 1))
+    return limbs
+
+
+def scale_run(path: Path, c: cer.BatchedCeremony, label: str, **kw) -> tuple[dict, dict, float]:
+    """c.run(rlc="pippenger", **kw) with every launch count set to 0 just
+    before and read just after; each kernel of the path must launch, and
+    exactly as its chunks say (:func:`flow_launches`).  Returns the
+    outputs, the launches and the peak device GiB."""
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with PlainMuls() as plain:
+        out = c.run(rlc="pippenger", **kw)
+        sync()
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tag = f"{path.curve} n={path.n} t={path.t} {label}"
+    check(plain.count == 0, f"{tag}: {plain.count} plain field multiplies reached a CUDA tensor")
+    for k in path.kernels:
+        check(launches[k.name] > 0, f"kernel {k.name} was not launched on the {tag} run")
+    want = flow_launches(path, out["chunks"])
+    check(all(launches[k] == v for k, v in want.items()),
+          f"{tag}: launches {({k: launches[k] for k in want})}, want {want}")
+    check(bool(out["ok"].all()) and out["complaints"] == [], f"{tag}: a batch check failed")
+    print(f"scale {tag}: chunks {json.dumps(out['chunks'])}, phases "
+          + json.dumps({k: round(v, 6) for k, v in out["phase_seconds"].items()})
+          + f", peak device memory {peak:.2f} GiB; launches " + json.dumps(want), flush=True)
+    return out, launches, peak
+
+
+def tampered_verify(path: Path, c: cer.BatchedCeremony, out: dict) -> float:
+    """One share s[j0, i0] + 1, in place: verify_batch with the run's rho
+    fails at recipient i0 alone; the share is put back.  Returns its host
+    seconds."""
+    j0, i0 = X_TAMPER[path.curve]
+    fs, s = path.cs.scalar, out["shares"]
+    orig = s[j0, i0].clone()
+    bumped = (int(fh.decode(fs, fh.from_tensor(orig))) + 1) % fs.modulus
+    s[j0, i0] = fh.to_tensor(fh.encode(fs, bumped), DEV)
+    t0 = time.perf_counter()
+    ok = cer.verify_batch(c.cfg, out["randomized"], s, out["hidings"], out["rho"], RHO_BITS, c.g_table, c.h_table,
+                          "pippenger").cpu()
+    seconds = time.perf_counter() - t0
+    s[j0, i0] = orig
+    check(not bool(ok[i0]) and int(ok.sum()) == path.n - 1,
+          f"{path.curve} n={path.n}: a tampered share s[{j0}, {i0}] failed {(~ok).nonzero().flatten().tolist()}")
+    print(f"scale {path.curve} n={path.n}: s[{j0}, {i0}] + 1 fails recipient {i0 + 1}'s batch check alone "
+          f"({seconds:.3f} s, host clock)", flush=True)
+    return seconds
+
+
+def x1_phase(seed: int, card: str) -> dict:
+    """X1: secp256k1 n = 4096, t = 1365 on card-made coefficients, in one
+    pass (chunk=0) and in the default chunked flow: rho, ok (all true),
+    final shares, master and the transcript digest identical; the master
+    and two bare commitments A[j, l] against the host; then the tampered
+    share."""
+    t_phase = time.perf_counter()
+    path = X1
+    cs, n, t = path.cs, path.n, path.t
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4096)
+    coeffs = [card_coeffs(cs.scalar, n, t, gen) for _ in range(2)]
+    c = cer.BatchedCeremony.from_arrays(path.curve, n, t, path.shared, *coeffs, device=DEV)
+    one, launches, _ = scale_run(path, c, "one pass", chunk=0)
+    chunked, _, _ = scale_run(path, c, "default chunks")
+    check(one["chunks"]["deal"] == 0 and 0 < chunked["chunks"]["deal"] < n, f"X1 chunks {chunked['chunks']}")
+    check(chunked["transcript"] == one["transcript"], "X1: the chunked digest differs from the one-pass digest")
+    for k in ("rho", "ok", "final_shares", "master", "randomized", "shares", "hidings"):
+        check(torch.equal(chunked[k], one[k]), f"X1: {k} differs between the one-pass and the chunked flow")
+    check("bare" not in chunked and torch.equal(chunked["bare0"], one["bare"][:, 0]), "X1: bare0")
+    group, q = gh.ALL_GROUPS[path.curve], cs.scalar.modulus
+    gen_pt = gp.base_key_to_point(cs, cs.gen_affine)
+    a0 = fh.decode(cs.scalar, fh.from_tensor(c.coeffs_a[:, 0]))
+    check(group.eq(host_point(cs, one["master"]), group.scalar_mul(sum(int(v) for v in a0) % q, gen_pt)),
+          "X1: master key != g·(Σ_j a_j0)")
+    for (j, l), a_jl in zip(X1_COMMITMENTS, fh.decode(cs.scalar, fh.from_tensor(
+            c.coeffs_a[[j for j, _ in X1_COMMITMENTS], [l for _, l in X1_COMMITMENTS]]))):
+        check(group.eq(host_point(cs, one["bare"][j, l]), group.scalar_mul(int(a_jl), gen_pt)),
+              f"X1: bare commitment A[{j}, {l}] != g·a")
+    del chunked
+    tampered_verify(path, c, one)
+    print(f"X1 {path.curve} n={n} t={t}: the one-pass and the chunked flow identical (digest, rho, ok, final "
+          f"shares, master); the master and A{list(X1_COMMITMENTS)} match the host; "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return launches
+
+
+def x2_phase(seed: int, card: str) -> dict:
+    """X2: BLS12-381 G1 n = 16384, t = 5461 (BASELINE.md config 5) in the
+    default chunked flow, Pippenger RLC, device digest: ok for all, the
+    master key, 4 x 4 shares and hidings, bare0 and 8 commitments E[j, l]
+    against host big ints; the tampered share; peak memory."""
+    t_phase = time.perf_counter()
+    path = X2
+    cs, n, t = path.cs, path.n, path.t
+    fs, q = cs.scalar, cs.scalar.modulus
+    group = gh.ALL_GROUPS[path.curve]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(seed + 16384)
+    coeffs = [card_coeffs(fs, n, t, gen) for _ in range(2)]
+    # what the host checks read, copied before the run
+    a_rows = [fh.decode(fs, fh.from_tensor(x[list(X2_DEALERS)])) for x in coeffs]
+    a_col0 = fh.decode(fs, fh.from_tensor(coeffs[0][:, 0]))
+    sampled = [(int(fh.decode(fs, fh.from_tensor(coeffs[0][j, l]))), int(fh.decode(fs, fh.from_tensor(coeffs[1][j, l]))))
+               for j, l in X2_COMMITMENTS]
+    c = cer.BatchedCeremony.from_arrays(path.curve, n, t, path.shared, *coeffs, device=DEV)
+    del coeffs
+    out, launches, peak = scale_run(path, c, "default chunks", digest="device")
+    check(out["chunks"]["deal"] and out["chunks"]["deal"] < n and "bare" not in out, f"X2 chunks {out['chunks']}")
+    t0 = time.perf_counter()
+    gen_pt = gp.base_key_to_point(cs, cs.gen_affine)
+    check(group.eq(host_point(cs, out["master"]), group.scalar_mul(sum(int(v) for v in a_col0) % q, gen_pt)),
+          "X2: master key != g·(Σ_j a_j0)")
+    for k, key in enumerate(("shares", "hidings")):
+        got = fh.decode(fs, fh.from_tensor(out[key][list(X2_DEALERS)][:, [i - 1 for i in X2_RECIPIENTS]]))
+        for a, j in enumerate(X2_DEALERS):
+            for b, i in enumerate(X2_RECIPIENTS):
+                check(int(got[a, b]) == eval_host(q, a_rows[k][a], i), f"X2: {key}[{j}, {i - 1}] != f_{j}({i})")
+    h = c.ck.h
+    for (j, l), (av, bv) in zip(X2_COMMITMENTS, sampled):
+        want = group.add(group.scalar_mul(av, gen_pt), group.scalar_mul(bv, h))
+        check(group.eq(host_point(cs, out["randomized"][j, l]), want), f"X2: E[{j}, {l}] != g·a + h·b")
+        if l == 0:
+            check(group.eq(host_point(cs, out["bare0"][j]), group.scalar_mul(av, gen_pt)), f"X2: bare0[{j}] != g·a")
+    host_s = time.perf_counter() - t0
+    tampered_verify(path, c, out)
+    # the deal's two routes at X2's T on its first X2_ROUTE_DEALERS dealers
+    # and X2_ROUTE_POINTS recipients (one of eval_many's Vandermonde chunks)
+    d, p_ = X2_ROUTE_DEALERS, X2_ROUTE_POINTS
+    xs, rows = cer._index_limbs(fs, p_, DEV), c.coeffs_a[:d]
+    horner_ms, horner = cuda_ms(lambda: pd.eval_many(fs, rows, xs), reps=1)
+    mm_ms, mm = cuda_ms(lambda: pd.eval_many(fs, rows, xs, matmul=True), reps=1)
+    check(torch.equal(mm, horner) and torch.equal(horner, out["shares"][:d, :p_]),
+          "X2: eval_many by matmul_mod != mod_madd_horner's shares")
+    print(f"X2 deal routes on {d} dealers x {p_} points, T = {t + 1}: mod_madd_horner {horner_ms:.3f} ms, "
+          f"matmul_mod {mm_ms:.3f} ms (CUDA events, one call after a warm-up call), bit-equal", flush=True)
+    del horner, mm
+    free, total = torch.cuda.mem_get_info()
+    print(f"X2 {path.curve} n={n} t={t}: ok for all {n}; master key, {len(X2_DEALERS)} x {len(X2_RECIPIENTS)} shares "
+          f"and hidings, {len(X2_COMMITMENTS)} commitments E[j, l] and bare0 match the host ({host_s:.1f} s); peak "
+          f"device memory {peak:.2f} GiB of mem_get_info's total {total / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    del out, c
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2617,7 +2981,9 @@ E2_TAMPERED = (40, 86)  # (dealer, recipient): a share sealed off the dealer's c
 E2_BAD_CONSTANT = 30  # the reshare dealer whose constant term is wrong
 E3_N, E3_T = 8, 3  # W3's committee: the EpochManager end to end on each curve
 E3_LEAVER, E3_RESUMED = 2, 3  # the party that leaves at the reshare; the party rebuilt from its WAL
-ENCODE_POINTS = 1 << 16  # W1's 65,536 sealed pairs: the shape the two encode_batch legs are timed at
+ENCODE_POINTS = 1 << 16  # W1's 65,536 sealed pairs: the shape the card's encode_batch leg is timed at
+ENCODE_HOST_POINTS = 1 << 13  # the first points, where both legs are timed and held byte-equal (the host leg
+                                # takes one Python inverse square root a point)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3073,13 +3439,14 @@ def ristretto_decode_launches() -> int:
 
 
 def encode_legs(card: str, seed: int) -> dict:
-    """encode_batch's two legs on ristretto255 at W1's 65,536 points (g times
-    seeded scalars by one pt_fixed_base, projective; lane 0 the identity,
-    lane 1 it scaled): the card leg (ristretto_encode_batch, then one
-    transfer) and the host leg (the points copied to the host, then one
-    encoding a point), each timed on the host clock around the whole call,
-    byte-equal, the identities all zero.  The card leg is the default on a
-    card tensor, so it must be the faster.  Then ristretto_decode_batch on
+    """encode_batch's two legs on ristretto255 (g times seeded scalars by
+    one pt_fixed_base, projective; lane 0 the identity, lane 1 it scaled):
+    the card leg (ristretto_encode_batch, then one transfer) timed on the
+    host clock at W1's 65,536 points, then both legs (the host leg: the
+    points copied to the host, then one encoding a point) timed on the
+    host clock around the whole call on the first 8,192, byte-equal there,
+    the identities all zero.  The card leg is the default on a card
+    tensor, so it must be the faster at that size.  Then ristretto_decode_batch on
     the card over those encodings and six candidates the host decoder
     judges (s = p, s = 2**256 - 1, odd s = 1, and 2, 4, 6): every valid
     flag equals the host's, the decoded points re-encode on the card to the
@@ -3103,7 +3470,10 @@ def encode_legs(card: str, seed: int) -> dict:
         card_s = time.perf_counter() - t0
         enc_ms = device_ms(lambda: rd.ristretto_encode_batch(pts), reps=3, spin=400_000_000)
         t0 = time.perf_counter()
-        host = gd.encode_batch(cs, pts.cpu())
+        card_cut = gd.encode_batch(cs, pts[:ENCODE_HOST_POINTS])
+        card_cut_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = gd.encode_batch(cs, pts[:ENCODE_HOST_POINTS].cpu())
         host_s = time.perf_counter() - t0
         bad = [gh.P, (1 << 256) - 1, 1, 2, 4, 6]
         raw = np.ascontiguousarray(card).view("<u2").astype(np.uint32)
@@ -3116,10 +3486,11 @@ def encode_legs(card: str, seed: int) -> dict:
         sample = sorted(rng.sample(range(ENCODE_POINTS), min(1024, ENCODE_POINTS)))
         dec_host = gd.to_host(cs, dec[torch.tensor(sample, device=DEV)])
     check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor in the {tag} phase")
-    check(card.shape == (ENCODE_POINTS, 32) and np.array_equal(card, host), f"{tag}: the two legs' bytes differ")
+    check(card.shape == (ENCODE_POINTS, 32) and np.array_equal(card_cut, host)
+          and np.array_equal(card[:ENCODE_HOST_POINTS], host), f"{tag}: the two legs' bytes differ")
     check(not card[:2].any(), f"{tag}: the identity's encodings are not all zero")
-    check(card_s < host_s, f"{tag}: the card leg ({card_s:.6f} s) is the default but not the faster "
-          f"(host {host_s:.6f} s)")
+    check(card_cut_s < host_s, f"{tag}: the card leg ({card_cut_s:.6f} s) is the default but not the faster "
+          f"(host {host_s:.6f} s, both on {ENCODE_HOST_POINTS} points)")
     want_bad = [group.decode(int(v).to_bytes(32, "little")) is not None for v in bad]
     check(valid == [True] * ENCODE_POINTS + want_bad, f"{tag}: decode validity {valid[ENCODE_POINTS:]}, "
           f"{ENCODE_POINTS - sum(valid[:ENCODE_POINTS])} valid lanes flagged")
@@ -3130,12 +3501,14 @@ def encode_legs(card: str, seed: int) -> dict:
     held_exactly(f"{tag} card leg", rec["card leg"][1], {mul: ristretto_encode_launches()})
     held_exactly(f"{tag} decode", rec["decode"][1], {mul: ristretto_decode_launches()})
     print(f"{tag} ({card_line()}): encode_batch card leg {card_s:.6f} s (ristretto_encode_batch device "
-          f"{enc_ms:.3f} ms, {ristretto_encode_launches()} mod_mul launches), host leg {host_s:.6f} s: "
-          f"{host_s / card_s:.1f}x, byte-equal, the identities all zero; the card leg is the default; "
+          f"{enc_ms:.3f} ms, {ristretto_encode_launches()} mod_mul launches); on the first {ENCODE_HOST_POINTS} "
+          f"points card leg {card_cut_s:.6f} s, host leg {host_s:.6f} s ({host_s / card_cut_s:.1f}x), byte-equal, "
+          f"the identities all zero; the card leg is the default; "
           f"ristretto_decode_batch device {dec_ms:.3f} ms ({ristretto_decode_launches()} mod_mul launches), every "
           f"validity the host's ({sum(want_bad)} of {len(bad)} candidates valid), the points re-encode to their "
           f"bytes, {len(sample)} equal the host decode", flush=True)
-    return {"card_s": card_s, "host_s": host_s, "encode_ms": enc_ms, "decode_ms": dec_ms, **rec}
+    return {"card_s": card_s, "card_cut_s": card_cut_s, "host_s": host_s, "encode_ms": enc_ms,
+            "decode_ms": dec_ms, **rec}
 
 
 def epoch_phase(seed: int, epoch0s: dict, w1_stages: dict) -> dict:
@@ -3160,7 +3533,8 @@ def epoch_phase(seed: int, epoch0s: dict, w1_stages: dict) -> dict:
         check(totals.get(k.name, 0) > 0, f"kernel {k.name} was not launched in the epoch phase")
     print(f"epoch phase ({card}): W1's seal {w1_stages['seal']:.6f} s and DEM (verify dem) "
           f"{w1_stages['verify dem']:.6f} s host, with the card's ristretto255 encodings; the encode_batch legs at "
-          f"{ENCODE_POINTS} points: card {legs['card_s']:.6f} s, host {legs['host_s']:.6f} s", flush=True)
+          f"{ENCODE_POINTS} points: card {legs['card_s']:.6f} s; on the first {ENCODE_HOST_POINTS}: card "
+          f"{legs['card_cut_s']:.6f} s, host {legs['host_s']:.6f} s", flush=True)
     print("epoch phase: launches, E1-E3 and the encodings summed " + json.dumps(totals), flush=True)
     return totals
 
@@ -3196,8 +3570,9 @@ def convoy_exact(cs, convoys: int) -> dict:
     deal's 2 pt_fixed_base and 2 mod_madd_horner, the verify's 2
     mod_madd_dot (a weight block a ceremony), 1 pt_bucket_sum (a digit
     block a ceremony), 1 pt_bucket_close, 1 pt_ladder_horner and 2
-    pt_fixed_base, the masters' 1 pt_tree_sum."""
-    per = {pk.kernel_for("pt_fixed_base", cs): 4, fk.horner_kernel_for(cs.scalar): 2, fk.dot_kernel_for(cs.scalar): 2,
+    pt_fixed_base, the final shares' 1 mod_madd_dot, the masters' 1
+    pt_tree_sum."""
+    per = {pk.kernel_for("pt_fixed_base", cs): 4, fk.horner_kernel_for(cs.scalar): 2, fk.dot_kernel_for(cs.scalar): 3,
            bk.sum_kernel_for(cs): 1, bk.close_kernel_for(cs): 1, pk.kernel_for("pt_ladder_horner", cs): 1,
            pk.kernel_for("pt_tree_sum", cs): 1}
     return {k.name: v * convoys for k, v in per.items()}
@@ -3338,7 +3713,7 @@ def fleet_stage(runtime, card: str) -> tuple:
             wide[bucket] = wide.get(bucket, 0) + 1
     small = wide.get((16, 5), 0)
     convoy_rows = {}
-    for kern, per in ((fk.dot_kernel_for(cs.scalar), 2), (bk.sum_kernel_for(cs), 1)):
+    for kern, per in ((fk.dot_kernel_for(cs.scalar), 3), (bk.sum_kernel_for(cs), 1)):
         got = kern.route_launches.get("convoy", 0)
         check(got == per * sum(wide.values()),
               f"S1: {kern.name} convoy-route launches {got}, want {per} a convoy over {wide}")
@@ -3381,7 +3756,7 @@ def stack_stage(runtime, card: str) -> None:
             launches = counts_read()
             convoy = [fk.dot_kernel_for(cs.scalar).route_launches.get("convoy", 0),
                       bk.sum_kernel_for(cs).route_launches.get("convoy", 0)]
-            check(convoy == ([2, 1] if w > 1 else [0, 0]),
+            check(convoy == ([3, 1] if w > 1 else [0, 0]),
                   f"S2: ({n}, {t}) width {w}: convoy-route launches {convoy} ({dot}, {bsum})")
             for o, s in zip(outs, singles):
                 check(o.status == "done" and o.master == s.master and o.qualified == s.qualified
@@ -3390,13 +3765,13 @@ def stack_stage(runtime, card: str) -> None:
             per_width[w] = (dt, launches)
         one = per_width[1][1]
         for w, (_, launches) in per_width.items():
-            check(launches.get(dot) == one.get(dot) == 2 and launches.get(bsum) == one.get(bsum) == 1,
+            check(launches.get(dot) == one.get(dot) == 3 and launches.get(bsum) == one.get(bsum) == 1,
                   f"S2: ({n}, {t}) width {w}: {dot} {launches.get(dot)}, {bsum} {launches.get(bsum)} a convoy")
         table[f"{n}x{t}"] = {w: {"seconds": dt, "ceremonies_per_s": w / dt, "launches": launches}
                              for w, (dt, launches) in per_width.items()}
         print(f"service S2 ({card}): bucket ({n}, {t}) warm run_convoy, host s / ceremonies per s by width: "
               + ", ".join(f"w{w} {dt:.6f} / {w / dt:.3f}" for w, (dt, _) in per_width.items())
-              + f"; every lane = its width-1 run; {dot} 2 and {bsum} 1 a convoy at every width (by the convoy "
+              + f"; every lane = its width-1 run; {dot} 3 and {bsum} 1 a convoy at every width (by the convoy "
                 "route above width 1)", flush=True)
     print("service S2: launches a convoy " + json.dumps({b: {w: v["launches"] for w, v in row.items()}
                                                           for b, row in table.items()}), flush=True)
@@ -3687,7 +4062,9 @@ def main() -> None:
         keep(path_launches)
         epoch0s[path.curve] = epoch0(path, c, out)
         digest_legs(path, c, out)
-        stamp(f"{path.curve}: Straus run and digest legs")
+        matmul_routes(path, c, out)
+        chunked_run(path, c, out)
+        stamp(f"{path.curve}: Straus run, digest legs, matmul routes and the forced-chunk run")
         keep(seal_phase(path, c, out, args.seed))
         stamp(f"{path.curve}: seal")
         keep(sign_phase(path, c, out, args.seed))
@@ -3713,6 +4090,10 @@ def main() -> None:
         rlc_schedules(path, c, out)
         stamp(f"{path.curve}: Pippenger and gemm runs, RLC schedules")
         del c, out
+    keep(x1_phase(args.seed, card))
+    stamp("X1: secp256k1 n=4096")
+    keep(x2_phase(args.seed, card))
+    stamp("X2: BLS12-381 G1 n=16384")
     for i, path in enumerate(PATHS):
         for rlc in ("straus", "pippenger"):
             tampered(path.curve, args.seed + 1 + i, rlc)

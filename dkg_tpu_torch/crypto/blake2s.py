@@ -50,21 +50,31 @@ SIGMA = (
 MASK32 = 0xFFFFFFFF
 
 
-def _rotr(x: np.ndarray, n: int) -> np.ndarray:
-    return (x >> np.uint32(n)) | (x << np.uint32(32 - n))
+def _rotr(x: np.ndarray, n: int, tmp: np.ndarray) -> None:
+    """x <- x rotated right by n, in place (``tmp`` a scratch array)."""
+    np.left_shift(x, np.uint32(32 - n), out=tmp)
+    np.right_shift(x, np.uint32(n), out=x)
+    np.bitwise_or(x, tmp, out=x)
 
 
-def _g(v: list, a: int, b: int, c: int, d: int, x: np.ndarray, y: np.ndarray) -> None:
+def _g(v: list, a: int, b: int, c: int, d: int, x: np.ndarray, y: np.ndarray, tmp: np.ndarray) -> None:
     """RFC 7693 §3.1 mixing function G (BLAKE2s rotations 16/12/8/7) on
-    the 16 state words, each an (N,) u32 array."""
-    v[a] = v[a] + v[b] + x
-    v[d] = _rotr(v[d] ^ v[a], 16)
-    v[c] = v[c] + v[d]
-    v[b] = _rotr(v[b] ^ v[c], 12)
-    v[a] = v[a] + v[b] + y
-    v[d] = _rotr(v[d] ^ v[a], 8)
-    v[c] = v[c] + v[d]
-    v[b] = _rotr(v[b] ^ v[c], 7)
+    the 16 state words, each an (N,) u32 array, in place."""
+    va, vb, vc, vd = v[a], v[b], v[c], v[d]
+    np.add(va, vb, out=va)
+    np.add(va, x, out=va)
+    np.bitwise_xor(vd, va, out=vd)
+    _rotr(vd, 16, tmp)
+    np.add(vc, vd, out=vc)
+    np.bitwise_xor(vb, vc, out=vb)
+    _rotr(vb, 12, tmp)
+    np.add(va, vb, out=va)
+    np.add(va, y, out=va)
+    np.bitwise_xor(vd, va, out=vd)
+    _rotr(vd, 8, tmp)
+    np.add(vc, vd, out=vc)
+    np.bitwise_xor(vb, vc, out=vb)
+    _rotr(vb, 7, tmp)
 
 
 def _compress(h: np.ndarray, m: np.ndarray, t) -> np.ndarray:
@@ -74,18 +84,19 @@ def _compress(h: np.ndarray, m: np.ndarray, t) -> np.ndarray:
     n = m.shape[1]
     v = [np.broadcast_to(h[i], (n,)).copy() for i in range(8)]
     v += [np.full(n, IV[i], np.uint32) for i in range(8)]
+    tmp = np.empty(n, np.uint32)
     with np.errstate(over="ignore"):
         v[12] ^= np.asarray(t, np.uint32)
         v[14] ^= np.uint32(MASK32)
         for s in SIGMA:
-            _g(v, 0, 4, 8, 12, m[s[0]], m[s[1]])
-            _g(v, 1, 5, 9, 13, m[s[2]], m[s[3]])
-            _g(v, 2, 6, 10, 14, m[s[4]], m[s[5]])
-            _g(v, 3, 7, 11, 15, m[s[6]], m[s[7]])
-            _g(v, 0, 5, 10, 15, m[s[8]], m[s[9]])
-            _g(v, 1, 6, 11, 12, m[s[10]], m[s[11]])
-            _g(v, 2, 7, 8, 13, m[s[12]], m[s[13]])
-            _g(v, 3, 4, 9, 14, m[s[14]], m[s[15]])
+            _g(v, 0, 4, 8, 12, m[s[0]], m[s[1]], tmp)
+            _g(v, 1, 5, 9, 13, m[s[2]], m[s[3]], tmp)
+            _g(v, 2, 6, 10, 14, m[s[4]], m[s[5]], tmp)
+            _g(v, 3, 7, 11, 15, m[s[6]], m[s[7]], tmp)
+            _g(v, 0, 5, 10, 15, m[s[8]], m[s[9]], tmp)
+            _g(v, 1, 6, 11, 12, m[s[10]], m[s[11]], tmp)
+            _g(v, 2, 7, 8, 13, m[s[12]], m[s[13]], tmp)
+            _g(v, 3, 4, 9, 14, m[s[14]], m[s[15]], tmp)
     return np.stack([h[i] ^ v[i] ^ v[i + 8] for i in range(8)])
 
 

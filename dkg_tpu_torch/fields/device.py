@@ -9,7 +9,9 @@ package's limb for limb, whichever reduction either side runs.
 Public functions take and return ``int32`` limbs.  Inside, limbs widen
 to ``int64``: schoolbook columns reach ``L * 2**32`` and a borrow is
 ``s < 0`` rather than the JAX package's ``uint32`` wrap ``s >> 31``.
-These functions are also the plain versions that the CUDA kernels in
+:func:`reduce_wide` picks the reducer of a 2L-limb value as the JAX
+package's does (pseudo-Mersenne fold, linear fold, Barrett; the same
+residue from each).  These functions are also the plain versions that the CUDA kernels in
 ``dkg_tpu_torch/ops`` are held against: :func:`mul` of ``mod_mul``,
 :func:`_mul_gemm` of ``mxu_mod_mul``.
 
@@ -179,6 +181,68 @@ def barrett_reduce(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     limbs, top = _carry(r - kp.reshape((3,) + (1,) * (r.dim() - 1) + (L + 1,)), 23)
     ge1, ge2 = (top[1] >= top[0])[..., None], (top[2] >= top[0])[..., None]
     return torch.where(ge2, limbs[2], torch.where(ge1, limbs[1], limbs[0]))[..., :L]
+
+
+def fold_reduce(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Pseudo-Mersenne reduction of a normalized 2L-limb int64 value to L
+    limbs (``fs.fold_limbs``: c = b**L mod p in lc <= 4 limbs): twice
+    hi·b**L = hi·c (mod p), y1 = lo + hi·c in L+lc+1 limbs, y2 = lo' +
+    hi'·c in L+1 limbs, y2 < 3p, then two conditional subtractions."""
+    L = fs.limbs
+    c = _const(fs, "fold_limbs", x.device)
+
+    def fold(lo, hi, out_len):
+        prod = _mul_columns(hi, c)
+        w = max(prod.shape[-1], lo.shape[-1])
+        pad = torch.nn.functional.pad
+        return normalize(pad(prod, (0, w - prod.shape[-1])) + pad(lo, (0, w - lo.shape[-1])), out_len, bits=24)
+
+    y = fold(x[..., :L], x[..., L:], L + c.shape[-1] + 1)
+    y = fold(y[..., :L], y[..., L:], L + 1)
+    p_ext = _const(fs, "p_limbs_ext", x.device)
+    return cond_sub(cond_sub(y, p_ext), p_ext)[..., :L]
+
+
+def linear_reduce(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Linear-fold reduction of a normalized 2L-limb int64 value to L limbs
+    (``fs.linred``): the high half's 2L bytes against the byte matrix
+    ``fold8`` (an int64 sum of byte products, exact), ``n_split`` scan-free
+    column folds through c = b**L mod p, one normalize into L+1 limbs, the
+    quotient from ``qtable`` by the top bits, one conditional subtraction."""
+    lr = fs.linred
+    if lr is None:
+        raise ValueError(f"{fs.name} does not admit linear_reduce")
+    L = fs.limbs
+    if x.shape[-1] != 2 * L:
+        raise ValueError("linear_reduce expects a full 2L-limb value")
+    lo, hi = x[..., :L], x[..., L:]
+    d8 = torch.stack([hi & 0xFF, hi >> 8], dim=-1).reshape(hi.shape[:-1] + (2 * L,))
+    fold8 = _const(fs, "linred.fold8", x.device)
+    cols8 = torch.zeros_like(d8)
+    for k in range(2 * L):
+        cols8 += d8[..., k : k + 1] * fold8[k]
+    cols = lo + cols8[..., 0::2] + (cols8[..., 1::2] << 8)
+    c = _const(fs, "linred.c_limbs", x.device)
+    for _ in range(lr.n_split):
+        hi16 = cols >> 16
+        cols = (cols & MASK16) + torch.nn.functional.pad(hi16[..., :-1], (1, 0)) + hi16[..., L - 1 :] * c
+    v = normalize(cols, L + 1)
+    u = (v[..., L - 1] >> lr.shift_e) | (v[..., L] << (16 - lr.shift_e))
+    q = _const(fs, "linred.qtable", v.device)[u]
+    w = normalize(v + q[..., None] * _const(fs, "linred.np_limbs", v.device), L + 1)
+    return cond_sub(w, _const(fs, "p_limbs_ext", w.device))[..., :L]
+
+
+def reduce_wide(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Reduce a normalized 2L-limb int64 value to L limbs mod p by the
+    cheapest reducer the field admits: the pseudo-Mersenne fold, then the
+    linear fold, then Barrett.  All three give the canonical residue, so
+    the choice never changes a limb."""
+    if fs.fold_limbs is not None:
+        return fold_reduce(fs, x)
+    if fs.linred is not None:
+        return linear_reduce(fs, x)
+    return barrett_reduce(fs, x)
 
 
 def zeros(fs: FieldSpec, batch: tuple = (), *, device) -> torch.Tensor:

@@ -11,7 +11,9 @@ What the ported ceremonies need is here: the moduli of secp256k1,
 ristretto255 and BLS12-381 G1 (its 381-bit base field takes L = 24
 limbs), the Barrett constants the plain multiply uses, the constants of
 the fused multiply-reduce (:class:`MulReduceSpec`, with their admission
-proof), and the limb conversions.
+proof), those of the linear-fold and pseudo-Mersenne reductions
+(:class:`LinearReduceSpec`, :attr:`FieldSpec.fold_limbs`), and the limb
+conversions.
 """
 
 from __future__ import annotations
@@ -99,6 +101,35 @@ class FieldSpec:
         proved with exact Python ints in :func:`_build_mulred`."""
         return _build_mulred(self)
 
+    @functools.cached_property
+    def linred(self) -> "LinearReduceSpec | None":
+        """Constants of the linear-fold reduction (``fields.device.
+        linear_reduce``), or ``None`` when the field fails admission.
+
+        Reduction mod p is linear over limb values, so the high half of a
+        normalized 2L-limb value folds in one step: its 2L bytes d_k
+        against D_k = 2**(8k + 16L) mod p, a (2L, 2L) byte matrix whose
+        column sums stay below 2**22; then the scan-free column folds
+        through c = b**L mod p and the quotient table of
+        :class:`MulReduceSpec`.  Every bound is proved with exact Python
+        ints in :func:`_build_linred`."""
+        return _build_linred(self)
+
+    @functools.cached_property
+    def fold_limbs(self) -> np.ndarray | None:
+        """The pseudo-Mersenne fold constant c = b**L mod p as lc limbs, or
+        ``None`` when the field is not fold-friendly (lc > 4, or two folds
+        do not land below 3p).  The base fields of secp256k1 (c = 2**32 +
+        977) and ed25519 (c = 38) admit it."""
+        c = (1 << (LIMB_BITS * self.limbs)) % self.modulus
+        lc = max(1, (c.bit_length() + LIMB_BITS - 1) // LIMB_BITS)
+        if lc > 4 or 2 * lc + 1 > self.limbs:
+            return None
+        bound = (1 << (LIMB_BITS * self.limbs)) + (1 << (LIMB_BITS * (2 * lc + 1)))
+        if bound > 3 * self.modulus:
+            return None
+        return int_to_limbs(c, lc)
+
     def rand_int(self, rng) -> int:
         """Uniform field element by rejection sampling from ``rng.getrandbits``
         (the same draw sequence as the JAX package, so one
@@ -107,6 +138,20 @@ class FieldSpec:
             x = rng.getrandbits(self.bits)
             if x < self.modulus:
                 return x
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearReduceSpec:
+    """Constants of the linear-fold reduction, every bound proved with exact
+    integer arithmetic in :func:`_build_linred`.  ``fold8`` holds bytes,
+    as uint8 (the JAX package keeps them as float32 for its matrix unit)."""
+
+    fold8: np.ndarray  # (2L, 2L) uint8: fold8[k, m] = byte m of D_k
+    c_limbs: np.ndarray  # (L,) uint32: c = b**L mod p
+    n_split: int  # scan-free column-fold iterations
+    shift_e: int  # quotient index = value >> (16*(L-1) + shift_e)
+    qtable: np.ndarray  # (u_max+1,) uint32: floor(u * 2**s / p)
+    np_limbs: np.ndarray  # (L+1,) uint32: b**(L+1) - p  (adds as "-p")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +226,28 @@ def _fold_tail(fs: FieldSpec, colb: list) -> tuple | None:
         return None
     np_limbs = int_to_limbs((1 << (LIMB_BITS * (L + 1))) - p, L + 1)
     return n_split, shift_e, qtable, np_limbs, c
+
+
+def _build_linred(fs: FieldSpec) -> LinearReduceSpec | None:
+    """Derive and prove the linear-fold constants: the algorithm of
+    ``fields.device.linear_reduce`` replayed over exact per-column integer
+    upper bounds (its input a normalized 2L-limb value)."""
+    L, p, b = fs.limbs, fs.modulus, 1 << LIMB_BITS
+    d_consts = [(1 << (8 * k + LIMB_BITS * L)) % p for k in range(2 * L)]
+    fold8 = np.zeros((2 * L, 2 * L), np.uint8)
+    for k, dk in enumerate(d_consts):
+        for m in range(2 * L):
+            fold8[k, m] = (dk >> (8 * m)) & 0xFF
+    f8i = fold8.astype(np.int64)
+    if int((255 * f8i.sum(axis=0)).max()) >= 1 << 24:  # fold column sums
+        return None
+    s16 = [int(255 * f8i[:, 2 * j].sum() + 256 * 255 * f8i[:, 2 * j + 1].sum()) for j in range(L)]
+    tail = _fold_tail(fs, [(b - 1) + s for s in s16])  # + the input's low limb
+    if tail is None:
+        return None
+    n_split, shift_e, qtable, np_limbs, c = tail
+    return LinearReduceSpec(fold8=fold8, c_limbs=int_to_limbs(c, L), n_split=n_split, shift_e=shift_e,
+                            qtable=qtable, np_limbs=np_limbs)
 
 
 def _build_mulred(fs: FieldSpec) -> MulReduceSpec | None:

@@ -7,9 +7,12 @@ one thread, and other group sizes.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 -m dkg_tpu_torch.ops.bucket_bench
+    python3 -m dkg_tpu_torch.ops.bucket_bench [--scale]
 
-It builds the sources with bucket and point kernels, and
+``--scale`` times only ``pt_bucket_close`` at BLS12-381 G1's n = 16384
+RLC (5462 columns x 16 windows = 87,392 lanes, random buckets on the
+card), the default build against the one-thread build, both held to the
+pt_add route.  Without it, it builds the sources with bucket and point kernels, and
 ``csrc/pippenger_kernels.cu`` once per entry of ``VARIANTS`` (the close's
 other group sizes, 1 for one thread a lane, through
 ``-DDKG_BUCKET_TPI_SECP=...`` / ``_BLS``; the first entry is the source's
@@ -38,6 +41,7 @@ import contextlib
 import hashlib
 import json
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -114,7 +118,45 @@ def edges(rng, cs, device) -> list:
                 np.int32)).to(device), 8)]
 
 
+# the close's (column, window) lanes at BASELINE.md config 5 (BLS12-381 G1,
+# n = 16384, t = 5461: 5462 columns, 16 windows of c = 8), past 2**15
+SCALE = ("bls12_381_g1", 5462, 16384)
+
+
+def close_at_scale() -> dict:
+    """``pt_bucket_close`` at SCALE's lanes, random buckets made on the card
+    from a fixed seed: the default build (a group of 4 threads a lane) and
+    the one-thread build, each held to the 2 (2**c - 1) pt_add launches and
+    timed REPS calls behind a spin kernel (device ms a call)."""
+    curve, cols, m = SCALE
+    cs = gd.ALL_CURVES[curve]
+    window = gd.pippenger_window(m, curve)
+    nw, nb = -(-RHO_BITS // window), (1 << window) - 1
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    buckets = torch.randint(0, 1 << 16, (cols, nw, nb, cs.ncoords, cs.field.limbs), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    buckets[..., -1] %= cs.field.modulus >> (16 * (cs.field.limbs - 1))  # below p
+    want = close_route(cs, buckets)
+    row = {"lanes": cols * nw, "close_route_ms": device_ms(lambda: close_route(cs, buckets), reps=1,
+                                                           spin=800_000_000)}
+    base = (bk.sum_kernel_for(cs), bk.close_kernel_for(cs))
+    for label, defines, curves in VARIANTS[:2]:
+        kernels = tuple(k.variant(*defines) if defines else k for k in base)
+        with forced(cs, kernels):
+            if not torch.equal(bk.pt_bucket_close(cs, buckets), want):
+                raise RuntimeError(f"pt_bucket_close {curve} {label}: differs from the pt_add route at scale")
+            row[f"close {label}"] = device_ms(lambda: bk.pt_bucket_close(cs, buckets))
+    return row
+
+
 def main() -> None:
+    if "--scale" in sys.argv[1:]:
+        build.build(SOURCES + (NEW_SOURCE,), variants=[(NEW_SOURCE, tuple(VARIANTS[1][1]))])
+        res = {f"{SCALE[0]} close at scale": close_at_scale()}
+        res["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                     capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        print(json.dumps(res), flush=True)
+        return
     variants = [(NEW_SOURCE, tuple(d)) for _, d, _ in VARIANTS if d]
     build.build(SOURCES + (NEW_SOURCE,), variants=variants)
     res = {"ptxas": {}}

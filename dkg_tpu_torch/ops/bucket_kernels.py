@@ -206,10 +206,11 @@ def pt_bucket_sum_plain(cs, points: torch.Tensor, order: torch.Tensor, starts: t
 def _strided_points(t: torch.Tensor, lead: int) -> torch.Tensor:
     """``t`` (..., ``lead`` axes, C, L) with its batch axes flattened into
     one, a view where they allow it; copied where a point's limbs are not
-    contiguous or not on 16 bytes (the kernels load four limbs at a time)."""
+    contiguous or not on 16 bytes (the kernels load four limbs at a time:
+    every point's start, so the batch strides, on 16 bytes too)."""
     r = t.reshape((-1,) + t.shape[t.dim() - lead - 2:])
     C, L = r.shape[-2:]
-    if r.stride(-1) != 1 or r.stride(-2) != L or r.data_ptr() % 16 or any(s % 4 for s in r.stride()):
+    if r.stride(-1) != 1 or r.stride(-2) != L or r.data_ptr() % 16 or any(s % 4 for s in r.stride()[:-2]):
         r = build.aligned(r.contiguous())
     return r
 
@@ -252,12 +253,17 @@ def pt_bucket_sum(cs, points: torch.Tensor, digits: torch.Tensor, window: int) -
 def pt_bucket_close_plain(cs, buckets: torch.Tensor) -> torch.Tensor:
     """The JAX package's bucket close: from the identity, for e = nb .. 1,
     ``run = run + B_e; tot = tot + run`` (the plain add), every (row,
-    window) at once.  buckets (..., nw, nb, C, L) -> (..., nw, C, L)."""
-    run = tot = pk.identity_plain(cs, buckets.shape[:-3], buckets.device)
-    for e in reversed(range(buckets.shape[-3])):
-        run = pk.pt_add_plain(cs, run, buckets[..., e, :, :])
-        tot = pk.pt_add_plain(cs, tot, run)
-    return tot
+    window) at once.  buckets (..., nw, nb, C, L) -> (..., nw, C, L).
+
+    Bucket e's run and bucket e + 1's tot depend only on the step before,
+    so the two adds of a step are one stacked plain add (nb + 1 calls, not
+    2 nb), each with its operands in the same order: the same limbs."""
+    nb = buckets.shape[-3]
+    ident = pk.identity_plain(cs, buckets.shape[:-3], buckets.device)
+    run, tot = pk.pt_add_plain(cs, ident, buckets[..., nb - 1, :, :]), ident
+    for e in reversed(range(nb - 1)):
+        run, tot = pk.pt_add_plain(cs, torch.stack([run, tot]), torch.stack([buckets[..., e, :, :], run]))
+    return pk.pt_add_plain(cs, tot, run)
 
 
 def pt_bucket_close(cs, buckets: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Batched polynomial evaluation and Lagrange interpolation over limb
 tensors.
 
-Counterpart of ``dkg_tpu/poly/device.py``.  ``eval_many`` is its Horner
+Counterpart of ``dkg_tpu/poly/device.py``.  ``eval_many`` runs its Horner
 leg, ``acc <- acc·x + c`` over the coefficients: one ``mod_madd_horner``
-launch, which composes ``mod_madd``'s step T times.  (On a TPU the JAX
-package takes an int8 Vandermonde matmul instead; both legs give the
-canonical residue, so the values are the same.)  ``powers`` and the
+launch, which composes ``mod_madd``'s step T times; or, under
+``matmul=True``, its Vandermonde leg through ``fields.matmul.matmul_mod``
+(the JAX package's default on a TPU).  Both give the canonical residue,
+so the values are the same.  ``powers`` and the
 Lagrange pair chain ``mod_mul``: every product is one launch (its plain
 version on CPU tensors), and the denominators invert in one
 ``fields.device.batch_inv`` whose steps are ``mod_mul`` launches too, as
@@ -17,17 +18,38 @@ from __future__ import annotations
 import torch
 
 from ..fields import device as fd
+from ..fields import matmul as fmm
 from ..fields.spec import FieldSpec
 from ..ops import field_kernels as fk
+from ..utils.scanchunk import map_chunked
 from .host import DuplicateEvaluationPoints
 
 
-def eval_many(fs: FieldSpec, coeffs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+# Bytes of eval_many's Vandermonde route a point may take (its powers and
+# their 2L digit columns); the point axis is chunked to stay under it.
+# Module-level so tests can shrink it to force the chunked route.
+EVAL_VAND_BUDGET_BYTES = 1 << 30
+
+
+def eval_many(fs: FieldSpec, coeffs: torch.Tensor, xs: torch.Tensor, *, matmul: bool = False) -> torch.Tensor:
     """Evaluate polynomials at many points.
 
     coeffs (..., T, L) low-order first, xs (..., N, L) -> (..., N, L);
-    batch axes broadcast."""
-    return fk.mod_madd_horner(fs, coeffs, xs)
+    batch axes broadcast.  One ``mod_madd_horner`` launch; with ``matmul``
+    (the JAX package's DKG_TPU_MXU=1), where the shapes allow it (coeffs
+    (m, T, L) with T <= ``fields.matmul.MAX_K``, xs (N, L)), the
+    Vandermonde form instead: V[i, l] = x_i^l (:func:`powers`) and one
+    ``fields.matmul.matmul_mod`` C @ V^T, the point axis in chunks of
+    EVAL_VAND_BUDGET_BYTES (a power of two of points, the last ragged).
+    Both give the canonical residues."""
+    t_coef = coeffs.shape[-2]
+    if not (matmul and coeffs.dim() == 3 and xs.dim() == 2 and t_coef <= fmm.MAX_K):
+        return fk.mod_madd_horner(fs, coeffs, xs)
+    per_point = t_coef * 3 * fs.limbs * 4  # its powers and their 2L digit columns
+    chunk = max(1, EVAL_VAND_BUDGET_BYTES // per_point)
+    chunk = 1 << (chunk.bit_length() - 1)
+    return map_chunked(xs.shape[-2], chunk,
+                       lambda off, w: fmm.matmul_mod(fs, coeffs, powers(fs, xs[off : off + w], t_coef)), axis=-2)
 
 
 def powers(fs: FieldSpec, x: torch.Tensor, count: int) -> torch.Tensor:

@@ -16,8 +16,9 @@ ceremonies, so everything curve-dependent is shared and warm:
   in a Python loop over its k ceremonies: the deal folds the convoy into
   the lanes of ``pt_fixed_base`` and ``mod_madd_horner``; the verify's
   weighted sums, whose Fiat-Shamir weights differ from ceremony to
-  ceremony, take ``mod_madd_dot`` and ``pt_bucket_sum`` with a convoy
-  axis (one weight or digit block a ceremony); the transcript rows of all
+  ceremony, and the final shares' 0/1 weights take ``mod_madd_dot`` and
+  ``pt_bucket_sum`` with a convoy axis (one weight or digit block a
+  ceremony); the transcript rows of all
   k·n dealers are one ``_dealer_rows`` pass.
 
 Bit-exactness: phantom lanes are zero-coefficient dealers (zero shares,
@@ -213,17 +214,15 @@ def _verify_stack(cfg: ce.CeremonyConfig, e_comm, shares, hidings, rho, rho_bits
 def _finalise_stack(cfg: ce.CeremonyConfig, a_comm, shares, qualified):
     """``ce.aggregate_shares`` and ``ce.master_key_from_bare`` over a
     convoy: a_comm (k, n, t+1, C, L), shares (k, n, n, L), qualified (k,
-    n) -> final shares (k, n, L) (the same pairwise tree of field adds
-    over the dealers) and masters (k, C, L) (one ``pt_tree_sum``)."""
+    n) -> final shares (k, n, L) (one ``mod_madd_dot`` with each
+    ceremony's 0/1 weights, a weight block a ceremony) and masters (k, C,
+    L) (one ``pt_tree_sum``)."""
     cs = cfg.cs
-    acc = torch.where(qualified[:, :, None, None], shares, torch.zeros_like(shares))
-    while acc.shape[1] > 1:
-        if acc.shape[1] % 2:
-            acc = torch.cat([acc, torch.zeros_like(acc[:, :1])], dim=1)
-        acc = fd.add(cs.scalar, acc[:, 0::2], acc[:, 1::2])
+    weights = fd.zeros(cs.scalar, qualified.shape, device=shares.device)  # (k, n, L)
+    weights[..., 0] = qualified.to(torch.int32)
     a0 = a_comm[:, :, 0]
     masked = gd.select(qualified, a0, gd.identity(cs, a0.shape[:-2], device=a0.device))
-    return acc[:, 0], gd._tree_reduce(cs, masked, masked.shape[-3])
+    return fk.mod_madd_dot(cs.scalar, weights, shares), gd._tree_reduce(cs, masked, masked.shape[-3])
 
 
 # ---------------------------------------------------------------------------

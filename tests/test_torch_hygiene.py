@@ -73,6 +73,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["dkg_tpu_torch.utils.scanchunk", "dkg_tpu_torch.fields.matmul"])
+def test_scale_modules_stand_alone(module):
+    """The memory-bounded layer's modules (map_chunked; matmul_mod and its
+    routes) are among those the whole-port import check loads, and alone
+    pull in neither jax nor dkg_tpu."""
+    assert module in _modules()
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "sys.exit(1 if [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dkg_tpu')] else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|dkg_tpu)(\.|\s|$)")
     files = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
@@ -197,6 +209,10 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
     lambda: tgd.msm_pippenger(BLS, _meta((3, 1, 5, 16)), _meta((3, 2, 5, 3, 24)), 64),
     lambda: tsvc_engine.run_convoy(tsvc_engine.WarmRuntime(device="meta"),
                                    [tsvc_engine.CeremonyRequest("ristretto255", 5, 2, seed=1)]),
+    lambda: tce.aggregate_shares(tce.CeremonyConfig("secp256k1", 4, 1), _meta((4, 5, 16)),
+                                 torch.ones(4, dtype=torch.bool, device="meta")),
+    lambda: tce.deal_chunked(tce.CeremonyConfig("secp256k1", 4, 1), _meta((4, 2, 16)), _meta((4, 2, 16)),
+                             _meta((32, 256, 3, 16)), _meta((32, 256, 3, 16)), chunk=3),
 ], ids=["mod_madd", "pt_add", "pt_madd", "pt_window_step", "pt_ladder_mul_add", "mod_madd_ed",
         "ed_pt_add", "ed_pt_madd", "ed_pt_double", "pt_double", "ed_pt_ladder_mul_add",
         "ed_window_step", "bucket_accumulate", "ed_bucket_accumulate", "ed_msm_pippenger",
@@ -216,7 +232,8 @@ L24_P = dataclasses.replace(BLS, name="other_p", field=FieldSpec("other_base", O
         "bls_folded_collect", "ed_aggregate", "ed_msm_per_row_pairs", "ristretto_encode", "ristretto_decode",
         "encode_batch_device", "refresh_shares", "reshare_shares", "check_bare_shares", "check_reshare_constants",
         "combine_reshare_commitments", "mod_madd_dot_convoy", "bls_mod_madd_dot_convoy", "pt_bucket_sum_convoy",
-        "ed_pt_bucket_sum_convoy", "bls_msm_pippenger_convoy", "service_convoy"])
+        "ed_pt_bucket_sum_convoy", "bls_msm_pippenger_convoy", "service_convoy", "aggregate_shares",
+        "deal_chunked"])
 def test_wrappers_raise_instead_of_falling_back(call):
     before = [k.launches for k in KERNELS]
     with pytest.raises(ValueError, match="CUDA device"):
