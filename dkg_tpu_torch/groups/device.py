@@ -90,6 +90,42 @@ def identity(cs: CurveSpec, batch: tuple = (), *, device) -> torch.Tensor:
     return pk.identity_plain(cs, tuple(batch), device)
 
 
+def gen_host(cs: CurveSpec) -> tuple:
+    """The curve generator as a host point tuple."""
+    x, y = cs.gen_affine
+    if cs.kind == "edwards":
+        return (x, y, 1, x * y % cs.field.modulus)
+    return (x, y, 1)
+
+
+def generator(cs: CurveSpec, batch: tuple = (), *, device) -> torch.Tensor:
+    """The generator broadcast to ``batch`` (a read-only expanded view)."""
+    g = from_host(cs, [gen_host(cs)], device=device)[0]
+    return g.expand(tuple(batch) + g.shape)
+
+
+def base_key(cs: CurveSpec, point) -> tuple:
+    """Hashable key for a host point: its affine (x, y), or ("identity",)
+    for the Weierstrass identity."""
+    if cs.kind == "edwards":
+        pm = cs.field.modulus
+        x, y, z, _ = point
+        zi = pow(z, pm - 2, pm)
+        return (x * zi % pm, y * zi % pm)
+    aff = gh.ALL_GROUPS[cs.name].to_affine(point)
+    return aff if aff is not None else ("identity",)
+
+
+def base_key_to_point(cs: CurveSpec, key: tuple):
+    """The host point of a :func:`base_key`."""
+    if key == ("identity",):
+        return gh.ALL_GROUPS[cs.name].identity()
+    x, y = key
+    if cs.kind == "edwards":
+        return (x, y, 1, x * y % cs.field.modulus)
+    return (x, y, 1)
+
+
 def from_host(cs: CurveSpec, points, *, device) -> torch.Tensor:
     """Host point tuples -> (n, C, L) int32 limbs."""
     arr = np.asarray([[int(c) for c in p] for p in points], dtype=object)
@@ -140,6 +176,14 @@ def eq(cs: CurveSpec, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return ex & ey
 
 
+def neg(cs: CurveSpec, p: torch.Tensor) -> torch.Tensor:
+    """-P: (x, -y, z) Weierstrass, (-x, y, z, -t) Edwards."""
+    f = cs.field
+    if cs.kind == "edwards":
+        return torch.stack([fd.neg(f, p[..., 0, :]), p[..., 1, :], p[..., 2, :], fd.neg(f, p[..., 3, :])], dim=-2)
+    return torch.stack([p[..., 0, :], fd.neg(f, p[..., 1, :]), p[..., 2, :]], dim=-2)
+
+
 def select(pred: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Branchless point select; ``pred`` has the batch shape."""
     return torch.where(pred[..., None, None], p, q)
@@ -152,6 +196,13 @@ def select(pred: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor
 
 def n_windows(cs: CurveSpec, window: int = WINDOW) -> int:
     return cs.scalar.limbs * (16 // window)
+
+
+def scalar_windows(cs: CurveSpec, k: torch.Tensor, window: int = WINDOW) -> torch.Tensor:
+    """(..., L) scalar limbs -> (..., L * 16/window) little-endian digits;
+    ``window`` divides 16.  ``ops.point_kernels.window_digits``, the digits
+    every windowed kernel's plain version reads."""
+    return pk.window_digits(k, window)
 
 
 def _build_table(cs: CurveSpec, p: torch.Tensor) -> torch.Tensor:
@@ -213,6 +264,21 @@ def fixed_base_mul(cs: CurveSpec, table: torch.Tensor, k: torch.Tensor) -> torch
     mixed add cannot take, so lanes whose gathered entry has Z = 0 keep
     their accumulator."""
     return pk.pt_fixed_base(cs, table, k)
+
+
+def scalar_mul_small(cs: CurveSpec, k: torch.Tensor, p: torch.Tensor, nbits: int) -> torch.Tensor:
+    """k·P for small public ints 0 <= k < 2**nbits: k (...,) int32, p (...,
+    C, L), batch axes broadcast -> (..., C, L).
+
+    One ``pt_ladder_mul_add`` launch against the identity addend, the JAX
+    package's fused branch (its plain version, the MSB-first double and
+    select-add ladder and then + identity, on CPU tensors).  The JAX
+    package's unfused ladder stops before that last add, which rescales
+    the projective limbs; the group elements, and so the canonical affine
+    forms, are equal."""
+    batch = torch.broadcast_shapes(tuple(k.shape), tuple(p.shape[:-2]))
+    p = p.expand(batch + tuple(p.shape[-2:]))
+    return pk.pt_ladder_mul_add(cs, p, identity(cs, batch, device=p.device), k.expand(batch), nbits)
 
 
 def eval_point_poly(cs: CurveSpec, coeffs: torch.Tensor, x: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -479,6 +545,85 @@ def affine_canon_host(cs: CurveSpec, pts) -> np.ndarray:
         rows.append(b"".join(v.to_bytes(nb, "little") for v in row))
     out = np.frombuffer(b"".join(rows), dtype="<u2").astype(np.uint32)
     return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# fixed-base window tables
+# ---------------------------------------------------------------------------
+
+
+def fixed_table_host(cs: CurveSpec, key: tuple, window: int = FIXED_WINDOW) -> np.ndarray:
+    """The host-built window table of the base ``key`` (:func:`base_key`):
+    (NW, 2**window, C, L) uint32, T[w][d] = d·(2**window)^w·B, every entry
+    affine (Z = 1; Edwards (x, y, 1, x·y)) but the Weierstrass identity,
+    which stays (0, 1, 0): the limbs of the JAX package's
+    ``_fixed_table_np``.  Uncached: ``groups.precompute.host_table`` keeps
+    it, in the process and on disk."""
+    group = gh.ALL_GROUPS[cs.name]
+    window_base = base_key_to_point(cs, key)
+    nw, entries = n_windows(cs, window), 1 << window
+    pts = []
+    for _ in range(nw):
+        acc = group.identity()
+        for _ in range(entries):
+            pts.append(acc)
+            acc = group.add(acc, window_base)
+        for _ in range(window):
+            window_base = group.add(window_base, window_base)
+    proj = fh.encode(cs.field, np.asarray(pts, dtype=object))  # (nw * entries, C, L)
+    return affine_canon_host(cs, proj).reshape(nw, entries, cs.ncoords, cs.field.limbs)
+
+
+def fixed_base_table_dev(cs: CurveSpec, base, window: int = 16, *, device) -> torch.Tensor:
+    """The window table of a fixed host point ``base`` built where it will
+    be read: (NW, 2**window, C, L) int32 on ``device``, the same canonical
+    affine entries as :func:`fixed_table_host`.  Windows of at most 8 bits
+    build as one :func:`scalar_mul_small` over (NW, 2**window) lanes
+    against the host-made window bases; wider ones compose two entries of
+    the half-width table, itself built so, with one add
+    (:func:`_compose_table_dev`).  Both end in one :func:`affine_canon`.
+    Uncached: ``groups.precompute.base_table`` keeps the tables, per
+    (curve, base, window, device)."""
+    if window > 8:
+        return composed_table(cs, lambda half: fixed_base_table_dev(cs, base, half, device=device), window)
+    if 16 % window:
+        raise ValueError(f"unsupported fixed-base window width {window}")
+    group = gh.ALL_GROUPS[cs.name]
+    nw, entries = n_windows(cs, window), 1 << window
+    bases, pt = [], base
+    for _ in range(nw):  # the window bases (2**window)^w·B: public host doublings
+        bases.append(pt)
+        for _ in range(window):
+            pt = group.add(pt, pt)
+    bases_dev = from_host(cs, bases, device=device)  # (nw, C, L)
+    digits = torch.arange(entries, dtype=torch.int32, device=device).expand(nw, entries)
+    pts = scalar_mul_small(cs, digits, bases_dev[:, None], window)  # (nw, entries, C, L) projective
+    return affine_canon(cs, pts)
+
+
+def composed_table(cs: CurveSpec, half_table, window: int) -> torch.Tensor:
+    """A window table wider than 8 bits in canonical affine form, composed
+    where ``half_table(window // 2)`` (the half-width table as a tensor)
+    lies: :func:`_compose_table_dev`, then one :func:`affine_canon`.  The
+    window must be even, its half at most 8, and divide 16."""
+    half = window // 2
+    if window % 2 or half > 8 or 16 % window:
+        raise ValueError(f"unsupported fixed-base window width {window}")
+    return affine_canon(cs, _compose_table_dev(cs, half_table(half), window))
+
+
+def _compose_table_dev(cs: CurveSpec, t_half: torch.Tensor, window: int) -> torch.Tensor:
+    """Wide-window entries by composition: from the half-width table
+    T[v][e] = e·(2**h)^v·B (h = window/2, (2·NW, 2**h, C, L)), entry d = lo +
+    2**h·hi of window w is ``T[2w][lo] + T[2w+1][hi]``, one complete add a
+    lane: one ``pt_add`` launch over NW·2**window lanes (1,048,576 at
+    window 16 on a 16-limb scalar), each half broadcast to the lanes.  The
+    sums are projective; identity lanes flow through the complete
+    formulas."""
+    lo = t_half[0::2][:, None, :, :, :]  # (nw, 1, 2**h, C, L)
+    hi = t_half[1::2][:, :, None, :, :]  # (nw, 2**h, 1, C, L)
+    pts = add(cs, lo, hi)  # (nw, 2**h, 2**h, C, L); d = hi·2**h + lo
+    return pts.reshape(n_windows(cs, window), 1 << window, cs.ncoords, cs.field.limbs)
 
 
 def encode_batch(cs: CurveSpec, pts) -> np.ndarray:

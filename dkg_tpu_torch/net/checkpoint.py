@@ -1,7 +1,6 @@
 """Durable per-party checkpoint log: a copy of
-``dkg_tpu/net/checkpoint.py``'s :class:`PartyWal` (less ``reset``, which
-only ``run_party`` calls), :func:`wal_path`, :func:`service_wal_path`
-and :func:`default_checkpoint_dir`.
+``dkg_tpu/net/checkpoint.py``'s :class:`PartyWal`, :func:`wal_path`,
+:func:`service_wal_path` and :func:`default_checkpoint_dir`.
 
 Before each step's publish a party appends one record (the exact wire
 payload and what it needs to resume; ``utils.serde``'s epoch records for
@@ -101,8 +100,8 @@ class PartyWal:
     def rewrite(self, bodies: list[bytes]) -> None:
         """Atomically replace the log with exactly ``bodies`` (header and
         checksummed frames), through a temp file, fsync and
-        ``os.replace``: the service journal compacts through this on
-        recovery, so a torn tail never shadows the appends after it."""
+        ``os.replace``: a resumed party and the service journal compact
+        through this, so a torn tail never shadows the appends after it."""
         frames = [_HEADER]
         for body in bodies:
             frames.append(struct.pack("<I", len(body)) + body + _digest(body))
@@ -115,6 +114,14 @@ class PartyWal:
         finally:
             os.close(fd)
         os.replace(tmp, self.path)
+
+    def reset(self) -> None:
+        """Recreate the log empty (0600).  ``run_party`` calls this when a
+        log exists but replays to nothing: fresh records appended after
+        unparseable bytes would poison every later replay."""
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        fd = os.open(self.path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+        os.close(fd)
 
     # -- reading ------------------------------------------------------------
 

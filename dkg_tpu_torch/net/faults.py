@@ -1,0 +1,641 @@
+"""Deterministic fault injection for channel-driven ceremonies.
+
+A copy of ``dkg_tpu/net/faults.py``: a seeded :class:`FaultPlan`
+schedules byte-level and liveness faults against specific (round, sender)
+messages, and :class:`FaultyChannel` applies them on top of any
+:class:`~dkg_tpu_torch.net.channel.BroadcastChannel`.
+
+Every mutation is derived from ``(seed, round, sender, kind)`` only, so a
+plan replays byte for byte, and equals the JAX package's plan of the same
+seed: the same garbage, the same flipped bit, the same outcome.
+
+Fault vocabulary (all scheduled per (round, sender)):
+
+* ``drop``       — the publish never happens (silent dropout).
+* ``delay``      — the publish lands late; peers that already fetched
+                   treat it as missing.
+* ``garbage``    — the payload is replaced with seeded random bytes.
+* ``truncate``   — only a prefix of the payload is published.
+* ``bitflip``    — one seeded bit of the payload is inverted.
+* ``replace``    — the payload is replaced with caller-chosen bytes.
+* ``duplicate``  — the same payload is published twice (an idempotent
+                   retry; must NOT count as equivocation).
+* ``equivocate`` — a second, different payload is also published; the
+                   channel keeps the first and records evidence.
+* ``crash``      — via :meth:`FaultPlan.crash_after`: the party dies
+                   before any operation on a later round
+                   (:class:`CrashFault` propagates out of run_party).
+* ``restart``    — the party dies mid-round (after publishing, while
+                   fetching) and, when ``run_with_faults`` was given a
+                   ``checkpoint_dir``, is re-spawned from its WAL with a
+                   FRESH rng: recovery must depend only on the durable
+                   checkpoint (:class:`RestartFault`).  Without a
+                   checkpoint_dir the restart is a terminal crash.
+
+:func:`run_epochs_with_faults` carries the same plan on through the epoch
+operations: each founding party seeds epoch 0 from its ``PartyResult``
+and drives an :class:`~dkg_tpu_torch.epoch.EpochManager` on ``device``
+(the card by default) over the same wrapped channel and WAL.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+from ..utils import obslog
+from ..utils.metrics import REGISTRY
+from .channel import BroadcastChannel
+from .checkpoint import wal_path
+from .party import PartyResult, run_party
+
+_KIND_CODES = {
+    "drop": 1,
+    "delay": 2,
+    "garbage": 3,
+    "truncate": 4,
+    "bitflip": 5,
+    "replace": 6,
+    "duplicate": 7,
+    "equivocate": 8,
+}
+
+
+def _note_fault(
+    kind: str, round_no: int, sender: int, seconds: Optional[float] = None
+) -> None:
+    """Every injected fault is observable: a per-kind counter plus a
+    flight-recorder event in the victim party's log, so a chaos failure
+    can be replayed from its logs alone.  Delay faults carry their
+    injected ``seconds``, the wall-clock they cost."""
+    REGISTRY.inc("dkg_faults_injected_total", kind=kind)
+    obslog.emit_current(
+        "fault_injected", round=round_no, fault=kind, sender=sender,
+        seconds=seconds,
+    )
+
+
+class CrashFault(RuntimeError):
+    """Simulated process crash of one party (not a protocol error)."""
+
+
+class RestartFault(CrashFault):
+    """A crash the harness may recover from: the party died mid-round
+    and should be re-spawned from its checkpoint WAL."""
+
+
+class FaultPlan:
+    """A seeded, replayable schedule of wire faults for one ceremony.
+
+    Builder methods return ``self`` so plans chain::
+
+        plan = (FaultPlan(seed=7)
+                .garbage(1, sender=2)
+                .equivocate(3, sender=5)
+                .crash_after(sender=7, round_no=2))
+    """
+
+    def __init__(self, seed: int = 0) -> None:
+        self.seed = int(seed)
+        # (round, sender) -> [(kind, arg), ...] in scheduling order
+        self._faults: dict[tuple[int, int], list[tuple[str, object]]] = {}
+        self._crash_after: dict[int, int] = {}  # sender -> last completed round
+        self._restarts: dict[int, set[int]] = {}  # sender -> rounds it dies in
+        # (sender, round) restarts already fired: each scheduled restart
+        # kills exactly one incarnation, else respawn would loop forever
+        self._restarts_fired: set[tuple[int, int]] = set()
+
+    # -- builders -----------------------------------------------------------
+
+    def _add(self, kind: str, round_no: int, sender: int, arg: object = None) -> "FaultPlan":
+        self._faults.setdefault((round_no, sender), []).append((kind, arg))
+        return self
+
+    def drop(self, round_no: int, sender: int) -> "FaultPlan":
+        return self._add("drop", round_no, sender)
+
+    def delay(self, round_no: int, sender: int, seconds: float) -> "FaultPlan":
+        return self._add("delay", round_no, sender, float(seconds))
+
+    def garbage(self, round_no: int, sender: int, nbytes: Optional[int] = None) -> "FaultPlan":
+        return self._add("garbage", round_no, sender, nbytes)
+
+    def truncate(self, round_no: int, sender: int, keep: Optional[int] = None) -> "FaultPlan":
+        return self._add("truncate", round_no, sender, keep)
+
+    def bitflip(self, round_no: int, sender: int) -> "FaultPlan":
+        return self._add("bitflip", round_no, sender)
+
+    def replace(self, round_no: int, sender: int, payload: bytes) -> "FaultPlan":
+        return self._add("replace", round_no, sender, bytes(payload))
+
+    def duplicate(self, round_no: int, sender: int) -> "FaultPlan":
+        return self._add("duplicate", round_no, sender)
+
+    def equivocate(
+        self, round_no: int, sender: int, alternate: Optional[bytes] = None
+    ) -> "FaultPlan":
+        return self._add("equivocate", round_no, sender, alternate)
+
+    def crash_after(self, sender: int, round_no: int) -> "FaultPlan":
+        """Party ``sender`` completes ``round_no`` and then dies: any
+        publish/fetch for a later round raises :class:`CrashFault`."""
+        self._crash_after[sender] = min(
+            round_no, self._crash_after.get(sender, round_no)
+        )
+        return self
+
+    def restart(self, sender: int, round_no: int) -> "FaultPlan":
+        """Party ``sender`` dies mid-round ``round_no`` — after its
+        publish landed, while fetching the round — raising
+        :class:`RestartFault` exactly once per scheduled (sender, round).
+        ``run_with_faults(checkpoint_dir=...)`` re-spawns the party from
+        its WAL; without a checkpoint_dir the restart is terminal."""
+        self._restarts.setdefault(sender, set()).add(round_no)
+        return self
+
+    # -- queries ------------------------------------------------------------
+
+    def faults_for(self, round_no: int, sender: int) -> list[tuple[str, object]]:
+        return list(self._faults.get((round_no, sender), ()))
+
+    def crashes_at(self, sender: int, round_no: int) -> bool:
+        last_ok = self._crash_after.get(sender)
+        return last_ok is not None and round_no > last_ok
+
+    def check_restart(self, sender: int, round_no: int) -> None:
+        """Raise :class:`RestartFault` if a restart is scheduled here and
+        has not fired yet (fire-once: later incarnations pass through)."""
+        if round_no in self._restarts.get(sender, ()):
+            key = (sender, round_no)
+            if key not in self._restarts_fired:
+                self._restarts_fired.add(key)
+                raise RestartFault(
+                    f"party {sender} restarted during round {round_no}"
+                )
+
+    def reset_runtime(self) -> None:
+        """Forget fired restarts so the same plan object replays
+        identically on a second ceremony (run_with_faults calls this)."""
+        self._restarts_fired.clear()
+
+    def as_dict(self) -> dict:
+        """JSON-able description (for failure reports)."""
+        return {
+            "seed": self.seed,
+            "faults": [
+                {
+                    "round": r,
+                    "sender": s,
+                    "kind": kind,
+                    "arg": arg if not isinstance(arg, bytes) else arg.hex(),
+                }
+                for (r, s), lst in sorted(self._faults.items())
+                for kind, arg in lst
+            ],
+            # string keys so the dict round-trips through JSON unchanged
+            "crash_after": {str(s): r for s, r in sorted(self._crash_after.items())},
+            "restarts": {
+                str(s): sorted(rs) for s, rs in sorted(self._restarts.items())
+            },
+        }
+
+    # -- deterministic mutation helpers -------------------------------------
+
+    def _rng(self, round_no: int, sender: int, kind: str) -> random.Random:
+        # Mix the coordinates into one integer seed; Python int hashing of
+        # plain ints is stable, but avoid hash() anyway so the stream is
+        # independent of PYTHONHASHSEED by construction.
+        mixed = (
+            (self.seed & 0xFFFFFFFF) << 32
+            | (round_no & 0xFF) << 24
+            | (sender & 0xFFFF) << 8
+            | _KIND_CODES[kind]
+        )
+        return random.Random(mixed)
+
+    def garbage_bytes(self, round_no: int, sender: int, nbytes: Optional[int]) -> bytes:
+        rng = self._rng(round_no, sender, "garbage")
+        n = nbytes if nbytes is not None else rng.randrange(1, 256)
+        return rng.randbytes(n)
+
+    def flip_one_bit(self, round_no: int, sender: int, payload: bytes) -> bytes:
+        if not payload:
+            return b"\x01"
+        rng = self._rng(round_no, sender, "bitflip")
+        pos = rng.randrange(len(payload) * 8)
+        out = bytearray(payload)
+        out[pos // 8] ^= 1 << (pos % 8)
+        return bytes(out)
+
+    def truncate_bytes(
+        self, round_no: int, sender: int, payload: bytes, keep: Optional[int]
+    ) -> bytes:
+        if keep is None:
+            keep = self._rng(round_no, sender, "truncate").randrange(max(1, len(payload)))
+        return payload[:keep]
+
+
+class FaultyChannel:
+    """Apply a :class:`FaultPlan` on top of any broadcast channel.
+
+    One wrapper serves one party (``party`` is its 1-based index): crash
+    faults key off the party, payload faults off the publish's sender —
+    which for a well-behaved caller is the same index.  Everything not
+    scheduled passes straight through, and unknown attributes delegate
+    to the wrapped channel (``stats``, ``equivocation_evidence``, ...).
+    """
+
+    def __init__(self, inner: BroadcastChannel, plan: FaultPlan, party: int) -> None:
+        self._inner = inner
+        self._plan = plan
+        self._party = party
+
+    def _check_crash(self, round_no: int) -> None:
+        if self._plan.crashes_at(self._party, round_no):
+            _note_fault("crash", round_no, self._party)
+            raise CrashFault(f"party {self._party} crashed before round {round_no}")
+
+    def publish(self, round_no: int, sender: int, payload: bytes) -> None:
+        self._check_crash(round_no)
+        plan = self._plan
+        publishes = [payload]
+        for kind, arg in plan.faults_for(round_no, sender):
+            _note_fault(
+                kind, round_no, sender,
+                seconds=float(arg) if kind == "delay" else None,  # type: ignore[arg-type]
+            )
+            if kind == "drop":
+                return
+            elif kind == "delay":
+                time.sleep(float(arg))  # type: ignore[arg-type]
+            elif kind == "garbage":
+                publishes = [plan.garbage_bytes(round_no, sender, arg)]  # type: ignore[arg-type]
+            elif kind == "truncate":
+                publishes = [
+                    plan.truncate_bytes(round_no, sender, publishes[0], arg)  # type: ignore[arg-type]
+                ]
+            elif kind == "bitflip":
+                publishes = [plan.flip_one_bit(round_no, sender, publishes[0])]
+            elif kind == "replace":
+                publishes = [arg]  # type: ignore[list-item]
+            elif kind == "duplicate":
+                publishes.append(publishes[-1])
+            elif kind == "equivocate":
+                alt = arg if arg is not None else plan.flip_one_bit(round_no, sender, publishes[-1])
+                publishes.append(alt)  # type: ignore[arg-type]
+        for p in publishes:
+            self._inner.publish(round_no, sender, p)
+
+    def fetch(self, round_no: int, expected: int, timeout: float = 30.0) -> dict[int, bytes]:
+        self._check_crash(round_no)
+        # a restart strikes mid-round: the publish already landed (and,
+        # with checkpointing, its WAL record is durable), the fetch never
+        # completes — the classic crash window recovery must cover
+        try:
+            self._plan.check_restart(self._party, round_no)
+        except RestartFault:
+            _note_fault("restart", round_no, self._party)
+            raise
+        return self._inner.fetch(round_no, expected, timeout)
+
+    def __getattr__(self, name: str):
+        return getattr(self._inner, name)
+
+
+# ---------------------------------------------------------------------------
+# chaos harness: threaded n-party ceremonies under a fault plan
+# ---------------------------------------------------------------------------
+
+
+def make_committee(group, n: int, t: int, seed: int, shared_string: bytes = b"chaos"):
+    """Deterministic committee setup: (env, sorted keys, sorted pks)."""
+    from ..dkg.committee import Environment
+    from ..dkg.procedure_keys import MemberCommunicationKey, sort_committee
+
+    rng = random.Random(seed)
+    env = Environment.init(group, t, n, shared_string)
+    keys = [MemberCommunicationKey.generate(group, rng) for _ in range(n)]
+    pks = sort_committee(group, [k.public() for k in keys])
+    by_pk = {group.encode(k.public().point): k for k in keys}
+    sorted_keys = [by_pk[group.encode(p.point)] for p in pks]
+    return env, sorted_keys, pks
+
+
+def run_with_faults(
+    env,
+    keys,
+    pks,
+    plan: FaultPlan,
+    channel_factory: Callable[[int], BroadcastChannel],
+    timeout: float = 5.0,
+    seed: int = 0,
+    join_timeout: float = 300.0,
+    checkpoint_dir: Optional[str] = None,
+):
+    """Run a full threaded ceremony with ``plan`` applied to every party.
+
+    ``channel_factory(i)`` returns party ``i``'s (0-based) base channel —
+    a shared :class:`InProcessChannel` or one ``TcpHubChannel`` each.
+    Returns a list of per-party outcomes: :class:`PartyResult`, a
+    :class:`CrashFault` for crashed parties, or the raised exception if
+    a party died for any other reason (a harness bug, never expected).
+
+    With ``checkpoint_dir`` set, every party journals to a WAL under it
+    and a :class:`RestartFault` re-spawns the party from that WAL with a
+    FRESH rng (seed mixed with the incarnation count) — proving recovery
+    depends only on the durable checkpoint, not the random stream.
+    Without it, restart faults are terminal crashes, so the identical
+    schedule exercises today's dropout/reconstruction path instead.
+    """
+    n = env.nr_members
+    results: list[object] = [None] * n
+    plan.reset_runtime()
+
+    def worker(i: int) -> None:
+        incarnation = 0
+        while True:
+            chan = FaultyChannel(channel_factory(i), plan, party=i + 1)
+            wal = (
+                wal_path(checkpoint_dir, i + 1) if checkpoint_dir is not None else None
+            )
+            rng = random.Random(seed * 6151 + i + incarnation * 7919)
+            try:
+                res = run_party(
+                    chan, env, keys[i], pks, i + 1, rng,
+                    timeout=timeout, checkpoint=wal,
+                )
+                # run_party reports resumes=1 for any resumed incarnation;
+                # the harness knows the true respawn count
+                res.resumes = max(res.resumes, incarnation)
+                results[i] = res
+                return
+            except RestartFault as rf:
+                if checkpoint_dir is None:
+                    results[i] = rf  # no WAL: a restart is a terminal crash
+                    return
+                incarnation += 1
+            except CrashFault as cf:
+                results[i] = cf
+                return
+            except Exception as exc:  # noqa: BLE001 — surfaced to the caller verbatim
+                results[i] = exc
+                return
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=join_timeout)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# epoch chaos harness: ceremony + refresh/reshare under churn and faults
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ChurnSchedule:
+    """Mid-sequence membership change for :func:`run_epochs_with_faults`:
+    ``leavers`` (1-based OLD-committee indices) drop out of the reshare's
+    new committee and ``joiners`` fresh members enter it.  Committee size
+    is preserved when ``len(leavers) == joiners`` (the chaos storm's
+    ``--churn K`` shape), but the harness does not require it."""
+
+    leavers: tuple[int, ...]
+    joiners: int
+
+    @property
+    def churn(self) -> int:
+        return len(self.leavers) + self.joiners
+
+
+def churn_schedule(seed: int, n: int, k: int) -> ChurnSchedule:
+    """Seeded K-leave + K-join schedule over an n-party committee."""
+    if not 0 <= k <= n:
+        raise ValueError(f"churn {k} out of range for n={n}")
+    rng = random.Random(seed * 9973 + n * 31 + k)
+    return ChurnSchedule(tuple(sorted(rng.sample(range(1, n + 1), k))), k)
+
+
+@dataclass
+class EpochPartyOutcome:
+    """One worker's end-to-end outcome across ceremony + epoch ops.
+
+    ``party`` is the wrapper id crash/restart faults key on: the old
+    1-based index for founding members, ``n_old + 1 + q`` for joiner
+    ordinal ``q``.  ``masters`` collects ``group.encode(state.master)``
+    after every epoch op this party completed with a share — the chaos
+    assertion is that every entry, from every honest party, is
+    bit-identical to the ceremony's master key.
+    """
+
+    party: int
+    base: object = None  # PartyResult | exception | None (joiners)
+    masters: list = field(default_factory=list)
+    state: object = None  # final EpochState (None for leavers/failures)
+    left: bool = False  # True when this party dealt and exited at the reshare
+    error: object = None  # first exception that ended the worker, if any
+    resumes: int = 0  # respawned incarnations (restart recovery)
+
+
+def run_epochs_with_faults(
+    env,
+    keys,
+    pks,
+    plan: FaultPlan,
+    channel_factory: Callable[[int], BroadcastChannel],
+    *,
+    churn: Optional[ChurnSchedule] = None,
+    refreshes: int = 1,
+    t_new: Optional[int] = None,
+    timeout: float = 5.0,
+    seed: int = 0,
+    join_timeout: float = 600.0,
+    checkpoint_dir: Optional[str] = None,
+    device="cuda",
+):
+    """Run ceremony -> ``refreshes`` proactive refreshes -> one reshare
+    (when ``churn`` is given) with ``plan`` applied to every party on
+    EVERY round — ceremony rounds 1-5 and epoch rounds 6+ alike, since
+    :class:`FaultyChannel` is round-number agnostic.
+
+    Founding parties run the ceremony, seed epoch 0 from their
+    PartyResult, and drive an :class:`~dkg_tpu_torch.epoch.EpochManager`
+    on ``device`` over the SAME wrapped channel and WAL.  Joiners (``churn.joiners`` of
+    them, deterministic keys from ``seed``) participate only in the
+    reshare, bootstrapping the previous aggregate from the deals'
+    t+1-majority claim.  RestartFaults re-spawn the party from its WAL
+    with a fresh rng exactly like :func:`run_with_faults`.
+
+    Returns ``[EpochPartyOutcome]*(n_old + joiners)``, founding members
+    first (index order), then joiners (ordinal order).
+    """
+    from ..dkg.procedure_keys import MemberCommunicationKey
+    from ..epoch import EpochManager, EpochState, genesis_from_party_result
+
+    group = env.group
+    n = env.nr_members
+    t2 = env.threshold if t_new is None else t_new
+    sched = churn if churn is not None else ChurnSchedule((), 0)
+    jrng = random.Random(seed * 7177 + 13)
+    joiner_keys = [
+        MemberCommunicationKey.generate(group, jrng) for _ in range(sched.joiners)
+    ]
+    new_pks = [
+        p for i, p in enumerate(pks) if (i + 1) not in sched.leavers
+    ] + [k.public() for k in joiner_keys]
+    outcomes = [EpochPartyOutcome(party=i + 1) for i in range(n)] + [
+        EpochPartyOutcome(party=n + 1 + q) for q in range(sched.joiners)
+    ]
+    plan.reset_runtime()
+
+    def ops(mgr: "object", out: EpochPartyOutcome, founding: bool) -> None:
+        # A respawned manager re-runs every op from its WAL records
+        # (byte-identical republish, mask-filtered refetch), so each
+        # incarnation simply replays the whole sequence.
+        out.masters = []
+        if founding:
+            for _ in range(refreshes):
+                st = mgr.refresh()
+                out.masters.append(group.encode(st.master))
+                out.state = st
+        if churn is not None:
+            st = mgr.reshare(new_pks, t2)
+            if st is None:
+                out.left = True
+                out.state = None
+            else:
+                out.masters.append(group.encode(st.master))
+                out.state = st
+
+    def founding_worker(i: int) -> None:
+        out = outcomes[i]
+        incarnation = 0
+        while True:
+            chan = FaultyChannel(channel_factory(i), plan, party=i + 1)
+            wal = (
+                wal_path(checkpoint_dir, i + 1)
+                if checkpoint_dir is not None
+                else None
+            )
+            rng = random.Random(seed * 6151 + i + incarnation * 7919)
+            try:
+                res = run_party(
+                    chan, env, keys[i], pks, i + 1, rng,
+                    timeout=timeout, checkpoint=wal,
+                )
+                out.base = res
+                mgr = EpochManager(
+                    chan, group, genesis_from_party_result(env, res),
+                    keys[i], pks, rng,
+                    timeout=timeout, checkpoint=wal, max_churn=None,
+                    device=device,
+                )
+                # run_party's recorder is scoped to the ceremony; the
+                # epoch ops need their own ambient binding or every
+                # epoch_* emit is a no-op.  Same ceremony id, so the
+                # per-party JSONL carries one merged stream.
+                obs = obslog.from_env(
+                    ceremony_id=obslog.ceremony_id_for(env), party=i + 1
+                )
+                try:
+                    with obslog.use(obs):
+                        ops(mgr, out, founding=True)
+                finally:
+                    if obs is not None:
+                        obs.close()
+                out.resumes = max(out.resumes, incarnation)
+                return
+            except RestartFault:
+                if checkpoint_dir is None:
+                    out.error = out.error or RestartFault(
+                        f"party {i + 1} restarted without a checkpoint"
+                    )
+                    return
+                incarnation += 1
+            except Exception as exc:  # noqa: BLE001 — surfaced verbatim
+                out.error = exc
+                out.resumes = max(out.resumes, incarnation)
+                return
+
+    def joiner_worker(q: int) -> None:
+        out = outcomes[n + q]
+        party_id = n + 1 + q
+        incarnation = 0
+        while True:
+            chan = FaultyChannel(channel_factory(n + q), plan, party=party_id)
+            wal = (
+                wal_path(checkpoint_dir, party_id)
+                if checkpoint_dir is not None
+                else None
+            )
+            rng = random.Random(seed * 6151 + (n + q) + incarnation * 7919)
+            try:
+                observer = EpochState(
+                    epoch=refreshes, n=n, t=env.threshold,
+                    index=None, share=None, commitments=None,
+                )
+                # the joiner's opening fetch must outlast the whole
+                # preceding sequence: 5 ceremony rounds + 3 per earlier
+                # epoch op, each of which may stall for one full timeout
+                boot = min(join_timeout, timeout * (8 + 3 * refreshes) + 60.0)
+                mgr = EpochManager(
+                    chan, group, observer, joiner_keys[q], pks, rng,
+                    timeout=timeout, first_fetch_timeout=boot,
+                    checkpoint=wal, max_churn=None,
+                    ops_done=refreshes, device=device,
+                )
+                obs = obslog.from_env(
+                    ceremony_id=obslog.ceremony_id_for(env), party=party_id
+                )
+                try:
+                    with obslog.use(obs):
+                        ops(mgr, out, founding=False)
+                finally:
+                    if obs is not None:
+                        obs.close()
+                out.resumes = max(out.resumes, incarnation)
+                return
+            except RestartFault:
+                if checkpoint_dir is None:
+                    out.error = out.error or RestartFault(
+                        f"joiner {party_id} restarted without a checkpoint"
+                    )
+                    return
+                incarnation += 1
+            except Exception as exc:  # noqa: BLE001 — surfaced verbatim
+                out.error = exc
+                out.resumes = max(out.resumes, incarnation)
+                return
+
+    threads = [
+        threading.Thread(target=founding_worker, args=(i,)) for i in range(n)
+    ] + [
+        threading.Thread(target=joiner_worker, args=(q,))
+        for q in range(sched.joiners)
+    ]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=join_timeout)
+    return outcomes
+
+
+def honest_results(results, plan: FaultPlan) -> list[PartyResult]:
+    """The PartyResults of parties the plan never touched (1-based
+    untouched indices), in index order."""
+    touched = (
+        {s for (_, s) in plan._faults}
+        | set(plan._crash_after)
+        | set(plan._restarts)
+    )
+    return [
+        r
+        for i, r in enumerate(results)
+        if (i + 1) not in touched and isinstance(r, PartyResult)
+    ]

@@ -6,7 +6,10 @@ A copy of the registry of ``dkg_tpu/utils/metrics.py``
 port's epoch manager writes ``epoch_ops_total`` (by kind and status),
 ``epoch_op_seconds`` and ``epoch_quarantined_total`` into it, and the
 ceremony service its ``service_*`` and ``sign_*`` series under the JAX
-package's names (the queue depths as gauges).  Exports:
+package's names (the queue depths as gauges), the TCP hub and its client
+their ``dkg_hub_*``, ``dkg_client_*`` and ``net_wire_*`` series, the
+fault injector ``dkg_faults_injected_total``, and ``net.party`` each
+finished party's counters (:func:`observe_party_result`).  Exports:
 :meth:`MetricsRegistry.snapshot` (one JSON-able dict) and
 :meth:`MetricsRegistry.prometheus_text` (the text exposition format).
 All operations are thread-safe; labels are plain keyword strings and
@@ -23,6 +26,14 @@ import threading
 # a histogram with drifting buckets cannot be merged or compared.
 DEFAULT_BUCKETS = (
     0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+# Payload-size buckets (bytes): empty-round publishes (~13 B framed) up
+# to large round-1 dealings (tens of MB).  Fixed for the same aggregation
+# reason as DEFAULT_BUCKETS: wire histograms from different processes
+# must merge.
+SIZE_BUCKETS = (
+    64, 256, 1024, 4096, 16384, 65536, 262144, 1048576, 4194304, 16777216,
 )
 
 
@@ -170,3 +181,26 @@ class MetricsRegistry:
 
 #: The process-wide registry every instrumentation site writes to.
 REGISTRY = MetricsRegistry()
+
+
+def observe_party_result(
+    result,
+    registry: MetricsRegistry | None = None,
+    ceremony_id: str | None = None,
+) -> None:
+    """Feed one finished ``net.party.PartyResult``'s transport and
+    recovery counters into the registry (``run_party`` calls this at its
+    end).  ``ceremony_id`` labels every series when given."""
+    reg = registry if registry is not None else REGISTRY
+    cid = ceremony_id
+    reg.inc(
+        "dkg_parties_total",
+        outcome="ok" if result.ok else "error",
+        ceremony_id=cid,
+    )
+    reg.inc("dkg_party_quarantined_total", result.quarantined, ceremony_id=cid)
+    reg.inc("dkg_party_round_timeouts_total", result.timeouts, ceremony_id=cid)
+    reg.inc("dkg_party_rpc_retries_total", result.retries, ceremony_id=cid)
+    reg.inc("dkg_party_resumes_total", result.resumes, ceremony_id=cid)
+    reg.inc("dkg_wal_records_total", result.wal_records, ceremony_id=cid)
+    reg.inc("dkg_wal_replayed_rounds_total", result.replayed_rounds, ceremony_id=cid)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import to_np
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu.dkg import ceremony as jce
 from dkg_tpu.fields import device as jfd

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import field_limbs, point_limbs, same, to_torch
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu.dkg import ceremony as jce
 from dkg_tpu.groups import device as jgd

@@ -18,6 +18,7 @@ from dkg_tpu_torch.crypto import blake2 as tb2
 from dkg_tpu_torch.crypto import chacha as tcc
 from dkg_tpu_torch.crypto import elgamal as tel
 from dkg_tpu_torch.groups import host as tgh
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 RNG = random.Random(0xD3A)
 _RFC_KEY = bytes(range(32))
@@ -65,6 +66,18 @@ def test_chacha20_batch_matches_the_jax_package_and_the_scalar_form(mlen):
         want = jcc.chacha20_xor(keys[r].tobytes(), nonces[r].tobytes(), data[r].tobytes(), counter=3)
         assert got[r].tobytes() == want == tcc.chacha20_xor(keys[r].tobytes(), nonces[r].tobytes(),
                                                             data[r].tobytes(), counter=3)
+
+
+@pytest.mark.parametrize("block", [1, 2, 3])
+def test_batches_in_row_blocks_match_the_jax_package(monkeypatch, block):
+    """BLAKE2b and ChaCha20 over 7 rows in blocks of 1, 2 and 3 rows (the
+    last block ragged): the same bytes as the JAX package's one pass."""
+    monkeypatch.setattr(tb2, "ROW_BLOCK", block)
+    monkeypatch.setattr(tcc, "ROW_BLOCK", block)
+    msgs, keys, nonces, data = _rows(33, 7), _rows(32, 7), _rows(12, 7), _rows(70, 7)
+    assert np.array_equal(tb2.blake2b_batch(msgs, person=b"dkgtpu-kdf"), jb2.blake2b_batch(msgs, person=b"dkgtpu-kdf"))
+    assert np.array_equal(tcc.chacha20_xor_batch(keys, nonces, data, counter=2),
+                          jcc.chacha20_xor_batch(keys, nonces, data, counter=2))
 
 
 def test_chacha20_rejects_bad_keys_and_nonces():

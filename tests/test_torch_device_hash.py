@@ -20,6 +20,7 @@ from dkg_tpu.crypto import device_hash as jdh
 from dkg_tpu_torch.crypto import blake2s as tb2s
 from dkg_tpu_torch.crypto import device_hash as tdh
 from dkg_tpu_torch.dkg import ceremony as tce
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 
 def _words(rows, width, seed):

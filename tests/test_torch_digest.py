@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 from test_digest_dispatch import GOLDEN_DIGEST, GOLDEN_RHO
 from torch_port_util import point_limbs, to_torch
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu.crypto import blake2 as jb2
 from dkg_tpu.crypto import blake2s as jb2s

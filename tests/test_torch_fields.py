@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import field_ints, field_limbs, to_np, to_torch
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu.fields import device as jfd
 from dkg_tpu.fields import host as jfh

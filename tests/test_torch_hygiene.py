@@ -4,6 +4,7 @@ tensor a kernel wrapper launches its kernel or raises, never falling back
 to its plain version."""
 
 import dataclasses
+import inspect
 import pathlib
 import random
 import re
@@ -34,6 +35,7 @@ from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
 from dkg_tpu_torch.poly import device as tpd
 from dkg_tpu_torch.service import engine as tsvc_engine
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "dkg_tpu_torch"
@@ -60,7 +62,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dkg_tpu_torch.epoch.manager", "dkg_tpu_torch.utils.obslog", "dkg_tpu_torch.service",
             "dkg_tpu_torch.service.buckets", "dkg_tpu_torch.service.engine", "dkg_tpu_torch.service.durable",
             "dkg_tpu_torch.service.errors", "dkg_tpu_torch.service.slo", "dkg_tpu_torch.service.httpobs",
-            "dkg_tpu_torch.service.faultsvc", "dkg_tpu_torch.service.scheduler"} <= set(_modules())
+            "dkg_tpu_torch.service.faultsvc", "dkg_tpu_torch.service.scheduler", "dkg_tpu_torch.net.party",
+            "dkg_tpu_torch.net.faults", "dkg_tpu_torch.groups.precompute", "dkg_tpu_torch.groups.device"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -384,6 +387,24 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcb.check_randomized_shares_batch(group, tgd.RISTRETTO255, env.commitment_key, [1], [1], [1], [()])
     assert tce.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_epoch_chaos_harness_defaults_to_cuda(tmp_path, monkeypatch):
+    """run_epochs_with_faults drives its EpochManagers on the card unless
+    the caller passes the CPU; the fixed-base table builders take their
+    device from the caller, and a CUDA device with no card raises."""
+    from dkg_tpu_torch.groups import precompute as tgp
+    from dkg_tpu_torch.net import faults as tnf
+
+    assert inspect.signature(tnf.run_epochs_with_faults).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    monkeypatch.setenv("DKG_TPU_TABLE_CACHE", str(tmp_path))
+    cs = tgd.RISTRETTO255
+    for build_table in (lambda: tgd.fixed_base_table_dev(cs, tgd.gen_host(cs), 4, device="cuda"),
+                        lambda: tgp.base_table(cs, tgd.gen_host(cs), 16, device="cuda")):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build_table()
 
 
 def test_build_needs_nvcc(monkeypatch):

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import edge_ints, edge_operands, point_limbs
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu.fields import host as jfh
 from dkg_tpu.groups import host as jgh

@@ -16,6 +16,7 @@ from dkg_tpu_torch.service.engine import CeremonyOutcome, CeremonyRequest
 from dkg_tpu_torch.service.faultsvc import ServiceFaultPlan
 from dkg_tpu_torch.utils import obslog
 from dkg_tpu_torch.utils.metrics import MetricsRegistry
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 SAMPLES = {
     "epoch_head": dict(round=4, op=1, step=1, op_kind="refresh"),

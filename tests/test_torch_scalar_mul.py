@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import point_limbs, point_tuples, same, to_np, to_torch
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu.fields import host as jfh
 from dkg_tpu.groups import device as jgd

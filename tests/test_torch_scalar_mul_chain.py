@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import field_limbs, point_limbs, to_torch
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu_torch.groups import device as tgd
 from dkg_tpu_torch.ops import build

@@ -248,9 +248,9 @@ def test_run_chunked_matches_jax(jax_round1, chunked_run, monkeypatch):
 
 def test_run_trace_phases_match_jax(jax_round1, chunked_run, monkeypatch):
     """run(trace=...) records the JAX engine's phases, fiat_shamir's
-    sub-timings and meta curve / n / t / digest_dispatch (the JAX run's
-    heavy programs stubbed to its round 1: only its orchestration and host
-    digest run); its table_cache meta waits for the port's precompute."""
+    sub-timings and meta curve / n / t / digest_dispatch / table_cache (the
+    JAX run's heavy programs stubbed to its round 1: only its orchestration
+    and host digest run)."""
     jc, r1 = jax_round1
     _, out, trace = chunked_run
     monkeypatch.setenv("DKG_TPU_DIGEST", "host")
@@ -262,7 +262,8 @@ def test_run_trace_phases_match_jax(jax_round1, chunked_run, monkeypatch):
     jc.run(trace=jtrace)
     assert set(trace.timings_s) == set(jtrace.timings_s) == set(out["phase_seconds"])
     assert {k: set(v) for k, v in trace.subtimings_s.items()} == {k: set(v) for k, v in jtrace.subtimings_s.items()}
-    assert set(trace.meta) == set(jtrace.meta) - {"table_cache"}
+    assert set(trace.meta) == set(jtrace.meta)
+    assert set(trace.meta["table_cache"]) == set(jtrace.meta["table_cache"])
     assert all(trace.meta[k] == jtrace.meta[k] for k in ("curve", "n", "t"))
     assert trace.meta["digest_dispatch"] == "device" and trace.timings_s["tables"] == out["phase_seconds"]["tables"]
 

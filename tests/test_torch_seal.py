@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from torch_port_util import same, to_torch
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 from dkg_tpu.crypto.elgamal import HybridCiphertext as JaxHybridCiphertext
 from dkg_tpu.dkg import ceremony as jce

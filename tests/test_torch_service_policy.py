@@ -34,6 +34,7 @@ from dkg_tpu_torch.service.faultsvc import ServiceFaultPlan
 from dkg_tpu_torch.service.scheduler import CeremonyScheduler, QueueFullError
 from dkg_tpu_torch.utils.metrics import MetricsRegistry
 from dkg_tpu_torch.utils.obslog import ObsLog
+from torch_port_util import one_thread  # noqa: F401  (one intra-op thread for this module)
 
 CURVE = "ristretto255"
 N, T = 5, 2  # buckets to (8, 2): the smallest ladder rung
