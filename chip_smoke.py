@@ -21,10 +21,12 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    calls, SLOW_REPS for a call of SLOW_MS or more, the operands' broadcast
    copies included; the bucket kernels' plain versions, m or 2 (2**c - 1)
    sequential steps, once, the Weierstrass bucket_accumulate's (off every
-   path) on the first 128 of its m points, the kernel held at the full
-   shape to its route, as its row's plain_cut says, pt_bucket_close's with
+   path) on the first BUCKET_PLAIN_CUT = 32 of its m points, the kernel
+   held at the full shape to its route, as its row's plain_cut says,
+   pt_bucket_close's on its first CLOSE_PLAIN_COLUMNS = 32 columns with
    its random case of the same window in the same pass, as its row's
-   plain_folded says;
+   plain_rows and plain_folded say; the KEM window step's on the first
+   KEM_PLAIN_LANES = 65,536 of its n * n lanes;
    some other plain versions on the first rows of the path's shape, as
    each row's plain_rows says).  Each kernel line ends with
    the seconds its checks took.  Every
@@ -295,6 +297,27 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    reshare, the leavers left, the joiners' shares verify against the new
    commitments on the host; the epoch storms' launches printed (each of
    mod_madd_horner, pt_fixed_base, pt_ladder_horner and pt_scalar_mul > 0).
+12b. The party mesh (dkg_tpu_torch.parallel) and the native host
+   runtime.  M0: the native runtime (g++ -O3 at first use) built, its
+   seconds printed, and its constant-structure ladder scalar_mul_ct equal
+   limb for limb to the Python ladder _scalar_mul_ladder at scalars 0, 1,
+   order - 1 and 8 seeded ones on each curve.  M1: NCCL at world size 1
+   in this process, run_sharded_ceremony on the secp256k1 n=1024 t=341
+   path's coefficients and tables, its outputs (rho, the digest, ok,
+   final shares, qualified, the master key by limbs) equal to that path's
+   Pippenger main run's, each of the path's kernels launched.  M2: four
+   gloo ranks sharing the card (parallel.hostmesh.spawn, one spawn; gloo
+   takes the CUDA tensors as they are and copies through the host
+   itself): X1 (secp256k1 n=4096 t=1365,
+   its card-made coefficients drawn again from X1's seed on each rank)
+   equal to X1's one-pass run (rho, the digest, ok, final shares, the
+   master key by limbs), each of its kernels launched on every rank;
+   ristretto255 n=256 t=85 with one tampered share: sharded blame names
+   its dealer alone, the re-finalise equals the unsharded tampered run,
+   and seal_shares_mesh's blocks, joined in rank order, are byte-equal to
+   one seal_shares_pipeline.  Each rank's phase seconds, collective
+   seconds and bytes by op, peak device memory and exact launches are
+   printed.  Any failed rank fails the run.
 13. Prints one JSON line of per-kernel numbers (launches: the count the
    first main path that launched the kernel read, Straus before the seal
    before signing before Pippenger before gemm before the committee,
@@ -322,6 +345,7 @@ import concurrent.futures
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import multiprocessing
 import os
@@ -337,11 +361,12 @@ import types
 import numpy as np
 import torch
 
+from dkg_tpu_torch import native
 from dkg_tpu_torch import sign as ts
 from dkg_tpu_torch.crypto import device_hash as dh
 from dkg_tpu_torch.crypto import dleq_batch
 from dkg_tpu_torch.crypto.blake2s import row_digests_np
-from dkg_tpu_torch.crypto.elgamal import seal_pair
+from dkg_tpu_torch.crypto.elgamal import Keypair, seal_pair
 from dkg_tpu_torch.dkg import broadcast as bc
 from dkg_tpu_torch.dkg import ceremony as cer
 from dkg_tpu_torch.dkg import committee as cm
@@ -369,6 +394,8 @@ from dkg_tpu_torch.ops import build
 from dkg_tpu_torch.ops import field_kernels as fk
 from dkg_tpu_torch.ops import mxu_kernels as mk
 from dkg_tpu_torch.ops import point_kernels as pk
+from dkg_tpu_torch.parallel import hostmesh
+from dkg_tpu_torch.parallel import mesh as pm
 from dkg_tpu_torch.poly import device as pd
 from dkg_tpu_torch.poly.host import lagrange_interpolation
 from dkg_tpu_torch import service as svc
@@ -1108,13 +1135,23 @@ BUCKET_RANDOM = {
     "ristretto255": ((4, False, 5, 37, 30), (8, True, 3, 37, 32)),
     "bls12_381_g1": ((4, True, 3, 37, 64), (8, False, 5, 37, 32)),
 }
-# points on which the Weierstrass bucket_accumulate's plain version (off
-# every path since pt_bucket_sum: m sequential steps, 44-60 s at m = 1024
-# on a slow host) is held and timed; the kernel at the path's full shape is
-# held exactly to pt_bucket_sum there (its route), which is held to its own
-# plain version.  The Edwards one (verify_partials' per-row digits) is held
-# on all its points
+# random scatter passes of more points than this are held to
+# pt_bucket_sum, not to the m sequential steps of the plain version
 BUCKET_PLAIN_POINTS = 128
+# points on which the Weierstrass bucket_accumulate's plain version (off
+# every path since pt_bucket_sum: m sequential steps, each a plain add of
+# about 1,000 small launches, 36 ms on the card) is held and timed at the
+# path's shape; the kernel at the path's full shape is held exactly to
+# pt_bucket_sum there (its route), which is held to its own plain
+# version.  The Edwards one (verify_partials' per-row digits) is held on
+# all its points
+BUCKET_PLAIN_CUT = 32
+# the path's columns on which pt_bucket_close's plain version (2**c
+# sequential stacked adds) is held and timed; the kernel's first columns
+# at the full shape are held to it, and the whole shape to its route
+CLOSE_PLAIN_COLUMNS = 32
+# the KEM window step's lanes (of n * n) held to, and timing, its plain version
+KEM_PLAIN_LANES = 1 << 16
 
 
 def rand_digits(rng, shape: tuple, window: int) -> torch.Tensor:
@@ -1297,8 +1334,8 @@ def kernel_cases(rng) -> dict:
             [points((t + 1, n)), pk.window_digits(rho, window)[:, :nw].contiguous()],
             add_c * (t + 1) * n * nw, plain_reps=1,
             plain_cut=None if cs.name == "ristretto255" else (
-                f"the first {BUCKET_PLAIN_POINTS} of {n} points",
-                lambda p, d: (p[:, :BUCKET_PLAIN_POINTS], d[:BUCKET_PLAIN_POINTS])))
+                f"the first {BUCKET_PLAIN_CUT} of {n} points",
+                lambda p, d: (p[:, :BUCKET_PLAIN_CUT], d[:BUCKET_PLAIN_CUT])))
         # its redesign for the RLC's shared digits, pt_bucket_sum: the same
         # commitments held as the ceremony holds them, (n, t+1), read as
         # (t+1, n) through strides, against its route (bucket_accumulate's
@@ -1374,7 +1411,8 @@ def kernel_cases(rng) -> dict:
         f_label, f_wrapper, _, f_args = close_rand.pop((4, 8).index(window))
         cases[bk.close_kernel_for(cs).name] = Case(
             path, *bucket_close_fns(cs), close_rand, [points((nw, nb, t + 1)).movedim(2, 0)],
-            add_c * (t + 1) * nw * 2 * nb, plain_reps=1, route=lambda b, cs=cs: close_route(cs, b),
+            add_c * (t + 1) * nw * 2 * nb, plain_reps=1, plain_rows=min(CLOSE_PLAIN_COLUMNS, t + 1),
+            route=lambda b, cs=cs: close_route(cs, b),
             folded=([(f_label, f_wrapper, f_args)], close_join, close_split))
         # one Horner step of eval_point_poly: acc (n,), D_l one point, x = 1..n
         x_rand = torch.from_numpy(rng.integers(0, 1 << path.index_bits, size=R).astype(np.int32)).to(DEV)
@@ -1403,13 +1441,17 @@ def kernel_cases(rng) -> dict:
         # and, in its own row, the Pippenger combine's at k = 8 (c = 8 at
         # n = 1024; ristretto255's n = 256 combine runs c = 4, the Straus
         # row's shape); and in a third row the KEM's scalar_mul step over
-        # all n * n pairs (k = 4), its plain version timed once
+        # all n * n pairs (k = 4), its plain version timed once on the
+        # first KEM_PLAIN_LANES lanes (the entries cut to the same lanes)
         for k, suffix, m in ((gd.WINDOW, "", t + 1), (8, " k=8", t + 1), (gd.WINDOW, " KEM", n * n)):
             step = point_fns(cs, "pt_window_step", k)
             rand = [] if suffix == " KEM" else [(f"{lanes}, k={k}", *step, [points(R), points(R)])]
+            kem = suffix == " KEM"
+            if kem:
+                step = (step[0], lambda acc, entry, plain=step[1]: plain(acc, entry[:acc.shape[0]]))
             cases[name("pt_window_step") + suffix] = Case(
                 path, *step, rand, [points((m,)), points((m,))], (k * dbl_c + add_c) * m,
-                plain_reps=1 if suffix == " KEM" else 2)
+                plain_reps=1 if kem else 2, plain_rows=min(KEM_PLAIN_LANES, m) if kem else None)
         # pt_double at k = 1 and 4, off every path (each window step is one
         # pt_window_step launch), timed at the Straus window step's shape:
         # 4 doublings over t+1 columns
@@ -2492,6 +2534,13 @@ def card_coeffs(fs, n: int, t: int, gen: torch.Generator) -> torch.Tensor:
     return limbs
 
 
+def x1_coeffs(seed: int) -> list:
+    """X1's coefficients a and b, made on the card from X1's seed: the same
+    in every process on the same card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4096)
+    return [card_coeffs(X1.cs.scalar, X1.n, X1.t, gen) for _ in range(2)]
+
+
 def scale_run(path: Path, c: cer.BatchedCeremony, label: str, **kw) -> tuple[dict, dict, float]:
     """c.run(rlc="pippenger", **kw) with every launch count set to 0 just
     before and read just after; each kernel of the path must launch, and
@@ -2540,18 +2589,16 @@ def tampered_verify(path: Path, c: cer.BatchedCeremony, out: dict) -> float:
     return seconds
 
 
-def x1_phase(seed: int, card: str) -> dict:
+def x1_phase(seed: int, card: str) -> tuple[dict, dict]:
     """X1: secp256k1 n = 4096, t = 1365 on card-made coefficients, in one
     pass (chunk=0) and in the default chunked flow: rho, ok (all true),
     final shares, master and the transcript digest identical; the master
     and two bare commitments A[j, l] against the host; then the tampered
-    share."""
+    share.  Returns the launches and the one-pass outputs (M2's reference)."""
     t_phase = time.perf_counter()
     path = X1
     cs, n, t = path.cs, path.n, path.t
-    gen = torch.Generator(device=DEV).manual_seed(seed + 4096)
-    coeffs = [card_coeffs(cs.scalar, n, t, gen) for _ in range(2)]
-    c = cer.BatchedCeremony.from_arrays(path.curve, n, t, path.shared, *coeffs, device=DEV)
+    c = cer.BatchedCeremony.from_arrays(path.curve, n, t, path.shared, *x1_coeffs(seed), device=DEV)
     one, launches, _ = scale_run(path, c, "one pass", chunk=0)
     chunked, _, _ = scale_run(path, c, "default chunks")
     check(one["chunks"]["deal"] == 0 and 0 < chunked["chunks"]["deal"] < n, f"X1 chunks {chunked['chunks']}")
@@ -2573,7 +2620,7 @@ def x1_phase(seed: int, card: str) -> dict:
     print(f"X1 {path.curve} n={n} t={t}: the one-pass and the chunked flow identical (digest, rho, ok, final "
           f"shares, master); the master and A{list(X1_COMMITMENTS)} match the host; "
           f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
-    return launches
+    return launches, {k: one[k].cpu() for k in MESH_OUTPUTS} | {"transcript": one["transcript"]}
 
 
 def x2_phase(seed: int, card: str) -> dict:
@@ -4524,6 +4571,166 @@ def storm_phase(card: str, started: tuple) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# the party mesh and the native runtime (M0-M2)
+# ---------------------------------------------------------------------------
+
+MESH_OUTPUTS = ("rho", "ok", "final_shares", "qualified", "master")
+MESH_WORLD = 4  # M2's gloo ranks on the one card
+MESH_TAMPER = (70, 200)  # M2's ristretto255 (dealer, recipient) of the tampered share: rank 1's dealer
+NATIVE_SEEDED = 8  # seeded scalars of M0's ladder check a curve (with 0, 1, order - 1)
+
+
+def native_check(card: str, build_s: float) -> None:
+    """M0: scalar_mul_ct limb for limb the Python ladder on each curve."""
+    t0 = time.perf_counter()
+    rng = random.Random(0x4E41)
+    for curve, group in gh.ALL_GROUPS.items():
+        q = group.scalar_field.modulus
+        nc = gh._native_curve(group)
+        base = group._scalar_mul_ladder(rng.randrange(1, q), group.generator())  # Z != 1
+        ks = [0, 1, q - 1] + [rng.randrange(q) for _ in range(NATIVE_SEEDED)]
+        got = nc.decode_points(nc.scalar_mul_ct(ks, nc.encode_points([base] * len(ks)), q))
+        for k, g in zip(ks, got):
+            check(g == group._scalar_mul_ladder(k, base), f"M0 {curve}: scalar_mul_ct({k}) != _scalar_mul_ladder")
+            check(group.scalar_mul(k, base) == g, f"M0 {curve}: scalar_mul({k}) did not take the native ladder")
+    print(f"mesh M0 ({card}): native runtime built in {build_s:.3f} s (g++ -O3, {native.library_path().name}); "
+          f"scalar_mul_ct equal limb for limb to _scalar_mul_ladder at 0, 1, order - 1 and {NATIVE_SEEDED} "
+          f"seeded scalars on {', '.join(gh.ALL_GROUPS)}; {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def mesh_equal(tag: str, ranks: list, want: dict) -> None:
+    """The ranks' outputs, joined in rank order where they are the rank's
+    recipients', equal to an unsharded run's, the master key by limbs."""
+    for r, out in enumerate(ranks):
+        for k in ("rho", "qualified", "master"):
+            check(torch.equal(out[k].cpu(), want[k].cpu()), f"{tag}: rank {r}'s {k} differs from the unsharded run")
+        check(out["transcript"] == want["transcript"], f"{tag}: rank {r}'s transcript digest differs")
+    for k in ("ok", "final_shares"):
+        check(torch.equal(torch.cat([o[k].cpu() for o in ranks]), want[k].cpu()),
+              f"{tag}: the ranks' {k} differ from the unsharded run")
+
+
+def mesh_report(tag: str, rank: int, out: dict, launches: dict, peak_gib: float) -> str:
+    cols = {op: {"calls": v["calls"], "bytes": v["bytes"], "seconds": round(v["seconds"], 6)}
+            for op, v in out["collectives"].items()}
+    return (f"mesh {tag} rank {rank}: phases " + json.dumps({k: round(v, 6) for k, v in out["phases_s"].items()})
+            + "; collectives " + json.dumps(cols) + f"; peak device memory {peak_gib:.3f} GiB; launches "
+            + json.dumps(launches))
+
+
+def mesh_tamper(cfg, mesh: pm.PartyMesh, dealer: int, recipient: int):
+    """s[dealer, recipient] + 1 on the rank that holds the dealer."""
+    fs = cfg.cs.scalar
+    start, stop = mesh.span(cfg.n) if mesh is not None else (0, cfg.n)
+
+    def tamper(a, e, s, r):
+        if start <= dealer < stop:
+            s = s.clone()
+            s[dealer - start, recipient] = fd.add(fs, s[dealer - start, recipient], fd.ones(fs, device=s.device))
+        return a, e, s, r
+
+    return tamper
+
+
+def mesh_stage(mesh: pm.PartyMesh, kernels: tuple, fn) -> tuple[dict, dict, float]:
+    """``fn()`` with every count and the rank's collective stats set to 0
+    just before and read just after; each of ``kernels`` must launch.
+    Returns the outputs, the launches and the peak device GiB."""
+    counts_zero()
+    mesh.stats.clear()
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    out = fn()
+    torch.cuda.synchronize(mesh.device)
+    launches = counts_read()
+    for k in kernels:
+        check(launches.get(k.name, 0) > 0, f"mesh rank {mesh.rank}: kernel {k.name} was not launched")
+    return out, launches, torch.cuda.max_memory_allocated(mesh.device) / 2**30
+
+
+def mesh_rank(mesh: pm.PartyMesh, seed: int, seal_inputs: tuple) -> dict:
+    """M2 on one rank: X1, then the tampered ristretto255 ceremony with
+    its seal.  Runs in a process of its own (hostmesh.spawn)."""
+    x1 = cer.BatchedCeremony.from_arrays(X1.curve, X1.n, X1.t, X1.shared, *x1_coeffs(seed), device=mesh.device)
+    out_x1, l_x1, peak_x1 = mesh_stage(mesh, X1.kernels, lambda: pm.run_sharded_ceremony(
+        x1.cfg, mesh, x1.coeffs_a, x1.coeffs_b, x1.g_table, x1.h_table, RHO_BITS))
+    check(bool(out_x1["ok"].all()), f"M2 X1 rank {mesh.rank}: a batch check failed")
+    del x1
+    r255 = R255.pippenger()
+    c = cer.BatchedCeremony(r255.curve, r255.n, r255.t, r255.shared, random.Random(seed), device=mesh.device)
+    group, pks, r_enc = seal_inputs
+    seal = (group, pks.to(mesh.device), r_enc.to(mesh.device))
+    out_r, l_r, peak_r = mesh_stage(mesh, r255.kernels, lambda: pm.run_sharded_ceremony(
+        c.cfg, mesh, c.coeffs_a, c.coeffs_b, c.g_table, c.h_table, RHO_BITS,
+        tamper=mesh_tamper(c.cfg, mesh, *MESH_TAMPER), seal=seal))
+    for out in (out_x1, out_r):
+        del out["events"]
+    return {"x1": (out_x1, l_x1, peak_x1), "r255": (out_r, l_r, peak_r)}
+
+
+def mesh_phase(card: str, seed: int, native_s: float, secp_ref: dict, x1_ref: dict) -> dict:
+    """M0-M2 (module docstring, step 12b).  Returns M1's launches."""
+    t_phase = time.perf_counter()
+    native_check(card, native_s)
+
+    # M1: NCCL at world size 1, in this process
+    path = SECP.pippenger()
+    cfg = cer.CeremonyConfig(path.curve, path.n, path.t)
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{hostmesh.free_port()}",
+                                         world_size=1, rank=0)
+    try:
+        mesh = pm.make_mesh(1, device=DEV)
+        check(mesh.backend == "nccl" and mesh.world == 1, f"M1: mesh {mesh.backend} x {mesh.world}")
+        out, l_m1, peak = mesh_stage(mesh, path.kernels, lambda: pm.run_sharded_ceremony(
+            cfg, mesh, secp_ref["coeffs_a"], secp_ref["coeffs_b"], secp_ref["g_table"], secp_ref["h_table"],
+            RHO_BITS))
+    finally:
+        torch.distributed.destroy_process_group()
+    mesh_equal("M1 (nccl, world 1)", [out], secp_ref)
+    print(mesh_report(f"M1 nccl world 1 {path.tag}", 0, out, l_m1, peak), flush=True)
+    print(f"mesh M1 ({card}): {path.tag} over NCCL at world size 1 equals the Pippenger main run (rho, digest, "
+          f"ok, final shares, qualified, master by limbs); {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del out
+
+    # M2: four gloo ranks on the card, one spawn
+    t_m2 = time.perf_counter()
+    r255 = R255.pippenger()
+    c = cer.BatchedCeremony(r255.curve, r255.n, r255.t, r255.shared, random.Random(seed), device=DEV)
+    group = gh.ALL_GROUPS[r255.curve]
+    krng = random.Random(seed + 0x3E5)
+    pks = gd.from_host(r255.cs, [Keypair.generate(group, krng).pk for _ in range(r255.n)], device="cpu")
+    fs = r255.cs.scalar
+    r_enc = fh.to_tensor(fh.encode(fs, [[fs.rand_int(krng) for _ in range(r255.n)] for _ in range(r255.n)]), "cpu")
+    ref = c.run(tamper=mesh_tamper(c.cfg, None, *MESH_TAMPER))
+    want_seal = hb.seal_shares_pipeline(group, c.cfg, ref["shares"], ref["hidings"], pks.to(DEV), r_enc.to(DEV),
+                                        c.g_table)
+    gc.collect()
+    torch.cuda.empty_cache()  # the caching allocator's free blocks back to the card, for the ranks
+    ranks = hostmesh.spawn(mesh_rank, MESH_WORLD, backend="gloo", device=DEV, args=(seed, (group, pks, r_enc)),
+                           timeout=900)
+    spawn_s = time.perf_counter() - t_m2
+    x1 = [r["x1"] for r in ranks]
+    mesh_equal(f"M2 X1 (gloo, world {MESH_WORLD})", [o for o, _, _ in x1], x1_ref)
+    rr = [r["r255"] for r in ranks]
+    j0 = MESH_TAMPER[0]
+    for o, _, _ in rr:
+        check(o["qualified"].tolist() == [j != j0 for j in range(r255.n)],
+              f"M2 ristretto255: sharded blame did not name dealer {j0 + 1} alone")
+    mesh_equal(f"M2 ristretto255 tampered (gloo, world {MESH_WORLD})", [o for o, _, _ in rr], ref)
+    got_seal = [row for o, _, _ in rr for row in o["broadcasts"]]
+    check(got_seal == want_seal, "M2: seal_shares_mesh's blocks differ from seal_shares_pipeline")
+    for tag, runs in (("M2 X1 " + X1.tag, x1), ("M2 " + r255.tag + " tampered, sealed", rr)):
+        for rank, (o, launches, peak) in enumerate(runs):
+            print(mesh_report(tag, rank, o, launches, peak), flush=True)
+    print(f"mesh M2 ({card}): {MESH_WORLD} gloo ranks sharing the card in one spawn ({spawn_s:.1f} s with the "
+          f"unsharded reference and its seal): X1 equals X1's one-pass run (rho, digest, ok, final shares, "
+          f"master by limbs); ristretto255 n={r255.n}: dealer {j0 + 1}'s tampered share blamed alone, the "
+          f"re-finalise equal to the unsharded tampered run, seal_shares_mesh byte-equal to seal_shares_pipeline "
+          f"({len(got_seal)} dealers' rows); gloo with CUDA tensors, not NCCL's times; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return l_m1
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4544,6 +4751,9 @@ def main() -> None:
     table_cache = tempfile.TemporaryDirectory(prefix="dkg-fb-run-")
     os.environ["DKG_TPU_TABLE_CACHE"] = table_cache.name
 
+    t_native = time.perf_counter()
+    native.build()  # the secret-scalar ladder every host group runs, before any process needs it
+    native_s = time.perf_counter() - t_native
     storm = storm_start()  # the storm's host-only ceremonies, in a worker beside the build
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(build.SOURCES)}", flush=True)
@@ -4584,6 +4794,10 @@ def main() -> None:
         _, pip_out, pip_launches = main_path(pip, args.seed)
         same_outputs(pip.tag, pip_out, out)
         keep(pip_launches)
+        if path is SECP:  # M1's reference: the Pippenger run, its coefficients and tables
+            secp_ref = {k: pip_out[k] for k in MESH_OUTPUTS} | {
+                "transcript": pip_out["transcript"], "coeffs_a": c.coeffs_a, "coeffs_b": c.coeffs_b,
+                "g_table": c.g_table, "h_table": c.h_table}
         print(f"main path {pip.tag}: every output equals the Straus run's; verify phase (host clock, s) "
               f"straus {out['phase_seconds']['verify']:.6f}, pippenger {pip_out['phase_seconds']['verify']:.6f}",
               flush=True)
@@ -4599,7 +4813,8 @@ def main() -> None:
         rlc_schedules(path, c, out)
         stamp(f"{path.curve}: Pippenger and gemm runs, RLC schedules")
         del c, out
-    keep(x1_phase(args.seed, card))
+    x1_launches, x1_ref = x1_phase(args.seed, card)
+    keep(x1_launches)
     stamp("X1: secp256k1 n=4096")
     keep(x2_phase(args.seed, card))
     stamp("X2: BLS12-381 G1 n=16384")
@@ -4617,6 +4832,9 @@ def main() -> None:
     stamp("ceremony service")
     keep(storm_phase(card, storm))
     stamp("chaos storm")
+    keep(mesh_phase(card, args.seed, native_s, secp_ref, x1_ref))
+    del secp_ref, x1_ref
+    stamp("party mesh")
 
     rows = []
     for name, rec in numbers.items():

@@ -8,8 +8,9 @@ is one state batch (:func:`chacha20_block_batch`,
 form.  Both run one quarter-round definition (:func:`_quarter` indexes
 the leading axis), so they cannot drift.  The batch is kept word-major,
 ``(16, N)``, so each step of a quarter round is one contiguous array op
-over all N states.  The JAX package's native ChaCha20 is not ported: its
-output is the same bytes.
+over all N states.  The native single-buffer ChaCha20
+(``native.chacha20_xor``, which the recipients' opens run) gives the same
+bytes.
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ A JAX-free copy of ``dkg_tpu/crypto/elgamal.py``, the same values and
 the same bytes on the wire.  ``group`` is a ``groups.host`` group.  A
 (share, hiding) pair is sealed under one KEM point with two KDF
 personalisations (:data:`PERSON_SHARE`, :data:`PERSON_RAND`); the
-batched dealing round is ``dkg/hybrid_batch.py``.
+batched dealing round is ``dkg/hybrid_batch.py``.  The opens
+(:func:`hybrid_decrypt_with_key`, :func:`hybrid_decrypt`) run the native
+single-buffer ChaCha20 (``native.chacha20_xor``); the seals the port's
+Python ChaCha20, as the JAX package's do: the same keystream.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass
 
+from .. import native
 from .chacha import chacha20_xor
 
 
@@ -172,7 +176,7 @@ def hybrid_decrypt_with_key(group, symm: SymmetricKey, c: HybridCiphertext,
                             person: bytes = PERSON_SHARE) -> bytes:
     """Decrypt with a disclosed KEM key (the complaint check's path)."""
     key, nonce = _keystream_params(group, symm.point, person)
-    return chacha20_xor(key, nonce, c.ciphertext)
+    return native.chacha20_xor(key, nonce, c.ciphertext)
 
 
 def hybrid_decrypt(group, sk: int, c: HybridCiphertext, person: bytes = PERSON_SHARE) -> bytes:

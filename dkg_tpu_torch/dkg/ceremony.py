@@ -41,7 +41,8 @@ commitments pass makes it (``deal_commitments_a0``).  Every loop is
 defaults come from the card's free memory, and on the CPU and at every n
 <= 1024 they are one pass.  ``matmul=True`` routes ``eval_many`` and the
 scalar RLCs through ``fields.matmul.matmul_mod`` (the JAX package's
-DKG_TPU_MXU=1).
+DKG_TPU_MXU=1).  :func:`sharded_transcript_digest` is the digest of a
+party mesh's dealer blocks (``parallel.mesh``).
 
 Every function takes tensors on one device.  On the card the point and
 field work goes through the CUDA kernels of ``dkg_tpu_torch/csrc``; on
@@ -546,6 +547,32 @@ def transcript_digest_device(cfg: CeremonyConfig, a_comm, e_comm, shares, hiding
     every chunk."""
     return _fold_digest_device(cfg, *transcript_rows_chunked(cfg, a_comm, e_comm, shares, hidings, chunk,
                                                              digest=digest, mul=mul))
+
+
+def sharded_transcript_digest(cfg: CeremonyConfig, mesh, a_comm, e_comm, shares, hidings) -> bytes:
+    """:func:`transcript_digest_device` over a party mesh (``parallel.mesh``):
+    each rank row-digests its own dealers (:func:`transcript_rows_chunked`,
+    on the card in chunks budgeted from the rank's share of the free
+    memory, in one pass on the CPU), one ``all_gather`` moves the three
+    (block, 8) row arrays, and every rank folds the same digest.  A row
+    depends only on its dealer's tensors, so the bytes equal
+    :func:`transcript_digest_device` on the unsharded tensors and every
+    rank derives the same rho.  The four tensors must share one dealer
+    layout: all the rank's block, or all n dealers (replicated, hashed
+    whole on each rank); a mix raises ValueError (a wrong rho would be a
+    soundness fault, not a crash)."""
+    rows_n = [x.shape[0] for x in (a_comm, e_comm, shares, hidings)]
+    block = mesh.block(cfg.n)
+    if len(set(rows_n)) != 1 or rows_n[0] not in (block, cfg.n):
+        raise ValueError("sharded_transcript_digest: round-1 tensors must share one dealer-axis layout (all the "
+                         f"rank's {block} dealers or all {cfg.n}); got a/e/s/r dealer rows {rows_n}")
+    chunk = _digest_chunk_default(cfg, mesh.free_bytes()) if shares.device.type == "cuda" else 0
+    rows = transcript_rows_chunked(cfg, a_comm, e_comm, shares, hidings, chunk)
+    if rows_n[0] == cfg.n:  # replicated: every rank already holds every row
+        return _fold_digest_device(cfg, *rows)
+    local = torch.from_numpy(np.stack(rows).astype(np.int64)).to(shares.device)  # (3, block, 8)
+    gathered = mesh.all_gather(local).cpu().numpy().astype(np.uint32)  # (world, 3, block, 8)
+    return _fold_digest_device(cfg, *(gathered[:, i].reshape(cfg.n, 8) for i in range(3)))
 
 
 def _dealer_row_digests(shares_rows: np.ndarray, hidings_rows: np.ndarray) -> np.ndarray:

@@ -15,8 +15,13 @@ and the byte-level DEM tail is array-shaped (:func:`seal_shares_batch`):
 one ``groups.device.encode_batch`` of every KEM point (canonical affine
 form where the points are, one transfer), one BLAKE2b batch a tag
 (``crypto.blake2.kdf_batch``) and one ChaCha20 state batch a tag
-(``crypto.chacha.chacha20_xor_batch``).  :func:`seal_shares` is the
-per-pair reference leg; both legs give the same bytes.
+(``crypto.chacha.chacha20_xor_batch``, the numpy batch the JAX package
+seals with too).  :func:`seal_shares` is the per-pair reference leg;
+both legs give the same bytes.  The per-pair leg and the recipient's
+:func:`open_share` run the native single-buffer ChaCha20
+(``native.chacha20_xor``) and the opens the native constant-structure
+ladder (``groups.host``'s ``scalar_mul``), as the JAX package's do.
+:func:`seal_shares_mesh` seals a party mesh rank's dealer block.
 :func:`seal_shares_pipeline` chunks KEM and DEM over dealers so the host
 DEM of chunk k overlaps the device work of chunk k+1, and
 :func:`broadcasts_from_batch` packages a dealing round's commitments and
@@ -35,8 +40,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..crypto.blake2 import kdf_batch
-from ..crypto.chacha import chacha20_xor, chacha20_xor_batch
+from ..crypto.chacha import chacha20_xor_batch
 from ..crypto.elgamal import PERSON_RAND, PERSON_SHARE, HybridCiphertext, keystream_from_kem_bytes
 from ..fields import host as fh
 from ..groups import device as gd
@@ -95,7 +101,7 @@ def seal_shares(group, cfg, shares, hidings, c1, kem) -> list[list[tuple[HybridC
             for tag, limbs in ((PERSON_SHARE, shares[d, i]), (PERSON_RAND, hidings[d, i])):
                 key, nonce = keystream_from_kem_bytes(kem_bytes, tag)
                 msg = int(fh.decode(fs, limbs[None])[0]).to_bytes(fs.nbytes, "little")
-                cts.append(HybridCiphertext(c1_pts[i], chacha20_xor(key, nonce, msg)))
+                cts.append(HybridCiphertext(c1_pts[i], native.chacha20_xor(key, nonce, msg)))
             row.append((cts[0], cts[1]))
         out.append(row)
     return out
@@ -160,6 +166,27 @@ def seal_shares_pipeline(group, cfg, shares, hidings, pks_dev: torch.Tensor, r_e
     return out
 
 
+def seal_shares_mesh(group, cfg, mesh, shares, hidings, pks_dev: torch.Tensor, r_enc, g_table: torch.Tensor,
+                     chunk: int | None = None) -> list[list[tuple[HybridCiphertext, HybridCiphertext]]]:
+    """:func:`seal_shares_pipeline` on a party mesh rank (``parallel.mesh``):
+    the rank seals its own dealer block, ``shares`` and ``hidings``
+    (block, n, L), with its slice of ``r_enc`` (all n dealers' rows, or
+    the block's), the KEM and DEM chunk overlap running within the block.
+    Returns the block's sealed rows; dealer rows are independent, so the
+    ranks' blocks joined in rank order are byte-identical to one
+    :func:`seal_shares_pipeline` over the whole round, and the host holds
+    one block's share slab at a time (the JAX package's per-shard walk)."""
+    block = mesh.block(cfg.n)
+    if shares.shape[0] != block or hidings.shape[0] != block:
+        raise ValueError(f"seal_shares_mesh takes the rank's {block} dealer rows, got {shares.shape[0]}")
+    if r_enc.shape[0] == cfg.n:
+        start, stop = mesh.span(cfg.n)
+        r_enc = r_enc[start:stop]
+    elif r_enc.shape[0] != block:
+        raise ValueError(f"r_enc has {r_enc.shape[0]} dealer rows, expected {block} or {cfg.n}")
+    return seal_shares_pipeline(group, cfg, shares, hidings, pks_dev, r_enc, g_table, chunk=chunk)
+
+
 def open_share(group, sk: int, pair: tuple[HybridCiphertext, HybridCiphertext]) -> tuple[int | None, int | None]:
     """The recipient's decryption of one sealed (share, hiding) pair; a
     payload of the wrong length or not below the group order is None."""
@@ -169,7 +196,7 @@ def open_share(group, sk: int, pair: tuple[HybridCiphertext, HybridCiphertext]) 
     out = []
     for tag, ct in ((PERSON_SHARE, share_ct), (PERSON_RAND, hiding_ct)):
         key, nonce = keystream_from_kem_bytes(kem_bytes, tag)
-        pt = chacha20_xor(key, nonce, ct.ciphertext)
+        pt = native.chacha20_xor(key, nonce, ct.ciphertext)
         v = int.from_bytes(pt, "little") if len(pt) == fs.nbytes else None
         out.append(v if v is None or v < fs.modulus else None)
     return out[0], out[1]

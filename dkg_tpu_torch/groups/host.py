@@ -6,14 +6,18 @@ RCB15 addition, scalar multiplication, SEC-style encoding and decoding,
 try-and-increment hash-to-curve with cofactor clearing for the Pedersen
 base ``h``, the subgroup check) and the ristretto255 group over
 edwards25519 (unified extended addition, the RFC 9496 encode, decode,
-equality and one-way map, hash-to-group for ``h``).  Scalar
-multiplication is the pure-Python fixed-length Montgomery ladder (the
-JAX package's ``_scalar_mul_ladder``; its native constant-time runtime
-is not ported).  Python ints are not constant-time: table bases and test
-oracles are public, but a recipient's secret key goes through it in
-``dkg/hybrid_batch.open_share`` and ``crypto/elgamal.py``'s opens, so
-those are for tests and public replays until a constant-time ladder is
-ported.  ``random_scalar`` draws a scalar from the caller's ``rng``.
+equality and one-way map, hash-to-group for ``h``).  ``scalar_mul`` is
+the secret-scalar path (recipients' keys in ``dkg/hybrid_batch.open_share``
+and ``crypto/elgamal.py``'s opens, KEM randomness, the committee's
+phases): it runs the native constant-structure Montgomery ladder
+(``native.NativeCurve.scalar_mul_ct``: a fixed iteration count over the
+scalar field's bit length, a branchless masked swap, limb arithmetic
+with no value-dependent branch), over one context a group, as the JAX
+package routes it.  There is no Python fallback: a runtime that cannot
+be built raises.  The pure-Python ladder stays as the oracle,
+``_scalar_mul_ladder`` (the JAX package's name); it is limb for limb the
+native one, but Python ints are not constant-time, so it is for tests
+only.  ``random_scalar`` draws a scalar from the caller's ``rng``.
 The public-scalar API the signing path verifies with (``neg``, ``sub``,
 ``scalar_mul_vartime``, ``msm``, ``is_identity``) and the scalar codec
 the wire protocol seals shares with (``scalar_to_bytes``,
@@ -226,10 +230,11 @@ def ws_eq(p: WsPoint, q: WsPoint, prime: int) -> bool:
     return (x1 * z2 - x2 * z1) % prime == 0 and (y1 * z2 - y2 * z1) % prime == 0
 
 
-def _ladder(group, k: int, p):
+def _scalar_mul_ladder(group, k: int, p):
     """k·P by the fixed-length Montgomery ladder over the scalar field's
-    bit length (uniform add + double per bit; Python ints are not
-    constant-time, so public data only)."""
+    bit length (uniform add + double per bit): the oracle of the native
+    ladder, limb for limb.  Python ints are not constant-time, so tests
+    only."""
     k %= group.scalar_field.modulus
     r0, r1 = group.identity(), p
     for i in reversed(range(group.scalar_field.modulus.bit_length())):
@@ -241,6 +246,34 @@ def _ladder(group, k: int, p):
         if bit:
             r0, r1 = r1, r0
     return r0
+
+
+# Per-group native curve contexts of the secret-scalar path, made at a
+# group's first scalar_mul.
+_NATIVE_CURVES: dict = {}
+
+
+def _native_curve(group):
+    """The group's native context: ``"edwards"`` with 2d for ristretto255,
+    ``"weierstrass_a0"`` with 3b for secp256k1 and BLS12-381 G1."""
+    nc = _NATIVE_CURVES.get(group.name)
+    if nc is None:
+        from .. import native
+
+        if isinstance(group, Ristretto255):
+            nc = native.NativeCurve("edwards", P, 2 * D)
+        else:
+            nc = native.NativeCurve("weierstrass_a0", group.prime, 3 * group.b)
+        _NATIVE_CURVES[group.name] = nc
+    return nc
+
+
+def _scalar_mul_ct(group, k: int, p):
+    """k·P through the native constant-structure ladder (k reduced mod n)."""
+    nc = _native_curve(group)
+    out = nc.scalar_mul_ct([k % group.scalar_field.modulus], nc.encode_points([tuple(p)]),
+                           group.scalar_field.modulus)
+    return nc.decode_points(out)[0]
 
 
 def _person(domain: bytes) -> bytes:
@@ -344,7 +377,12 @@ class WeierstrassGroup(_PublicOps):
         return ws_eq(p, q, self.prime)
 
     def scalar_mul(self, k: int, p):
-        return _ladder(self, k, p)
+        """k·P for a SECRET k: the native constant-structure ladder."""
+        return _scalar_mul_ct(self, k, p)
+
+    def _scalar_mul_ladder(self, k: int, p):
+        """The Python ladder, the native one's oracle (tests only)."""
+        return _scalar_mul_ladder(self, k, p)
 
     def random_scalar(self, rng) -> int:
         return self.scalar_field.rand_int(rng)
@@ -458,7 +496,12 @@ class Ristretto255(_PublicOps):
         return ristretto_eq(p, q)
 
     def scalar_mul(self, k: int, p):
-        return _ladder(self, k, p)
+        """k·P for a SECRET k: the native constant-structure ladder."""
+        return _scalar_mul_ct(self, k, p)
+
+    def _scalar_mul_ladder(self, k: int, p):
+        """The Python ladder, the native one's oracle (tests only)."""
+        return _scalar_mul_ladder(self, k, p)
 
     def random_scalar(self, rng) -> int:
         return self.scalar_field.rand_int(rng)

@@ -1076,9 +1076,15 @@ class CeremonyScheduler:
             msgs.extend(p.msgs)
             rows.extend([sigma] * len(p.msgs))
         rows = np.asarray(rows)  # (B, L)
-        # one card: the JAX package's mesh-sharded rung (parallel.signmesh)
-        # and its executable store have no counterpart; each rung is one
-        # folded scalar_mul enqueued before the next rung is hashed
+        # DKG_TPU_SIGN_MESH=1: the rung ladder is mapped over the local
+        # devices (parallel.signmesh owns the device tuple; the lane just
+        # routes), limb-identical to the one-device rung; each rung is one
+        # folded scalar_mul a device, enqueued before the next rung is hashed
+        from ..parallel import signmesh
+
+        mesh = signmesh.sign_mesh()
+        if mesh is not None:
+            self.metrics.set_gauge("sign_mesh_devices", len(mesh))
         pending = []
         t_partial = 0.0
         for a, b in buckets.sign_rung_slices(len(msgs), self.sign_batch_max):
@@ -1088,7 +1094,11 @@ class CeremonyScheduler:
             )
             tp0 = time.monotonic()
             subs["hash_s"] += tp0 - th0
-            pending.append(signing.sign_folded(curve, rows[a:b], h_dev))
+            if mesh is not None:
+                self.metrics.inc("sign_mesh_rungs_total")
+                pending.append(signmesh.sign_folded_sharded(curve, rows[a:b], h_dev, mesh))
+            else:
+                pending.append(signing.sign_folded(curve, rows[a:b], h_dev))
             t_partial += time.monotonic() - tp0
         ta0 = time.monotonic()
         wire = signing.signature_encode(

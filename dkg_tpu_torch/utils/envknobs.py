@@ -10,7 +10,9 @@ through :func:`string` in ``net.checkpoint``; the service's
 ``DKG_TPU_SERVICE_*``, ``DKG_TPU_SIGN_*`` and ``DKG_TPU_SLO_*`` knobs
 through :func:`pos_int`, :func:`nonneg_float` and the rest in
 ``service.scheduler``, ``service.slo`` and ``service.httpobs``; the
-flight recorder's ``DKG_TPU_OBSLOG`` in ``utils.obslog``.  A typo raises ValueError
+flight recorder's ``DKG_TPU_OBSLOG`` in ``utils.obslog``; the sign
+lane's ``DKG_TPU_SIGN_MESH`` through :func:`choice` in
+``parallel.signmesh``.  A typo raises ValueError
 rather than selecting a default.  An EMPTY value is treated as unset:
 ``DKG_TPU_X= cmd`` is the shell idiom for clearing a knob on one
 invocation.
@@ -33,6 +35,18 @@ def pos_int(name: str, what: str) -> int | None:
     if v < 1:
         raise ValueError(f"{name}={env!r}: expected a positive integer ({what})")
     return v
+
+
+def choice(name: str, options: tuple, what: str) -> str | None:
+    """None when ``name`` is unset (or empty), else its value, which must
+    be one of ``options`` (a tuple of accepted strings): an enum knob
+    selects a path, and a typo must fail loudly, not run the default."""
+    env = os.environ.get(name)
+    if not env:
+        return None
+    if env not in options:
+        raise ValueError(f"{name}={env!r}: expected one of {', '.join(repr(o) for o in options)} ({what})")
+    return env
 
 
 def nonneg_float(name: str, what: str) -> float | None:

@@ -197,3 +197,49 @@ def test_audit_transcript_digest_matches_jax(jax_runs):
     rho = tce.derive_rho(cfg, *map(to_torch, arrays), 128, device=False, mul="gemm")
     assert np.array_equal(rho, np.asarray(jce.derive_rho(jc.cfg, *(jnp.asarray(x) for x in arrays), 128,
                                                          device=False)))
+
+
+# ---------------------------------------------------------------------------
+# the party-sharded ceremony (parallel.mesh) over gloo ranks
+# ---------------------------------------------------------------------------
+
+MESH_PLANS = {2: (HONEST, ONE_BAD, TOO_MANY), 4: (HONEST,)}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs():
+    """run_sharded_ceremony on every rank of one spawn a world size, per
+    tamper plan, on the coefficients and tables the honest test holds
+    equal to the JAX package's."""
+    from torch_mesh_util import run_plans
+
+    from dkg_tpu_torch.parallel import hostmesh
+
+    tc = tce.BatchedCeremony(CURVE, N, T, SHARED, random.Random(SEED), device="cpu")
+    return {world: dict(zip(plans, zip(*hostmesh.spawn(
+        run_plans, world, device="cpu", threads=1,
+        args=(CURVE, N, T, tc.coeffs_a, tc.coeffs_b, tc.g_table, tc.h_table, plans)))))
+        for world, plans in MESH_PLANS.items()}
+
+
+@pytest.mark.parametrize("world,plan", [(2, HONEST), (4, HONEST), (2, ONE_BAD)])
+def test_sharded_ceremony_matches_jax(jax_runs, mesh_runs, world, plan):
+    """rho, ok, the final shares and the qualified mask exactly, and the
+    master key limb for limb (at n = 4 over 2 or 4 ranks the tree pairs the
+    points as the JAX package's tree of 4 does)."""
+    jc, jout = jax_runs[plan]
+    ranks = mesh_runs[world][plan]
+    for out in ranks:
+        assert np.array_equal(to_np(out["rho"]), _jax_rho(jc.cfg, jout))
+        assert out["qualified"].tolist() == np.asarray(jout["qualified"]).tolist()
+        assert np.array_equal(to_np(out["master"]), np.asarray(jout["master"]))
+    assert torch.cat([o["ok"] for o in ranks]).tolist() == np.asarray(jout["ok"]).tolist()
+    assert np.array_equal(to_np(torch.cat([o["final_shares"] for o in ranks])), np.asarray(jout["final_shares"]))
+
+
+def test_sharded_ceremony_aborts_past_t_like_jax(jax_runs, mesh_runs):
+    _, jout = jax_runs[TOO_MANY]
+    guilty = sorted({dealer for _, dealer in jout["complaints"]})
+    for out in mesh_runs[2][TOO_MANY]:
+        assert out["error"] == jout["error"].kind.value == DkgErrorKind.MISBEHAVIOUR_HIGHER_THRESHOLD.value
+        assert out["detail"] == "guilty dealers (1-based): " + ", ".join(map(str, guilty))

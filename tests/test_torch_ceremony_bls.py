@@ -139,3 +139,35 @@ def test_bls_audit_digest_matches_jax(jax_runs):
     cfg = tce.CeremonyConfig(CURVE, N, T)
     tensors = [torch.from_numpy(x.astype(np.int32)) for x in arrays]
     assert tce.transcript_digest(cfg, *tensors) == jce.transcript_digest(jc.cfg, *arrays)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(port):
+    """run_sharded_ceremony over 3 gloo ranks (one dealer each), honest
+    and tampered, in one spawn."""
+    from torch_mesh_util import run_plans
+
+    from dkg_tpu_torch.parallel import hostmesh
+
+    plans = ((), BAD)
+    ranks = hostmesh.spawn(run_plans, 3, device="cpu", threads=1, args=(CURVE, N, T, port.coeffs_a, port.coeffs_b,
+                                                          port.g_table, port.h_table, plans, RHO_BITS))
+    return {plan is BAD: [outs[k] for outs in ranks] for k, plan in enumerate(plans)}
+
+
+@pytest.mark.parametrize("tampered", [False, True])
+def test_sharded_bls_ceremony_over_three_ranks_matches_jax(jax_runs, mesh_runs, tampered):
+    """rho, ok, the final shares and the qualified mask exactly; the master
+    key limb for limb too (each rank's tree of one dealer is its point, so
+    the gathered tree of 3 is the JAX package's)."""
+    jc, jout = jax_runs[tampered]
+    ranks = mesh_runs[tampered]
+    rho = np.asarray(jce.derive_rho(jc.cfg, *(jout[k] for k in ("bare", "randomized", "shares", "hidings")),
+                                    RHO_BITS))
+    for out in ranks:
+        assert np.array_equal(to_np(out["rho"]), rho)
+        assert out["qualified"].tolist() == np.asarray(jout["qualified"]).tolist()
+        assert np.array_equal(to_np(out["master"]), np.asarray(jout["master"]))
+        assert ("blame" in out["phases_s"]) == tampered
+    assert torch.cat([o["ok"] for o in ranks]).tolist() == np.asarray(jout["ok"]).tolist()
+    assert np.array_equal(to_np(torch.cat([o["final_shares"] for o in ranks])), np.asarray(jout["final_shares"]))

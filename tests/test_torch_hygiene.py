@@ -63,7 +63,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dkg_tpu_torch.service.buckets", "dkg_tpu_torch.service.engine", "dkg_tpu_torch.service.durable",
             "dkg_tpu_torch.service.errors", "dkg_tpu_torch.service.slo", "dkg_tpu_torch.service.httpobs",
             "dkg_tpu_torch.service.faultsvc", "dkg_tpu_torch.service.scheduler", "dkg_tpu_torch.net.party",
-            "dkg_tpu_torch.net.faults", "dkg_tpu_torch.groups.precompute", "dkg_tpu_torch.groups.device"} <= set(_modules())
+            "dkg_tpu_torch.net.faults", "dkg_tpu_torch.groups.precompute", "dkg_tpu_torch.groups.device",
+            "dkg_tpu_torch.native", "dkg_tpu_torch.parallel", "dkg_tpu_torch.parallel.mesh",
+            "dkg_tpu_torch.parallel.hostmesh", "dkg_tpu_torch.parallel.multihost",
+            "dkg_tpu_torch.parallel.signmesh"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r} + ['chip_smoke']:\n"
@@ -76,11 +79,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("module", ["dkg_tpu_torch.utils.scanchunk", "dkg_tpu_torch.fields.matmul"])
+@pytest.mark.parametrize("module", ["dkg_tpu_torch.utils.scanchunk", "dkg_tpu_torch.fields.matmul",
+                                    "dkg_tpu_torch.native", "dkg_tpu_torch.parallel.mesh",
+                                    "dkg_tpu_torch.parallel.hostmesh", "dkg_tpu_torch.parallel.multihost",
+                                    "dkg_tpu_torch.parallel.signmesh"])
 def test_scale_modules_stand_alone(module):
     """The memory-bounded layer's modules (map_chunked; matmul_mod and its
-    routes) are among those the whole-port import check loads, and alone
-    pull in neither jax nor dkg_tpu."""
+    routes), the native runtime and the party mesh are among those the
+    whole-port import check loads, and alone pull in neither jax nor
+    dkg_tpu."""
     assert module in _modules()
     code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
             "sys.exit(1 if [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dkg_tpu')] else 0)\n")
@@ -405,6 +412,24 @@ def test_epoch_chaos_harness_defaults_to_cuda(tmp_path, monkeypatch):
                         lambda: tgp.base_table(cs, tgd.gen_host(cs), 16, device="cuda")):
         with pytest.raises((RuntimeError, AssertionError)):
             build_table()
+
+
+def test_party_mesh_defaults_to_cuda():
+    """The mesh's entry points put their ranks on the card unless the
+    caller passes the CPU: spawn's default device is "cuda", and without
+    a card spawn, make_mesh, global_party_mesh and init_multihost raise
+    before any process starts or any rendezvous is tried."""
+    from dkg_tpu_torch.parallel import hostmesh, multihost
+    from dkg_tpu_torch.parallel import mesh as pm
+
+    assert inspect.signature(hostmesh.spawn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    for entry in (lambda: hostmesh.spawn(print, 2), pm.make_mesh, multihost.global_party_mesh,
+                  lambda: multihost.init_multihost("127.0.0.1:1", 2, 0)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    assert pm.make_mesh(device="cpu").device == torch.device("cpu")
 
 
 def test_build_needs_nvcc(monkeypatch):
